@@ -1,0 +1,125 @@
+// Fused instance norm (+ AdaIN affine) (+ activation), forward, for sm_90a.
+//
+// Replaces the TPU kernel aclgan_tpu/ops/pallas/instance_norm.py::_fwd_kernel
+// (launched by _fwd_pallas). Same function: per (sample, channel) row, mean
+// and centered biased variance in f32, rsqrt(var + eps), optional
+// y * scale[row] + shift[row], then relu / lrelu(0.2) / tanh / none, stored in
+// the input's dtype.
+//
+// Layout: x is NCHW-contiguous, seen as rows = N*C rows of row_len = H*W
+// contiguous elements; scale/shift are (N, C) f32, so row r uses scale[r].
+// One 256-thread block per row. The TPU kernel held a whole sample slab in
+// VMEM; a 65,536-element row (256 KB in f32) does not fit in shared memory,
+// so every pass streams the row from global memory / L2: pass 1 sums, pass 2
+// sums squared deviations from the mean, pass 3 normalizes and stores.
+//
+// Bound on an H100: memory. The function must read x once and write y once
+// (2 * 2 bytes per element in bf16); the kernel reads x three times, so its
+// traffic is 2x the bound whenever a layer's rows overflow the 50 MB L2.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+
+enum Activation { kNone = 0, kRelu = 1, kLrelu = 2, kTanh = 3 };
+
+__device__ __forceinline__ float load_f32(const float* p) { return *p; }
+__device__ __forceinline__ float load_f32(const __nv_bfloat16* p) {
+  return __bfloat162float(*p);
+}
+__device__ __forceinline__ void store_f32(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store_f32(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16(v);  // round to nearest even, as XLA's convert
+}
+
+// Sum of v over the block; every thread receives the total.
+__device__ __forceinline__ float block_sum(float v, float* smem) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  if (lane == 0) smem[warp] = v;
+  __syncthreads();
+  v = lane < kWarps ? smem[lane] : 0.f;
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  __syncthreads();  // smem is free for the next call
+  return v;
+}
+
+__device__ __forceinline__ float activate(float v, int act) {
+  switch (act) {
+    case kRelu: return fmaxf(v, 0.f);
+    case kLrelu: return v >= 0.f ? v : 0.2f * v;
+    case kTanh: return tanhf(v);
+    default: return v;
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+instance_norm_fwd_kernel(const T* __restrict__ x, const float* __restrict__ scale,
+                         const float* __restrict__ shift, T* __restrict__ y,
+                         int64_t row_len, float eps, int act) {
+  __shared__ float smem[kWarps];
+  const int64_t row = blockIdx.x;
+  const T* xr = x + row * row_len;
+  T* yr = y + row * row_len;
+  const float inv_len = 1.f / static_cast<float>(row_len);
+
+  float acc = 0.f;
+#pragma unroll 4
+  for (int64_t i = threadIdx.x; i < row_len; i += kThreads) acc += load_f32(xr + i);
+  const float mean = block_sum(acc, smem) * inv_len;
+
+  acc = 0.f;
+#pragma unroll 4
+  for (int64_t i = threadIdx.x; i < row_len; i += kThreads) {
+    const float d = load_f32(xr + i) - mean;
+    acc += d * d;
+  }
+  const float rsig = rsqrtf(block_sum(acc, smem) * inv_len + eps);
+
+  const bool affine = scale != nullptr;
+  const float s = affine ? scale[row] : 1.f;
+  const float b = affine ? shift[row] : 0.f;
+#pragma unroll 4
+  for (int64_t i = threadIdx.x; i < row_len; i += kThreads) {
+    float v = (load_f32(xr + i) - mean) * rsig;
+    if (affine) v = v * s + b;
+    store_f32(yr + i, activate(v, act));
+  }
+}
+
+}  // namespace
+
+// dtype: 0 = float32, 1 = bfloat16. scale/shift: both null (IN) or both
+// (rows,) f32 (AdaIN). Launches on `stream`; returns cudaGetLastError().
+extern "C" int aclgan_instance_norm_fwd(const void* x, const float* scale,
+                                        const float* shift, void* y, long long rows,
+                                        long long row_len, int dtype, int act,
+                                        float eps, void* stream) {
+  const dim3 grid(static_cast<unsigned>(rows));
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) {
+    instance_norm_fwd_kernel<float><<<grid, kThreads, 0, st>>>(
+        static_cast<const float*>(x), scale, shift, static_cast<float*>(y), row_len,
+        eps, act);
+  } else if (dtype == 1) {
+    instance_norm_fwd_kernel<__nv_bfloat16><<<grid, kThreads, 0, st>>>(
+        static_cast<const __nv_bfloat16*>(x), scale, shift,
+        static_cast<__nv_bfloat16*>(y), row_len, eps, act);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" const char* aclgan_cuda_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
