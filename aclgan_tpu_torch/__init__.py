@@ -2,6 +2,6 @@
 
 Imports `torch`, never JAX and nothing of `aclgan_tpu`. Modules keep the JAX
 package's names; tensors are NCHW inside, NHWC at the public boundary
-(`ACLGAN.translate`, `serving.Translator`). Entry points run on CUDA unless
+(`ACLGAN.translate`, `ACLGAN.train_step`, `serving.Translator`). Entry points run on CUDA unless
 the caller passes `device="cpu"`.
 """

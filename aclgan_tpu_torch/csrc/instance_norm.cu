@@ -1,10 +1,17 @@
-// Fused instance norm (+ AdaIN affine) (+ activation), forward, for sm_90a.
+// Fused instance norm (+ AdaIN affine) (+ activation), forward and backward,
+// for sm_90a.
 //
-// Replaces the TPU kernel aclgan_tpu/ops/pallas/instance_norm.py::_fwd_kernel
-// (launched by _fwd_pallas). Same function: per (sample, channel) row, mean
-// and centered biased variance in f32, rsqrt(var + eps), optional
+// Forward (K1) replaces the TPU kernel
+// aclgan_tpu/ops/pallas/instance_norm.py::_fwd_kernel (launched by
+// _fwd_pallas). Same function: per (sample, channel) row, mean and centered
+// biased variance in f32, rsqrt(var + eps), optional
 // y * scale[row] + shift[row], then relu / lrelu(0.2) / tanh / none, stored in
 // the input's dtype.
+//
+// Backward (K2) replaces _bwd_kernel (launched by _bwd_pallas): the
+// activation gate taken from the saved output y, the stats recomputed from x,
+// dx = rsig * s * (dyp - mean(dyp) - xhat * mean(dyp * xhat)) in x's dtype, and
+// per row dscale = sum(dyp * xhat), dshift = sum(dyp) in f32.
 //
 // Layout: x is NCHW-contiguous, seen as rows = N*C rows of row_len = H*W
 // contiguous elements; scale/shift are (N, C) f32, so row r uses scale[r].
@@ -13,9 +20,16 @@
 // so every pass streams the row from global memory / L2: pass 1 sums, pass 2
 // sums squared deviations from the mean, pass 3 normalizes and stores.
 //
-// Bound on an H100: memory. The function must read x once and write y once
+// Bound on an H100: memory. The forward must read x once and write y once
 // (2 * 2 bytes per element in bf16); the kernel reads x three times, so its
-// traffic is 2x the bound whenever a layer's rows overflow the 50 MB L2.
+// traffic is 2x the bound whenever a layer's rows overflow the 50 MB L2. The
+// backward must read x, y and dy once and write dx once (4 * 2 bytes per
+// element in bf16); the kernel streams x four times and y and dy twice (8
+// reads), so it moves up to 2.25x the bound's bytes: with ~1,000 rows in
+// flight the rows of a 64x256^2 layer (384 KB of x, y and dy each in bf16)
+// do not stay in L2 between passes. Taking (mean, rsig) saved by the forward
+// would drop two passes; the kernel recomputes them so that it stays a
+// function of (x, scale, y, dy), as _bwd_pallas is.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -96,6 +110,78 @@ instance_norm_fwd_kernel(const T* __restrict__ x, const float* __restrict__ scal
   }
 }
 
+
+// Upstream gradient through the activation, from the activation's output y
+// (relu and lrelu keep the sign of their input; tanh' = 1 - y^2).
+__device__ __forceinline__ float gate(float dy, float y, int act) {
+  switch (act) {
+    case kRelu: return y > 0.f ? dy : 0.f;
+    case kLrelu: return y >= 0.f ? dy : 0.2f * dy;
+    case kTanh: return dy * (1.f - y * y);
+    default: return dy;
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+instance_norm_bwd_kernel(const T* __restrict__ x, const float* __restrict__ scale,
+                         const T* __restrict__ y, const T* __restrict__ dy,
+                         T* __restrict__ dx, float* __restrict__ dscale,
+                         float* __restrict__ dshift, int64_t row_len, float eps,
+                         int act) {
+  __shared__ float smem[kWarps];
+  const int64_t row = blockIdx.x;
+  const int64_t off = row * row_len;
+  const T* xr = x + off;
+  const T* yr = y + off;
+  const T* dyr = dy + off;
+  T* dxr = dx + off;
+  const float inv_len = 1.f / static_cast<float>(row_len);
+
+  // pass 1: mean
+  float acc = 0.f;
+#pragma unroll 4
+  for (int64_t i = threadIdx.x; i < row_len; i += kThreads) acc += load_f32(xr + i);
+  const float mean = block_sum(acc, smem) * inv_len;
+
+  // pass 2: centered variance
+  acc = 0.f;
+#pragma unroll 4
+  for (int64_t i = threadIdx.x; i < row_len; i += kThreads) {
+    const float d = load_f32(xr + i) - mean;
+    acc += d * d;
+  }
+  const float rsig = rsqrtf(block_sum(acc, smem) * inv_len + eps);
+
+  // pass 3: gated dy, with sum(dyp) and sum(dyp * xhat)
+  float s_dy = 0.f, s_dyx = 0.f;
+#pragma unroll 4
+  for (int64_t i = threadIdx.x; i < row_len; i += kThreads) {
+    const float g = gate(load_f32(dyr + i), load_f32(yr + i), act);
+    s_dy += g;
+    s_dyx += g * ((load_f32(xr + i) - mean) * rsig);
+  }
+  s_dy = block_sum(s_dy, smem);
+  s_dyx = block_sum(s_dyx, smem);
+
+  const float s = scale != nullptr ? scale[row] : 1.f;
+  if (dscale != nullptr && threadIdx.x == 0) {
+    dscale[row] = s_dyx;
+    dshift[row] = s_dy;
+  }
+
+  // pass 4: dx
+  const float m_dy = s_dy * inv_len;
+  const float m_dyx = s_dyx * inv_len;
+  const float k = rsig * s;
+#pragma unroll 4
+  for (int64_t i = threadIdx.x; i < row_len; i += kThreads) {
+    const float g = gate(load_f32(dyr + i), load_f32(yr + i), act);
+    const float xhat = (load_f32(xr + i) - mean) * rsig;
+    store_f32(dxr + i, k * (g - m_dy - xhat * m_dyx));
+  }
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. scale/shift: both null (IN) or both
@@ -114,6 +200,32 @@ extern "C" int aclgan_instance_norm_fwd(const void* x, const float* scale,
     instance_norm_fwd_kernel<__nv_bfloat16><<<grid, kThreads, 0, st>>>(
         static_cast<const __nv_bfloat16*>(x), scale, shift,
         static_cast<__nv_bfloat16*>(y), row_len, eps, act);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// dtype and act as for the forward; x, y, dy and dx share one layout.
+// scale: null (IN: s = 1) or (rows,) f32. dscale/dshift: both null (no
+// affine: nothing is summed out) or both (rows,) f32 outputs.
+extern "C" int aclgan_instance_norm_bwd(const void* x, const float* scale,
+                                        const void* y, const void* dy, void* dx,
+                                        float* dscale, float* dshift, long long rows,
+                                        long long row_len, int dtype, int act,
+                                        float eps, void* stream) {
+  const dim3 grid(static_cast<unsigned>(rows));
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) {
+    instance_norm_bwd_kernel<float><<<grid, kThreads, 0, st>>>(
+        static_cast<const float*>(x), scale, static_cast<const float*>(y),
+        static_cast<const float*>(dy), static_cast<float*>(dx), dscale, dshift,
+        row_len, eps, act);
+  } else if (dtype == 1) {
+    instance_norm_bwd_kernel<__nv_bfloat16><<<grid, kThreads, 0, st>>>(
+        static_cast<const __nv_bfloat16*>(x), scale,
+        static_cast<const __nv_bfloat16*>(y), static_cast<const __nv_bfloat16*>(dy),
+        static_cast<__nv_bfloat16*>(dx), dscale, dshift, row_len, eps, act);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }

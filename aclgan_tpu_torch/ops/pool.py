@@ -7,6 +7,12 @@ import torch.nn.functional as F
 from torch import nn
 
 
+def avg_pool_3x3_s2(x: torch.Tensor) -> torch.Tensor:
+    """AvgPool2d(3, stride=2, padding=1, count_include_pad=False) between the
+    discriminator's scales (networks.py:33), in float32, cast back."""
+    return F.avg_pool2d(x.float(), 3, 2, 1, count_include_pad=False).to(x.dtype)
+
+
 def upsample_nearest_2x(x: torch.Tensor) -> torch.Tensor:
     """nn.Upsample(scale_factor=2) in the decoder (networks.py:256)."""
     return F.interpolate(x, scale_factor=2, mode="nearest")

@@ -1,21 +1,38 @@
-"""ACL-GAN model holder: the two generators and the translation path.
+"""ACL-GAN trainer: networks, optimizers and the train step, NCHW.
 
-Port of the inference part of `aclgan_tpu/trainer.py` (`to_model_range`,
-`ACLGAN`, `_split_img_mask`, `translate`). Optimizers, discriminators and the
-train steps wait for the training slice.
+Port of `aclgan_tpu/trainer.py` (`to_model_range`, `ACLGAN`: `init_state`,
+`learning_rate`, `generator_forward`, the D and G updates, `train_step`,
+`translate`). What differs from the JAX package, by design:
+
+- State lives on the object (the networks, two Adams, the EMA copies and the
+  global `step`), and `train_step` updates it in place; the JAX step is a pure
+  function of a `TrainState` pytree.
+- z is drawn from one `torch.Generator` on the device, seeded at
+  `init_state`; it cannot reproduce the JAX `fold_in` stream, so the tests
+  inject the JAX draws through `train_step(z=...)`.
+- Params stay float32; each conv/dense casts to `cfg.tpu.compute_dtype`
+  itself (no autocast), as flax's `dtype=` does.
+
+Calls to the same network are batched along dim 0 (every norm is per
+sample), image pairs for the consistency discriminator along channels.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple, Union
+from typing import Dict, Optional, Sequence, Tuple, Union
 
 import torch
 
 from aclgan_tpu_torch import losses
 from aclgan_tpu_torch.config import Config
+from aclgan_tpu_torch.models.discriminator import MsDiscriminator
 from aclgan_tpu_torch.models.generator import AdaINGenerator
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+GEN_NAMES = ("AB", "BA")
+DIS_NAMES = ("A", "B", "2")
+Metrics = Dict[str, torch.Tensor]
+ZTriple = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
 
 def resolve_device(device: Union[str, torch.device]) -> torch.device:
@@ -41,9 +58,25 @@ def to_model_range(x: torch.Tensor) -> torch.Tensor:
     return x.float() * (2.0 / 255.0) - 1.0
 
 
+def _check_trainable(cfg: Config) -> None:
+    """Raise on the train options the port does not have yet."""
+    tpu = cfg.tpu
+    if int(tpu.grad_accum) > 1:
+        raise NotImplementedError("tpu.grad_accum > 1 is not ported yet (ROADMAP.md, "
+                                  "Queue 1, M4)")
+    if tpu.remat not in (False, "", None, "none"):
+        raise NotImplementedError("tpu.remat is not ported yet (ROADMAP.md, Queue 1, M4: "
+                                  "torch.utils.checkpoint)")
+    if tpu.moment_dtype != "float32":
+        raise NotImplementedError(f"tpu.moment_dtype {tpu.moment_dtype!r} is not ported "
+                                  "yet (ROADMAP.md, Queue 1, M4: float32 moments only)")
+
+
 class ACLGAN:
     """Holds `gen_AB` / `gen_BA` (both built on input_dim_a channels) with
-    float32 params, computing in `cfg.tpu.compute_dtype`."""
+    float32 params, computing in `cfg.tpu.compute_dtype`. `init_state` adds
+    what training needs: `dis_A` / `dis_B` / `dis_2`, the optimizers, the EMA
+    and the step; serving builds only the generators."""
 
     def __init__(self, cfg: Config, device: Union[str, torch.device] = "cuda",
                  seed: Optional[int] = None):
@@ -51,7 +84,8 @@ class ACLGAN:
         self.device = resolve_device(device)
         self.dtype = compute_dtype(cfg)
         self.use_focus = cfg.use_focus
-        gen = torch.Generator().manual_seed(cfg.seed if seed is None else seed)
+        self.seed = cfg.seed if seed is None else seed
+        gen = torch.Generator().manual_seed(self.seed)
 
         def make():
             return AdaINGenerator(cfg.gen, cfg.data.input_dim_a, cfg.init, self.dtype,
@@ -60,12 +94,239 @@ class ACLGAN:
         self.gen_AB = make()
         self.gen_BA = make()
 
+    # ------------------------------------------------------------------
+    def init_state(self, seed: Optional[int] = None) -> None:
+        """Build the training state (`aclgan_tpu/trainer.py:150-190`): the three
+        discriminators (gaussian init; dis_2 sees input_dim_b channels), one
+        Adam over both generators and one over the discriminators (coupled L2
+        weight decay, as `torch.optim.Adam` has it), the EMA copies when
+        `tpu.ema_decay > 0`, step 0, and the z generator. Discriminator
+        weights draw from seed + 1 (the generators took the seed), z from
+        the seed on the device."""
+        cfg = self.cfg
+        _check_trainable(cfg)
+        seed = self.seed if seed is None else seed
+        gen = torch.Generator().manual_seed(seed + 1)
+        dims = {"A": cfg.data.input_dim_a, "B": cfg.data.input_dim_a,
+                "2": cfg.data.input_dim_b}
+        for name in DIS_NAMES:
+            setattr(self, f"dis_{name}", MsDiscriminator(
+                cfg.dis, dims[name], "gaussian", self.dtype, gen).to(self.device))
+        adam = dict(lr=cfg.lr, betas=(cfg.beta1, cfg.beta2), eps=1e-8,
+                    weight_decay=cfg.weight_decay)
+        self.gen_params = [p for n in GEN_NAMES for p in self.gen(n).parameters()]
+        self.dis_params = [p for n in DIS_NAMES for p in self.dis(n).parameters()]
+        self.gen_opt = torch.optim.Adam(self.gen_params, **adam)
+        self.dis_opt = torch.optim.Adam(self.dis_params, **adam)
+        self.ema_decay = float(cfg.tpu.ema_decay)
+        self.ema = None
+        if self.ema_decay > 0:  # copies, never views of the live weights
+            self.ema = {n: {k: p.detach().clone()
+                            for k, p in self.gen(n).named_parameters()}
+                        for n in GEN_NAMES}
+        self.step = 0
+        self.z_gen = torch.Generator(device=self.device).manual_seed(seed)
+
+    def gen(self, name: str) -> AdaINGenerator:
+        return getattr(self, f"gen_{name}")
+
+    def dis(self, name: str) -> MsDiscriminator:
+        return getattr(self, f"dis_{name}")
+
+    # ------------------------------------------------------------------
+    def learning_rate(self, step: int) -> float:
+        """StepLR stepped every iteration, on the global step (`:140-147`)."""
+        cfg = self.cfg
+        if cfg.lr_policy == "constant":
+            return cfg.lr
+        if cfg.lr_policy == "step":
+            return cfg.lr * cfg.gamma ** (step // cfg.step_size)
+        raise NotImplementedError(f"learning rate policy [{cfg.lr_policy}] is not implemented")
+
     def _split_img_mask(self, dec_out: torch.Tensor):
         """(N, C, H, W) decoder output -> (rgb, mask or None)."""
         if self.use_focus:
             return dec_out[:, :3], dec_out[:, 3:4]
         return dec_out, None
 
+    def _blend(self, dec_out: torch.Tensor, bg: torch.Tensor):
+        """Decoder output -> (image blended over bg by its mask, mask)."""
+        img, mask = self._split_img_mask(dec_out)
+        if mask is None:
+            return img, None
+        return losses.focus_translation(img, bg, mask), mask
+
+    def generator_forward(self, x_a: torch.Tensor, x_b: torch.Tensor, z1: torch.Tensor,
+                          z2: torch.Tensor, z3: torch.Tensor,
+                          with_recon: bool) -> Dict[str, Optional[torch.Tensor]]:
+        """The shared translation graph (`:284-372`), NCHW in [-1, 1]. The D
+        step (with_recon False) encodes no x_b and no styles."""
+        b = x_a.shape[0]
+        d = self.dtype
+        x_a, x_b = x_a.to(d), x_b.to(d)
+        g_ab, g_ba = self.gen_AB, self.gen_BA
+        if with_recon:
+            c_ab = g_ab.encode_content(torch.cat([x_a, x_b], 0))
+            c_1, c_4 = c_ab[:b], c_ab[b:]
+            s_4 = g_ab.encode_style(x_b)
+            c_2 = g_ba.encode_content(x_a)
+            s_2 = g_ba.encode_style(x_a)
+        else:
+            c_1 = g_ab.encode_content(x_a)
+            c_2 = g_ba.encode_content(x_a)
+        z1, z2, z3 = z1.to(d), (self.cfg.alpha * z2).to(d), z3.to(d)  # alpha: z2 only
+
+        if with_recon:
+            dec_ab = g_ab.decode(torch.cat([c_1, c_4], 0), torch.cat([z1, s_4], 0))
+            dec_B, dec_B_recon = dec_ab[:b], dec_ab[b:]
+        else:
+            dec_B = g_ab.decode(c_1, z1)
+        x_B_fake, x_B_mask = self._blend(dec_B, x_a)
+
+        c_3 = g_ba.encode_content(x_B_fake)
+        contents = [c_2, c_3] + ([c_2] if with_recon else [])
+        styles = [z2, z3] + ([s_2] if with_recon else [])
+        dec_ba = g_ba.decode(torch.cat(contents, 0), torch.cat(styles, 0))
+        x_A_fake, x_A_mask = self._blend(dec_ba[:b], x_a)
+        x_A2_fake, x_A2_mask = self._blend(dec_ba[b:2 * b], x_B_fake)
+
+        out = {
+            "x_B_fake": x_B_fake, "x_A_fake": x_A_fake, "x_A2_fake": x_A2_fake,
+            "x_B_mask": x_B_mask, "x_A_mask": x_A_mask, "x_A2_mask": x_A2_mask,
+            # channel-concat pairs for the consistency discriminator
+            "pair_A1": torch.cat([x_a, x_A_fake], 1),
+            "pair_A2": torch.cat([x_a, x_A2_fake], 1),
+        }
+        if with_recon:
+            # identity recons are the raw first 3 channels, never blended
+            out["x_A_recon"] = dec_ba[2 * b:, :3]
+            out["x_B_recon"] = dec_B_recon[:, :3]
+        return out
+
+    # ------------------------------------------------------------------
+    def _dis_loss(self, fwd, x_a: torch.Tensor, x_b: torch.Tensor
+                  ) -> Tuple[torch.Tensor, Metrics]:
+        """D losses (`:380-419`), one forward per discriminator."""
+        cfg, b, gt = self.cfg, x_a.shape[0], self.cfg.dis.gan_type
+        x_a, x_b = x_a.to(self.dtype), x_b.to(self.dtype)
+        outs = self.dis_A(torch.cat([fwd["x_A_fake"], fwd["x_A2_fake"], x_a], 0))
+        real_a = [o[2 * b:] for o in outs]
+        loss_A = 0.5 * (losses.dis_loss([o[:b] for o in outs], real_a, gt)
+                        + losses.dis_loss([o[b:2 * b] for o in outs], real_a, gt))
+        outs = self.dis_B(torch.cat([fwd["x_B_fake"], x_b], 0))
+        loss_B = losses.dis_loss([o[:b] for o in outs], [o[b:] for o in outs], gt)
+        # dis_2: pair2 plays "real", pair1 "fake" (trainer.py:286)
+        outs = self.dis_2(torch.cat([fwd["pair_A1"], fwd["pair_A2"]], 0))
+        loss_2 = losses.dis_loss([o[:b] for o in outs], [o[b:] for o in outs], gt)
+        total = cfg.gan_w * loss_A + cfg.gan_w * loss_B + cfg.gan_cw * loss_2
+        return total, {"loss_dis_A": loss_A, "loss_dis_B": loss_B,
+                       "loss_dis_2": loss_2, "loss_dis_total": total}
+
+    def _gen_loss(self, x_a: torch.Tensor, x_b: torch.Tensor, z: ZTriple
+                  ) -> Tuple[torch.Tensor, Metrics]:
+        """G losses (`:421-478`) against the discriminators as they stand."""
+        cfg, b, gt = self.cfg, x_a.shape[0], self.cfg.dis.gan_type
+        fwd = self.generator_forward(x_a, x_b, *z, with_recon=True)
+        outs = self.dis_A(torch.cat([fwd["x_A_fake"], fwd["x_A2_fake"]], 0))
+        adv_A = 0.5 * (losses.gen_loss([o[:b] for o in outs], gt)
+                       + losses.gen_loss([o[b:] for o in outs], gt))
+        adv_B = losses.gen_loss(self.dis_B(fwd["x_B_fake"]), gt)
+        outs = self.dis_2(torch.cat([fwd["pair_A1"], fwd["pair_A2"]], 0))
+        adv_2 = losses.gen_d2_loss([o[:b] for o in outs], [o[b:] for o in outs], gt)
+        total = cfg.gan_w * adv_A + cfg.gan_w * adv_B + cfg.gan_cw * adv_2
+        metrics = {"loss_gen_adv_A": adv_A, "loss_gen_adv_B": adv_B,
+                   "loss_gen_adv_2": adv_2}
+        if self.use_focus:
+            # masks mapped to [0,1], then size + digit terms over H*W*B*3
+            norm = x_a.shape[2] * x_a.shape[3] * b * 3
+            focus_total = 0.0
+            for name in ("B", "A", "A2"):
+                m01 = (fwd[f"x_{name}_mask"].float() + 1.0) * 0.5
+                size_l = losses.focus_size_loss(m01, cfg.focus_upper, cfg.focus_lower,
+                                                cfg.focus_delta)
+                digit_l = losses.focus_digit_loss(m01, cfg.focus_epsilon)
+                metrics[f"loss_gen_focus_{name}_size"] = size_l
+                metrics[f"loss_gen_focus_{name}_digit"] = digit_l
+                focus_total = focus_total + size_l + digit_l
+            total = total + cfg.focus_loss * focus_total / norm
+        idt_A = losses.l1_loss(fwd["x_A_recon"], x_a)
+        idt_B = losses.l1_loss(fwd["x_B_recon"], x_b)
+        total = total + cfg.recon_x_w * idt_A + cfg.recon_x_w * idt_B
+        metrics.update(loss_idt_A=idt_A, loss_idt_B=idt_B, loss_gen_total=total)
+        return total, metrics
+
+    def _apply(self, opt: torch.optim.Optimizer) -> None:
+        lr = self.learning_rate(self.step)
+        for group in opt.param_groups:
+            group["lr"] = lr
+        opt.step()
+
+    def dis_update(self, x_a: torch.Tensor, x_b: torch.Tensor, z: ZTriple) -> Metrics:
+        """One discriminator update (`:544-571`); the generators run without
+        a graph."""
+        with torch.no_grad():
+            fwd = self.generator_forward(x_a, x_b, *z, with_recon=False)
+        total, metrics = self._dis_loss(fwd, x_a, x_b)
+        self.dis_opt.zero_grad(set_to_none=True)
+        total.backward()
+        self._apply(self.dis_opt)
+        return metrics
+
+    def gen_update(self, x_a: torch.Tensor, x_b: torch.Tensor, z: ZTriple) -> Metrics:
+        """One generator update (`:573-603`) against the discriminators already
+        stepped this iteration. Gradients are taken for the generators' params
+        only: the discriminators' weight gradients are never computed."""
+        total, metrics = self._gen_loss(x_a, x_b, z)
+        grads = torch.autograd.grad(total, self.gen_params)
+        for p, g in zip(self.gen_params, grads):
+            p.grad = g
+        self._apply(self.gen_opt)
+        if self.ema is not None:
+            d = self.ema_decay
+            with torch.no_grad():
+                for n in GEN_NAMES:
+                    for k, p in self.gen(n).named_parameters():
+                        self.ema[n][k].mul_(d).add_(p, alpha=1.0 - d)
+        return metrics
+
+    def _draw_z(self, batch: int) -> ZTriple:
+        shape = (batch, self.cfg.gen.style_dim)
+        return tuple(torch.randn(shape, generator=self.z_gen, device=self.device)
+                     for _ in range(3))
+
+    def _images(self, x) -> torch.Tensor:
+        """NHWC uint8 or [-1, 1] float -> NCHW float in [-1, 1] on the device."""
+        x = torch.as_tensor(x).to(self.device)
+        return to_model_range(x).permute(0, 3, 1, 2).contiguous()
+
+    def train_step(self, x_a, x_b, do_dis: bool, do_gen: bool, step_increment: int = 1,
+                   z: Optional[Dict[str, Sequence]] = None) -> Metrics:
+        """One iteration (`:605-642`): the D update, then the G update, each on
+        its own z, as the cadence asks. `step_increment` = 1 + the iterations
+        the cadence skipped since the last call, so `step` (and the StepLR
+        schedule) follows the global iteration. `z` ({"dis": (z1, z2, z3),
+        "gen": (...)}, each (B, style_dim)) replaces the draws. Returns the
+        metrics as 0-dim tensors under the JAX names, without a host sync."""
+        if step_increment != 1:
+            self.step += step_increment - 1
+        x_a, x_b = self._images(x_a), self._images(x_b)
+        b = x_a.shape[0]
+
+        def noise(kind: str) -> ZTriple:
+            if z is not None:
+                return tuple(torch.as_tensor(v).to(self.device, torch.float32)
+                             for v in z[kind])
+            return self._draw_z(b)
+
+        metrics: Metrics = {}
+        if do_dis:
+            metrics.update(self.dis_update(x_a, x_b, noise("dis")))
+        if do_gen:
+            metrics.update(self.gen_update(x_a, x_b, noise("gen")))
+        self.step += 1
+        return {k: v.detach() for k, v in metrics.items()}
+
+    # ------------------------------------------------------------------
     @torch.no_grad()
     def translate(self, x: torch.Tensor, style: torch.Tensor, a2b: bool = True,
                   eval_blend: bool = True
@@ -77,8 +338,7 @@ class ACLGAN:
         encoder alone gives the same content code.
         """
         gen = self.gen_AB if a2b else self.gen_BA
-        x = to_model_range(x.to(self.device)).permute(0, 3, 1, 2).contiguous()
-        x = x.to(self.dtype)
+        x = self._images(x).to(self.dtype)
         content = gen.encode_content(x)
         dec = gen.decode(content, style.to(self.device, self.dtype))
         img, mask = self._split_img_mask(dec)

@@ -1,20 +1,23 @@
-"""Port K1 (`aclgan_tpu_torch/ops/kernels/instance_norm.py`) against the JAX
-Pallas kernel it replaces.
+"""Port K1 and K2 (`aclgan_tpu_torch/ops/kernels/instance_norm.py`) against
+the JAX Pallas kernels they replace.
 
-On the CPU the wrapper runs its plain version; that is compared with the
-Pallas `_fused_in` run in TPU interpret mode, exactly as tests/test_pallas.py
-runs it. The CUDA kernel itself is compared with the plain version in
-tests/test_torch_cuda.py, which needs a card.
+On the CPU the wrapper runs its plain versions; they are compared with the
+Pallas `_fused_in` / `_bwd_pallas` run in TPU interpret mode, exactly as
+tests/test_pallas.py runs them. The CUDA kernels themselves are compared with
+the plain versions in tests/test_torch_cuda.py, which needs a card.
 """
 
 import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 from jax.experimental.pallas import tpu as pltpu
 
-from aclgan_tpu.ops.pallas.instance_norm import _fused_in
+from aclgan_tpu.ops.activations import apply_activation as japply_activation
+from aclgan_tpu.ops.norms import adaptive_instance_norm, instance_norm
+from aclgan_tpu.ops.pallas.instance_norm import _bwd_pallas, _fused_in, _fwd_pallas
 from aclgan_tpu_torch.ops.activations import apply_activation
 from aclgan_tpu_torch.ops.kernels import instance_norm as K
 
@@ -76,3 +79,97 @@ def test_wrapper_rejects_bad_arguments():
         K.fused_instance_norm(torch.zeros(2, 3, 4))
     with pytest.raises(ValueError, match="activation"):
         K.fused_instance_norm(x, activ="gelu")
+
+
+def _in_case(seed, affine):
+    """x (NHWC), scale, shift and an upstream gradient w, from a numpy seed."""
+    rng = np.random.RandomState(seed)
+    x = (rng.randn(2, 8, 16, 32) * 2 + 0.5).astype(np.float32)
+    scale = rng.randn(2, 32).astype(np.float32) if affine else None
+    shift = rng.randn(2, 32).astype(np.float32) if affine else None
+    w = rng.randn(2, 8, 16, 32).astype(np.float32)
+    return x, scale, shift, w
+
+
+def _j(a):
+    return None if a is None else jnp.asarray(a)
+
+
+def _t(a):
+    return None if a is None else torch.from_numpy(a)
+
+
+@pytest.mark.parametrize("activ", ["none", "relu", "lrelu", "tanh"])
+@pytest.mark.parametrize("affine", [False, True])
+def test_bwd_plain_matches_pallas_kernel(activ, affine):
+    x, scale, shift, dy = _in_case(5, affine)
+    with pltpu.force_tpu_interpret_mode():
+        y = _fwd_pallas(jnp.asarray(x), _j(scale), _j(shift), 1e-5, activ)
+        want = _bwd_pallas(jnp.asarray(x), _j(scale), y, jnp.asarray(dy), 1e-5, activ)
+    dx, ds, db = K.instance_norm_bwd_plain(
+        _nchw(x), _t(scale), _nchw(np.asarray(y)), _nchw(dy), 1e-5, activ)
+    np.testing.assert_allclose(_nhwc(dx), np.asarray(want[0]), rtol=1e-4, atol=1e-4)
+    assert ds.shape == db.shape == (2, 32) and ds.dtype == torch.float32
+    np.testing.assert_allclose(ds.numpy(), np.asarray(want[1]), rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(db.numpy(), np.asarray(want[2]), rtol=1e-4, atol=1e-4)
+
+
+def _port_grads(x, scale, shift, w, activ):
+    xt = _nchw(x).requires_grad_()
+    st = None if scale is None else torch.from_numpy(scale).requires_grad_()
+    bt = None if shift is None else torch.from_numpy(shift).requires_grad_()
+    y = K.fused_instance_norm(xt, st, bt, 1e-5, activ)
+    (y * _nchw(w)).sum().backward()
+    return [_nhwc(xt.grad)] + ([] if st is None else [st.grad.numpy(), bt.grad.numpy()])
+
+
+def _jax_grads(fn, x, scale, shift, w):
+    wj = jnp.asarray(w)
+    if scale is None:
+        return [np.asarray(jax.grad(lambda x: jnp.sum(fn(x, None, None) * wj))(
+            jnp.asarray(x)))]
+    grads = jax.grad(lambda x, s, b: jnp.sum(fn(x, s, b) * wj), argnums=(0, 1, 2))(
+        jnp.asarray(x), jnp.asarray(scale), jnp.asarray(shift))
+    return [np.asarray(g) for g in grads]
+
+
+def _jnp_composition(activ):
+    def fn(x, s, b):
+        y = instance_norm(x) if s is None else adaptive_instance_norm(x, s, b)
+        return japply_activation(y, activ)
+    return fn
+
+
+@pytest.mark.parametrize("oracle", ["pallas_vjp", "jnp_composition"])
+@pytest.mark.parametrize("activ", ["none", "relu", "lrelu", "tanh"])
+@pytest.mark.parametrize("affine", [False, True])
+def test_autograd_matches_jax_grad(oracle, activ, affine):
+    """dx, dscale, dshift of the port's CPU autograd against jax.grad of the
+    Pallas custom_vjp (K2 in interpret mode) and of the plain jnp norm and
+    activation (which also holds tanh, not in tests/test_pallas.py)."""
+    x, scale, shift, w = _in_case(6, affine)
+    if oracle == "pallas_vjp":
+        def fn(x, s, b):
+            return _fused_in(x, s, b, 1e-5, activ)
+        with pltpu.force_tpu_interpret_mode():
+            want = _jax_grads(fn, x, scale, shift, w)
+    else:
+        want = _jax_grads(_jnp_composition(activ), x, scale, shift, w)
+    got = _port_grads(x, scale, shift, w, activ)
+    assert len(got) == len(want)
+    for g, wv in zip(got, want):
+        np.testing.assert_allclose(g, wv, rtol=1e-4, atol=1e-4)
+
+
+def test_bwd_plain_gates_and_casts():
+    """dx comes back in x's dtype; relu's gate drops the gradient where y is 0."""
+    rng = np.random.RandomState(7)
+    x = torch.from_numpy(rng.randn(2, 3, 5, 5).astype(np.float32))
+    y = K.fused_instance_norm(x, activ="relu")
+    dy = torch.ones_like(x)
+    dx, ds, db = K.instance_norm_bwd_plain(x.bfloat16(), None, y.bfloat16(),
+                                           dy.bfloat16(), 1e-5, "relu")
+    assert dx.dtype == torch.bfloat16
+    torch.testing.assert_close(db, (y > 0).float().sum(dim=(2, 3)))
+    with pytest.raises(ValueError, match="gates"):
+        K.instance_norm_bwd_plain(x, None, y, dy, 1e-5, "selu")
