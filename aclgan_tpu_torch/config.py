@@ -1,4 +1,4 @@
-"""Typed configuration schema + a YAML reader that needs no PyYAML.
+"""Typed configuration schema + a YAML reader and writer that need no PyYAML.
 
 The schema is the JAX package's (`aclgan_tpu/config.py`): the same
 dataclasses, field names, defaults and unknown-key rejection, so one YAML file
@@ -10,8 +10,8 @@ are TPU/XLA knobs the port ignores.
 
 `load_config` parses the YAML subset `configs/*.yaml` uses — `key: scalar`
 lines, one level of nested mappings, `#` comments — with PyYAML's YAML 1.1
-scalar rules for null, bool, int and float, because the GPU host has no
-PyYAML.
+scalar rules for null, bool, int and float, and `save_config` writes that
+subset back, so neither needs PyYAML, which the GPU host may lack.
 """
 
 from __future__ import annotations
@@ -284,3 +284,49 @@ def load_config(path: Union[str, os.PathLike]) -> Config:
     with open(path, "r") as stream:
         raw = parse_yaml(stream.read())
     return from_dict(raw)
+
+
+_PLAIN = re.compile(r"[A-Za-z_/][A-Za-z0-9_./-]*")
+
+
+def _dump_scalar(value: Any) -> str:
+    """One scalar as `parse_yaml` and PyYAML both read it back: floats keep a
+    `.` (YAML 1.1 reads `1e-05` as a string), and a string is quoted unless
+    it is a plain word that no other scalar type claims."""
+    if value is None:
+        return "null"
+    if isinstance(value, bool):
+        return "true" if value else "false"
+    if isinstance(value, int):
+        return str(value)
+    if isinstance(value, float):
+        if value != value:
+            return ".nan"
+        if value in (float("inf"), float("-inf")):
+            return ".inf" if value > 0 else "-.inf"
+        text = repr(value)
+        if "." not in text:
+            text = text.replace("e", ".0e")
+        return text
+    if isinstance(value, str):
+        if _PLAIN.fullmatch(value) and _scalar(value) == value:
+            return value
+        for quote in "'\"":
+            if quote not in value and "\\" not in value and "\n" not in value:
+                return f"{quote}{value}{quote}"
+    raise ValueError(f"cannot write {value!r} in the YAML subset parse_yaml reads")
+
+
+def save_config(cfg: Config, path: Union[str, os.PathLike]) -> None:
+    """Snapshot the config next to the outputs, as `yaml.safe_dump` would
+    (`aclgan_tpu/config.py:254-257`), in the subset `load_config` reads: the
+    GPU host has no PyYAML."""
+    lines = []
+    for key, value in cfg.to_dict().items():
+        if isinstance(value, dict):
+            lines.append(f"{key}:")
+            lines += [f"  {k}: {_dump_scalar(v)}" for k, v in value.items()]
+        else:
+            lines.append(f"{key}: {_dump_scalar(value)}")
+    with open(path, "w") as stream:
+        stream.write("\n".join(lines) + "\n")

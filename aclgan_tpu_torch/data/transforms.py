@@ -1,14 +1,28 @@
-"""Image transforms of the serving path (`aclgan_tpu/data/transforms.py`).
+"""Image transforms matching the reference's torchvision pipeline
+(`aclgan_tpu/data/transforms.py`).
 
-PIL is imported only where an image must be resized, since the GPU host has
-no Pillow; already-square images of the served size never reach it.
+Train: RandomHorizontalFlip -> Resize(shortest side) -> RandomCrop(h, w), on
+a PIL image, to (H, W, 3) uint8; test loaders crop to new_size. The rng is
+drawn in the JAX package's order (flip, then top, then left), so both
+packages cut the same crops. PIL is imported only where an image is decoded,
+flipped or resized, since the GPU host has no Pillow; already-square images
+of the served size never reach it.
 """
 
 from __future__ import annotations
 
+from dataclasses import dataclass
 from typing import Optional
 
 import numpy as np
+
+
+@dataclass(frozen=True)
+class TransformSpec:
+    new_size: Optional[int]    # resize shortest side to this (None = no resize)
+    crop_h: Optional[int]      # random-crop target (None = no crop)
+    crop_w: Optional[int]
+    flip: bool                 # random horizontal flip (train only)
 
 
 def resize_shortest(img, new_size: Optional[int]):
@@ -28,6 +42,32 @@ def resize_shortest(img, new_size: Optional[int]):
     from PIL import Image
 
     return img.resize((ow, oh), Image.BILINEAR)
+
+
+def flip_left_right(img):
+    from PIL import Image
+
+    return img.transpose(Image.FLIP_LEFT_RIGHT)
+
+
+def apply_transform(img, spec: TransformSpec, rng: np.random.Generator) -> np.ndarray:
+    """PIL image -> (H, W, 3) uint8 after flip/resize/crop."""
+    if spec.flip and rng.random() < 0.5:
+        img = flip_left_right(img)
+    if spec.new_size is not None:
+        img = resize_shortest(img, spec.new_size)
+    arr = np.asarray(img, dtype=np.uint8)
+    if spec.crop_h is not None:
+        h, w = arr.shape[:2]
+        th, tw = spec.crop_h, spec.crop_w
+        if h < th or w < tw:  # torchvision RandomCrop would raise; pad-to-fit instead
+            pad_h, pad_w = max(0, th - h), max(0, tw - w)
+            arr = np.pad(arr, ((0, pad_h), (0, pad_w), (0, 0)), mode="reflect")
+            h, w = arr.shape[:2]
+        top = int(rng.integers(0, h - th + 1))
+        left = int(rng.integers(0, w - tw + 1))
+        arr = arr[top:top + th, left:left + tw]
+    return arr
 
 
 def normalize_batch(batch_u8: np.ndarray) -> np.ndarray:

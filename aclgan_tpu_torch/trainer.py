@@ -2,7 +2,8 @@
 
 Port of `aclgan_tpu/trainer.py` (`to_model_range`, `ACLGAN`: `init_state`,
 `learning_rate`, `generator_forward`, the D and G updates, `train_step`,
-`translate`). What differs from the JAX package, by design:
+`translate`, `sample`), plus `snapshot` / `restore`, the state that
+`utils/checkpoint.py` writes and reads. What differs from the JAX package, by design:
 
 - State lives on the object (the networks, two Adams, the EMA copies and the
   global `step`), and `train_step` updates it in place; the JAX step is a pure
@@ -19,7 +20,7 @@ sample), image pairs for the consistency discriminator along channels.
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence, Tuple, Union
+from typing import Any, Dict, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -347,3 +348,79 @@ class ACLGAN:
             img = blend(img, x.to(img.dtype), mask)
             mask = mask.permute(0, 2, 3, 1)
         return img.permute(0, 2, 3, 1), mask
+
+    @torch.no_grad()
+    def sample(self, x_a, x_b, z1, z2, z3) -> Tuple[torch.Tensor, ...]:
+        """The display grid's rows (`aclgan_tpu/trainer.py:668-706`) from NHWC
+        images (uint8 or [-1, 1] float) and style codes (N, style_dim), with
+        the live generators and the train-time blend. Returns NHWC float32:
+        (x_a, x_A_fake, mask_A, x_B_fake, mask_B, x_A2_fake, mask_A2,
+        x_A_recon, mask_recon) with focus masks, else (x_a, x_A_fake,
+        x_B_fake, x_A2_fake, x_A_recon, x_b, x_B_recon)."""
+        d = self.dtype
+        x_a, x_b = self._images(x_a).to(d), self._images(x_b).to(d)
+        z1, z2, z3 = (torch.as_tensor(z).to(self.device, d) for z in (z1, z2, z3))
+        g_ab, g_ba = self.gen_AB, self.gen_BA
+        b = x_a.shape[0]
+        c_1, s_1 = g_ba.encode(x_a)
+        c_2 = g_ab.encode_content(x_a)
+        if self.use_focus:
+            dec = g_ba.decode(torch.cat([c_1, c_1], 0), torch.cat([z1, s_1], 0))
+            x_A_fake, mask_A = self._blend(dec[:b], x_a)
+            x_A_recon, mask_recon = self._split_img_mask(dec[b:])
+            x_B_fake, mask_B = self._blend(g_ab.decode(c_2, z2), x_a)
+            x_A2_fake, mask_A2 = self._blend(
+                g_ba.decode(g_ba.encode_content(x_B_fake), z3), x_B_fake)
+            outs = (x_a, x_A_fake, mask_A, x_B_fake, mask_B, x_A2_fake, mask_A2,
+                    x_A_recon, mask_recon)
+        else:
+            x_A_fake = g_ba.decode(c_1, z1)
+            x_A_recon = g_ba.decode(c_1, s_1)
+            x_B_fake = g_ab.decode(c_2, z2)
+            x_A2_fake = g_ba.decode(g_ba.encode_content(x_B_fake), z3)
+            c_4, s_4 = g_ab.encode(x_b)
+            outs = (x_a, x_A_fake, x_B_fake, x_A2_fake, x_A_recon, x_b,
+                    g_ab.decode(c_4, s_4))
+        return tuple(o.permute(0, 2, 3, 1).float() for o in outs)
+
+    # ------------------------------------------------------------------
+    def snapshot(self) -> Dict[str, Any]:
+        """The training state that `utils/checkpoint.py` writes, as live
+        tensors (no copies): the generators', discriminators' and EMA's state
+        dicts under the reference key names, both Adams' `state_dict()`, the
+        global step and the z generator's state."""
+        return {
+            "gen": {n: self.gen(n).state_dict() for n in GEN_NAMES},
+            "dis": {n: self.dis(n).state_dict() for n in DIS_NAMES},
+            "ema": None if self.ema is None else {n: dict(self.ema[n]) for n in GEN_NAMES},
+            "gen_opt": self.gen_opt.state_dict(),
+            "dis_opt": self.dis_opt.state_dict(),
+            "step": self.step,
+            "rng": self.z_gen.get_state(),
+        }
+
+    def restore(self, snap: Dict[str, Any]) -> None:
+        """Load a `snapshot()`-shaped dict into the state `init_state` built.
+        An absent ("ema": None) EMA, with EMA on, starts from copies of the
+        loaded generator weights; absent optimizer states keep fresh moments;
+        an absent "rng" keeps the z stream as seeded."""
+        for n in GEN_NAMES:
+            self.gen(n).load_state_dict(snap["gen"][n])
+        for n in DIS_NAMES:
+            self.dis(n).load_state_dict(snap["dis"][n])
+        if self.ema is not None:
+            for n in GEN_NAMES:
+                live = dict(self.gen(n).named_parameters())
+                src = live if snap.get("ema") is None else snap["ema"][n]
+                if set(src) != set(live):
+                    raise KeyError(f"EMA {n}: keys {sorted(set(src) ^ set(live))[:5]} "
+                                   "differ from the generator's parameters")
+                with torch.no_grad():
+                    for k, t in self.ema[n].items():
+                        t.copy_(src[k])
+        for opt, key in ((self.gen_opt, "gen_opt"), (self.dis_opt, "dis_opt")):
+            if snap.get(key) is not None:
+                opt.load_state_dict(snap[key])
+        self.step = int(snap["step"])
+        if snap.get("rng") is not None:
+            self.z_gen.set_state(snap["rng"])

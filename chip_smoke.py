@@ -27,17 +27,29 @@ exit, if any phase fails:
 8. training in bfloat16 at 256^2, batch 16 (the shipped config): iterations/s,
    images/s, peak memory, finite losses, device time by kernel group over one
    D+G iteration, and the K1/K2 launches of one D+G iteration;
-9. one JSON line listing every kernel;
-10. last line: {"ok": true, "device": {...}}.
+9. the train CLI (`aclgan_tpu_torch.cli.train.main`, in process) on the
+   shipped config at its own batch of 3, on the synthetic dataset: 40
+   iterations with grids at 10/20/30/40 and snapshots at 20/40 (scalars, files,
+   grids, K1/K2 launches), then `--resume` to 50 (restored tensors bit-equal to
+   the files, records continue at 41); p50 seconds per iteration from the
+   CLI's own `Iteration:` lines, without those after a grid or snapshot;
+10. the train CLI at batch 16, 30 iterations, with `--profile_dir`: p50
+   seconds per iteration, its ratio to phase 8's bare `train_step`, peak
+   memory, a non-empty trace holding K1;
+11. one JSON line listing every kernel;
+12. last line: {"ok": true, "device": {...}}.
 
 Imports nothing of JAX.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import io
 import json
 import math
+import re
 import subprocess
 import sys
 import tempfile
@@ -609,7 +621,294 @@ def phase_train_bf16(cfg):
             f"({', '.join(f'{t:.2f}' for t in ts)}), {flops / 1e12:.3f} TFLOP of aten ops, "
             f"{flops / ms / 1e9:.1f} TFLOP/s")
     _profile(f"one D+G training iteration at batch {b}", iteration)
-    return launches
+    return launches, 1.0 / p50
+
+
+# the JAX CLI's scalars.jsonl keys at the shipped config (tests/test_torch_cli.py
+# holds the port's key set to the JAX CLI's on the CPU)
+CLI_KEYS = {"step", "time", "loss_dis_A", "loss_dis_B", "loss_dis_2", "loss_dis_total",
+            "loss_gen_adv_A", "loss_gen_adv_B", "loss_gen_adv_2", "loss_idt_A",
+            "loss_idt_B", "loss_gen_total"} | {
+    f"loss_gen_focus_{n}_{t}" for n in ("A", "B", "A2") for t in ("size", "digit")}
+K1_PER_SAMPLE = 3 * 11 + 3 * 8  # 3 content encodes, 3 decodes (focus rows)
+TRACE_MARK = "instance_norm_fwd"  # K1's name in a device trace
+_ITERATION = re.compile(r"^Iteration: (\d+)/\d+ \(([0-9.]+)s\)$")
+
+
+class _Tee(io.TextIOBase):
+    """stdout that also keeps the lines written to it."""
+
+    def __init__(self, out):
+        self.out, self.lines, self._part = out, [], ""
+
+    def write(self, s):
+        self.out.write(s)
+        *done, self._part = (self._part + s).split("\n")
+        self.lines += done
+        return len(s)
+
+    def flush(self):
+        self.out.flush()
+
+
+def _run_cli(argv):
+    """`cli.train.main(argv)` in process; returns its stdout lines."""
+    from aclgan_tpu_torch.cli.train import main as train_main
+
+    tee = _Tee(sys.stdout)
+    with contextlib.redirect_stdout(tee):
+        train_main(argv)
+    return tee.lines
+
+
+def _cli_config(cfg, tmp, name, **changes):
+    """The shipped config on the synthetic dataset (no data_root), with
+    `changes`, written where the CLI reads it."""
+    from aclgan_tpu_torch.config import save_config
+
+    derived = dataclasses.replace(
+        cfg, data=dataclasses.replace(cfg.data, synthetic=True, data_root=None), **changes)
+    path = Path(tmp) / f"{name}.yaml"
+    save_config(derived, path)
+    return derived, str(path)
+
+
+def _cadence(cfg, epoch_len, first, last):
+    """(do_dis, do_gen) of global iterations first..last (1-based) of a run
+    that started at `first`: the CLI's epoch-local cadence."""
+    out = {}
+    for i in range(first, last + 1):
+        it = (i - first) % epoch_len
+        out[i] = (it % cfg.D_update == 0, it % cfg.G_update == 0)
+    return out
+
+
+def _expected_launches(cadence, samples):
+    n_dis = sum(d for d, _ in cadence.values())
+    n_gen = sum(g for _, g in cadence.values())
+    return (K1_PER_STEP * (n_dis + n_gen) + K1_PER_SAMPLE * samples,
+            K2_PER_G_STEP * n_gen)
+
+
+def _cli_seconds(lines, cadence, skip):
+    """p50 seconds of the D+G and of the D iterations, read from the CLI's
+    `Iteration:` lines, leaving out the iterations in `skip`, and the
+    seconds per iteration at the D1/G2 cadence (their mean)."""
+    times = {"D+G": [], "D": []}
+    for line in lines:
+        m = _ITERATION.match(line)
+        if m and int(m[1]) not in skip:
+            times["D+G" if cadence[int(m[1])][1] else "D"].append(float(m[2]))
+    p50 = {k: float(np.median(v)) for k, v in times.items()}
+    return p50, (p50["D+G"] + p50["D"]) / 2, {k: len(v) for k, v in times.items()}
+
+
+def _records(log_dir):
+    with open(Path(log_dir) / "scalars.jsonl") as f:
+        return [json.loads(line) for line in f]
+
+
+def _check_records(recs, steps, tag):
+    if [r["step"] for r in recs] != list(steps):
+        raise AssertionError(f"{tag}: scalars.jsonl steps {[r['step'] for r in recs]}")
+    for r in recs:
+        if set(r) != CLI_KEYS:
+            raise AssertionError(f"{tag}: step {r['step']} keys differ from the JAX CLI's "
+                                 f"by {sorted(set(r) ^ CLI_KEYS)}")
+        bad = [k for k, v in r.items() if not math.isfinite(v)]
+        if bad:
+            raise AssertionError(f"{tag}: step {r['step']} non-finite {bad}")
+
+
+def _leaves(obj, prefix=""):
+    """{path: leaf} of nested dicts, lists and tuples."""
+    if isinstance(obj, dict):
+        items = obj.items()
+    elif isinstance(obj, (list, tuple)):
+        items = enumerate(obj)
+    else:
+        return {prefix: obj}
+    out = {}
+    for k, v in items:
+        out.update(_leaves(v, f"{prefix}/{k}"))
+    return out
+
+
+def _assert_restored(model, ckpt_dir, stamp):
+    """Every tensor `resume` put into `model` equals the saved files bit for
+    bit; returns how many tensors were compared."""
+    def load(name):
+        return torch.load(Path(ckpt_dir) / name, map_location="cpu", weights_only=True)
+
+    opt = load("optimizer.pt")
+    files = {"gen": load(f"gen_{stamp:08d}.pt"), "dis": load(f"dis_{stamp:08d}.pt"),
+             "gen_opt": opt["gen"], "dis_opt": opt["dis"], "rng": opt["rng"]}
+    snap = model.snapshot()
+    n = 0
+    for key, saved in files.items():
+        got, want = _leaves(snap[key]), _leaves(saved)
+        if set(got) != set(want):
+            raise AssertionError(f"resume: {key} has other entries than its file")
+        for path, w in want.items():
+            g = got[path]
+            same = (g.dtype == w.dtype and torch.equal(g.detach().cpu(), w)
+                    if isinstance(w, torch.Tensor) else g == w)
+            if not same:
+                raise AssertionError(f"resume: {key}{path} differs from its file")
+            n += isinstance(w, torch.Tensor)
+    if model.step != opt["step"] or opt["saved_iteration"] != stamp:
+        raise AssertionError(f"resume: step {model.step}, file {opt['step']} at {stamp}")
+    return n
+
+
+def phase_train_cli_b3(cfg, tmp):
+    """The train CLI at the config's batch of 3: 40 iterations, then --resume
+    to 50. Returns (p50 s per iteration, (K1, K2) launches of the 40)."""
+    from aclgan_tpu_torch.ops.kernels import instance_norm as K
+    from aclgan_tpu_torch.trainer import ACLGAN
+    from aclgan_tpu_torch.utils.checkpoint import resume
+
+    derived, path = _cli_config(cfg, tmp, "m2f_b3", image_display_iter=10,
+                                image_save_iter=20, snapshot_save_iter=20)
+    out = str(Path(tmp) / "b3")
+    epoch_len = max(64, derived.batch_size * 8) // derived.batch_size
+    cadence = _cadence(derived, epoch_len, 1, 40)
+    K.launches = K.bwd_launches = 0
+    t0 = time.time()
+    lines = _run_cli(["--config", path, "--output_path", out, "--max_iter", "40"])
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = (K.launches, K.bwd_launches)
+    # samples: test + train grids at 20 and 40, train_current at 10/20/30/40
+    want = _expected_launches(cadence, samples=2 * 2 + 4)
+    if launches != want:
+        raise AssertionError(f"train CLI b3: (K1, K2) launches {launches}, expected {want}")
+    log_dir, run = Path(out) / "logs" / "m2f_b3", Path(out) / "outputs" / "m2f_b3"
+    _check_records(_records(log_dir), range(1, 41), "train CLI b3")
+    ckpts = sorted(p.name for p in (run / "checkpoints").iterdir())
+    if ckpts != ["dis_00000020.pt", "dis_00000040.pt", "gen_00000020.pt",
+                 "gen_00000040.pt", "optimizer.pt"]:
+        raise AssertionError(f"train CLI b3: checkpoints {ckpts}")
+    grids = sorted(p.name for p in (run / "images").iterdir())
+    ext = Path(grids[0]).suffix
+    want_grids = sorted(f"gen_a2b_{s}{ext}" for s in (
+        "test_00000020", "train_00000020", "test_00000040", "train_00000040",
+        "train_current"))
+    if grids != want_grids or not (run / "index.html").is_file():
+        raise AssertionError(f"train CLI b3: grids {grids}, index.html "
+                             f"{(run / 'index.html').is_file()}")
+    html = (run / "index.html").read_text()
+    if any(f"images/{g}" not in html for g in want_grids):
+        raise AssertionError("train CLI b3: index.html does not link every grid")
+    skip = {1} | {i + 1 for i in (10, 20, 30)}  # setup; after grids/snapshots
+    p50, per_it, counts = _cli_seconds(lines, cadence, skip)
+    sizes = {p.name: p.stat().st_size for p in (run / "checkpoints").iterdir()}
+    log(f"[train cli b3] male2female 256^2 batch {derived.batch_size}, {epoch_len} "
+        f"batches an epoch: 40 iterations in {wall:.1f} s; p50 D+G {p50['D+G']:.4f} s, "
+        f"D {p50['D']:.4f} s ({counts} iterations), {per_it:.4f} s per iteration at "
+        f"D1/G2; (K1, K2) launches {launches}; grids {ext}; snapshot bytes {sizes}")
+
+    # resume: a fresh model restored from the files equals them bit for bit
+    check = ACLGAN(derived, device="cuda", seed=derived.seed + 5)
+    check.init_state()
+    resume(str(run / "checkpoints"), check)
+    n_tensors = _assert_restored(check, run / "checkpoints", 40)
+    del check
+    torch.cuda.empty_cache()
+    lines = _run_cli(["--config", path, "--output_path", out, "--resume",
+                      "--max_iter", "50"])
+    _check_records(_records(log_dir), range(1, 51), "train CLI b3 resumed")
+    opt = torch.load(run / "checkpoints" / "optimizer.pt", weights_only=True)
+    if opt["step"] != 50 or opt["saved_iteration"] != 50:
+        raise AssertionError(f"train CLI b3 resumed: step {opt['step']}")
+    log(f"[train cli b3] --resume --max_iter 50: {n_tensors} restored tensors equal the "
+        f"iteration-40 files bit for bit; records 41..50 appended; step 50; "
+        f"{sum(bool(_ITERATION.match(x)) for x in lines)} Iteration lines")
+    torch.cuda.empty_cache()
+    bare = _bare_train_step(derived)
+    log(f"[train cli b3] CLI {per_it:.4f} s per iteration against the bare train_step's "
+        f"{bare:.4f} s: ratio {per_it / bare:.4f}")
+    return per_it, launches
+
+
+def _bare_train_step(cfg):
+    """`train_step` alone at cfg.batch_size on device-resident batches, as phase
+    8 runs it: p50 seconds per iteration over 5 windows of 8 at D1/G2 (CUDA
+    events), the host's seconds to issue a window, and the device's idle
+    share over one D+G iteration (torch.profiler)."""
+    b = cfg.batch_size
+    model = _train_model(cfg, "cuda")
+    rng = np.random.RandomState(1)
+    batches = [tuple(torch.from_numpy(rng.randint(0, 256, (b, 256, 256, 3), dtype=np.uint8))
+                     .cuda() for _ in range(2)) for _ in range(4)]
+    it = 0
+
+    def iteration():
+        nonlocal it
+        xa, xb = batches[it % len(batches)]
+        model.train_step(xa, xb, it % cfg.D_update == 0, it % cfg.G_update == 0)
+        it += 1
+
+    for _ in range(2):
+        iteration()
+    torch.cuda.synchronize()
+    secs, host, window = [], [], 8
+    for _ in range(5):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        for _ in range(window):
+            iteration()
+        end.record()
+        host.append((time.perf_counter() - t0) / window)
+        torch.cuda.synchronize()
+        secs.append(start.elapsed_time(end) / 1e3 / window)
+    p50 = float(np.median(secs))
+    log(f"[train bare b{b}] train_step at batch {b}, D1/G2: p50 {p50:.4f} s per iteration "
+        f"over 5 windows of {window} ({', '.join(f'{s:.4f}' for s in secs)}); the host "
+        f"issues an iteration in {float(np.median(host)):.4f} s (p50)")
+    if it % cfg.G_update:
+        iteration()
+    _profile(f"one D+G training iteration at batch {b}", iteration)
+    return p50
+
+
+def phase_train_cli_b16(cfg, tmp, bare_s_per_it):
+    """The train CLI at batch 16 for 30 iterations, traced at 10..14. Returns
+    (p50 s per iteration, (K1, K2) launches)."""
+    from aclgan_tpu_torch.ops.kernels import instance_norm as K
+
+    b = TRAIN_BATCH
+    derived, path = _cli_config(cfg, tmp, "m2f_b16", batch_size=b)
+    out, prof_dir = str(Path(tmp) / "b16"), Path(tmp) / "b16_trace"
+    epoch_len = max(64, b * 8) // b
+    cadence = _cadence(derived, epoch_len, 1, 30)
+    torch.cuda.reset_peak_memory_stats()
+    K.launches = K.bwd_launches = 0
+    lines = _run_cli(["--config", path, "--output_path", out, "--max_iter", "30",
+                      "--profile_dir", str(prof_dir)])
+    torch.cuda.synchronize()
+    launches = (K.launches, K.bwd_launches)
+    peak = torch.cuda.max_memory_allocated()
+    want = _expected_launches(cadence, samples=0)
+    if launches != want:
+        raise AssertionError(f"train CLI b16: (K1, K2) launches {launches}, expected {want}")
+    _check_records(_records(Path(out) / "logs" / "m2f_b16"), range(1, 31), "train CLI b16")
+    trace = prof_dir / "trace.json"
+    size = trace.stat().st_size if trace.is_file() else 0
+    if not size or TRACE_MARK not in trace.read_text():
+        raise AssertionError(f"train CLI b16: trace {trace} empty or without K1 ({size} B)")
+    # setup, and the traced window (profiler on) and the iteration after it
+    skip = {1} | set(range(11, 17))
+    p50, per_it, counts = _cli_seconds(lines, cadence, skip)
+    log(f"[train cli b16] male2female 256^2 batch {b}, {epoch_len} batches an epoch: p50 "
+        f"D+G {p50['D+G']:.4f} s, D {p50['D']:.4f} s ({counts} iterations), "
+        f"{per_it:.4f} s per iteration at D1/G2 = {b / per_it:.2f} img/s; bare "
+        f"train_step (phase 8) {bare_s_per_it:.4f} s: ratio {per_it / bare_s_per_it:.4f}; "
+        f"peak memory {peak / 2**30:.3f} GiB ({peak} B); (K1, K2) launches {launches}; "
+        f"trace {size} B")
+    return per_it, launches
 
 
 def main() -> int:
@@ -647,7 +946,18 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_train_f32(cfg)
     torch.cuda.empty_cache()
-    k1["launches"], k2["launches"] = phase_train_bf16(cfg)
+    (k1["launches"], k2["launches"]), bare_s_per_it = phase_train_bf16(cfg)
+    by_path = {"train_step, one D+G iteration at batch 16 (phase 8)":
+               (k1["launches"], k2["launches"])}
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        _, by_path["train CLI, 40 iterations at batch 3 (phase 9)"] = \
+            phase_train_cli_b3(cfg, tmp)
+        torch.cuda.empty_cache()
+        _, by_path["train CLI, 30 iterations at batch 16 (phase 10)"] = \
+            phase_train_cli_b16(cfg, tmp, bare_s_per_it)
+    for i, k in enumerate((k1, k2)):
+        k["launches_by_path"] = {path: counts[i] for path, counts in by_path.items()}
 
     print(json.dumps({"kernels": [k1, k2]}), flush=True)
     log(f"[done] {time.time() - t_start:.1f} s")

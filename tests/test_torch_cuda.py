@@ -7,9 +7,11 @@ Imports no JAX, so it runs on a GPU host without it:
 Every test skips when no CUDA device is present.
 """
 
+import numpy as np
 import pytest
 import torch
 
+from aclgan_tpu_torch.data.loader import device_prefetch
 from aclgan_tpu_torch.ops.blocks import ConvBlock
 from aclgan_tpu_torch.ops.kernels import instance_norm as K
 
@@ -161,3 +163,23 @@ def test_convblock_backward_on_cuda_matches_cpu(cuda):
         torch.backends.cudnn.allow_tf32 = True
     for g, r in zip(grads[1], grads[0]):
         torch.testing.assert_close(g, r, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("n", [1, 2, 4])
+def test_device_prefetch_delivers_every_batch_intact(cuda, n):
+    """Distinct host batches reach the card unchanged and in order while the
+    consumer's stream is kept busy: a batch read before its copy ended, or a
+    pinned or device buffer reused while still in use, would show here."""
+    rng = np.random.RandomState(n)
+    batches = [rng.randint(0, 256, (8, 64, 64, 3), dtype=np.uint8) for _ in range(24)]
+    busy = torch.randn(2048, 2048, device="cuda", generator=cuda)
+    got = []
+    for x in device_prefetch(iter(batches), n, "cuda"):
+        assert x.device.type == "cuda" and x.dtype == torch.uint8
+        for _ in range(3):
+            busy = torch.tanh(busy @ busy)
+        got.append(x.clone())
+    torch.cuda.synchronize()
+    assert len(got) == len(batches)
+    for g, b in zip(got, batches):
+        assert torch.equal(g.cpu(), torch.from_numpy(b))

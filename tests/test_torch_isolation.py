@@ -51,6 +51,15 @@ def test_serving_import_loads_no_jax():
     assert out.strip() == "[]"
 
 
+def test_train_cli_import_loads_no_jax():
+    code = ("import sys, aclgan_tpu_torch.cli.train; "
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'flax', 'optax', 'aclgan_tpu')]; print(bad)")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=120, check=True).stdout
+    assert out.strip() == "[]"
+
+
 @pytest.mark.parametrize("path", CONFIGS, ids=lambda p: p.name)
 def test_config_reader_matches_jax(path):
     # repr, not ==, so that an int read as a float (or the reverse) fails

@@ -32,6 +32,16 @@ BASE_KEY = jax.random.PRNGKey(42)
 MOVE_TOL = {"gen": 0.05, "dis": 1e-3}
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: the shapes are tiny, and the test workers share the
+    cores (eight threads a worker oversubscribe them many times over)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _config(**overrides):
     """tiny_config with alpha 0.7 (exercises alpha * z2) and wd > 0 (coupled L2
     is observable), plus the overrides."""
@@ -246,6 +256,31 @@ def test_gen_step_takes_no_discriminator_gradients():
     pm.train_step(xa, xb, False, True)
     assert all(p.grad is not None for p in pm.gen_params)
     assert all(p.grad is None for p in pm.dis_params)
+
+
+@pytest.mark.parametrize("variant", ["focus_float_input", "no_focus_uint8_input"])
+def test_sample_matches_jax(variant):
+    """The display rows: the focus 9-tuple or the non-focus 7-tuple, NHWC
+    float32, from [-1, 1] floats (as the train CLI's display batches are) or
+    uint8 images."""
+    focus = variant.startswith("focus")
+    jcfg = _config() if focus else _config(focus_loss=0.0)
+    if not focus:
+        jcfg.gen.output_dim = 3
+    jm, state, pm = _pair(jcfg, seed=2)
+    xa, xb = _batches(1, seed=8)[0]
+    if focus:
+        xa, xb = (v.astype(np.float32) * (2.0 / 255.0) - 1.0 for v in (xa, xb))
+    rng = np.random.RandomState(4)
+    z = [rng.randn(2, jcfg.gen.style_dim).astype(np.float32) for _ in range(3)]
+    want = jm.sample(state.gen_params, jnp.asarray(xa), jnp.asarray(xb),
+                     *(jnp.asarray(v) for v in z))
+    got = pm.sample(xa, xb, *z)
+    assert len(got) == len(want) == (9 if focus else 7)
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert g.dtype == torch.float32 and tuple(g.shape) == w.shape, i
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-4, atol=1e-4,
+                                   err_msg=str(i))
 
 
 @pytest.mark.parametrize("tpu_change,match", [
