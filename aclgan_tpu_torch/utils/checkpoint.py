@@ -18,17 +18,24 @@ read port snapshots unchanged:
 - Discovery is lexicographic-latest on the key substring, never
   `optimizer.pt`; the iteration is parsed from the file name.
 
-Reading the JAX package's msgpack snapshots is not ported.
+Generator files of the JAX package (`gen_/ema_%08d.msgpack`, `{'AB', 'BA'}`
+flax params) load too, through `utils/msgpack.py` and
+`utils/jax_weights.py`, and `list_snapshots` finds them beside `.pt` ones.
+Resuming a JAX run (its `dis_` and `optimizer.msgpack`) is not ported.
 """
 
 from __future__ import annotations
 
 import os
-from typing import Any, Optional
+from typing import Any, List, Optional
 
 import torch
 
 from aclgan_tpu_torch.trainer import GEN_NAMES
+from aclgan_tpu_torch.utils.jax_weights import generator_state_dict
+from aclgan_tpu_torch.utils.msgpack import read_msgpack
+
+GEN_SUFFIXES = (".pt", ".msgpack")  # the port's snapshots, the JAX package's
 
 
 def _cpu(obj: Any) -> Any:
@@ -58,12 +65,33 @@ def save_generators(path: str, model) -> None:
 
 
 def load_generators(path: str, model) -> None:
-    """Load a `{'AB', 'BA'}` `.pt` checkpoint into `model`'s generators."""
-    if not path.endswith((".pt", ".pth")):
-        raise ValueError(f"{path}: the port reads .pt generator checkpoints only")
-    ckpt = _load(path)
+    """Load a `{'AB', 'BA'}` generator checkpoint into `model`'s generators:
+    the port's `.pt`, or the JAX package's flax `.msgpack`."""
+    if path.endswith(".msgpack"):
+        tree = read_msgpack(path)
+        ckpt = {k: generator_state_dict(_numpy(tree[k]), model.cfg.gen) for k in GEN_NAMES}
+    elif path.endswith((".pt", ".pth")):
+        ckpt = _load(path)
+    else:
+        raise ValueError(f"{path}: the port reads .pt or .msgpack generator checkpoints")
     for k in GEN_NAMES:
         model.gen(k).load_state_dict(ckpt[k])
+
+
+def _numpy(tree: Any) -> Any:
+    """Tensors of a nested dict as float32 numpy arrays (bf16 included)."""
+    if isinstance(tree, dict):
+        return {k: _numpy(v) for k, v in tree.items()}
+    return tree.float().numpy()
+
+
+def list_snapshots(checkpoint_dir: str, prefix: str) -> List[str]:
+    """The `<prefix>_%08d` generator files (`.pt` or `.msgpack`) in
+    `checkpoint_dir`, sorted by name; symlinks (aliases) left out."""
+    names = [f for f in os.listdir(checkpoint_dir)
+             if f.startswith(prefix + "_") and f.endswith(GEN_SUFFIXES)]
+    paths = [os.path.join(checkpoint_dir, f) for f in sorted(names)]
+    return [p for p in paths if os.path.isfile(p) and not os.path.islink(p)]
 
 
 def save_checkpoint(snapshot_dir: str, model, iterations: int, keep: int = 0) -> None:
@@ -101,7 +129,7 @@ def get_model_list(dirname: str, key: str) -> Optional[str]:
 
 
 def parse_iteration(path: str) -> int:
-    """gen_%08d.pt -> iteration."""
+    """gen_%08d.pt (or .msgpack) -> iteration."""
     stem = os.path.basename(path).split(".")[0]
     return int(stem.split("_")[-1])
 

@@ -3,10 +3,11 @@
 
     python3 chip_smoke.py
 
-Drives the port's two paths at full width (male2female, random weights from
-a seed), serving (A->B translation) and training (D and G steps at the D1/G2
-cadence), through the hand-written CUDA kernels, and fails, with a non-zero
-exit, if any phase fails:
+Drives the port's paths at full width (male2female, random weights from a
+seed; InceptionV3 at 299^2), serving (A->B translation), training (D and G
+steps at the D1/G2 cadence) and evaluation (the test CLIs, IS / CIS / FID,
+the classifier fine-tune, the FID curve), through the hand-written CUDA
+kernels, and fails, with a non-zero exit, if any phase fails:
 
 1. device info (torch/CUDA versions, nvidia-smi name and power limit);
 2. build every kernel under aclgan_tpu_torch/csrc with nvcc;
@@ -36,8 +37,24 @@ exit, if any phase fails:
 10. the train CLI at batch 16, 30 iterations, with `--profile_dir`: p50
    seconds per iteration, its ratio to phase 8's bare `train_step`, peak
    memory, a non-empty trace holding K1;
-11. one JSON line listing every kernel;
-12. last line: {"ok": true, "device": {...}}.
+11. a dataset: `tools/make_dataset.py --style hard`, 64 train and 64 test
+   images a domain at 286^2 (numpy and Pillow, in a subprocess);
+12. `cli.train_inception` on it: InceptionV3 (2 classes) at 149^2, batch 32,
+   40 Adam steps: steps/s, full-set accuracy, a torchvision-layout `.pt`;
+13. `cli.test` in float32 (TF32 off): one 256^2 image, 10 styles; the files,
+   19 K1 launches, outputs within 2 LSB of the same CLI on the CPU;
+14. `cli.test_batch` (bf16, the config's dtype) on testA, batch 32, 3 styles,
+   IS / CIS / FID against testB with phase 12's classifier: the files, 57 K1
+   launches a style a batch, finite scores; the scorer's features and
+   softmax on 8 images on the card against the CPU; img/s of the CLI and of
+   one batch (translation + scoring), the scorer's img/s at batch 32 and
+   299^2, the seconds of the 2048^2 scipy sqrtm, peak memory, and the
+   device time by kernel group over one batch;
+15. `cli.fid_curve` over phase 9's snapshots 20 and 40, 64 images, 2
+   styles, 20 bootstrap resamples: rows with the JAX tool's keys, finite
+   FIDs and intervals, 19 K1 launches a snapshot a style, seconds a snapshot;
+16. one JSON line listing every kernel;
+17. last line: {"ok": true, "device": {...}}.
 
 Imports nothing of JAX.
 """
@@ -409,7 +426,8 @@ def _profile(what, fn):
     groups: dict = {}
     kernels = []
     for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA:
+        # a user annotation (`Optimizer.step#Adam.step`) spans kernels listed too
+        if e.device_type != DeviceType.CUDA or getattr(e, "is_user_annotation", False):
             continue
         ms = e.self_device_time_total / 1e3
         kernels.append((ms, e.count, e.key))
@@ -911,6 +929,277 @@ def phase_train_cli_b16(cfg, tmp, bare_s_per_it):
     return per_it, launches
 
 
+# ------------------------------------------------------------------ evaluation
+K1_PER_TRIPLET = 3 * 11 + 3 * 8   # test_batch: 3 content encodes, 3 decodes
+EVAL_BATCH = 32
+EVAL_STYLES = 3
+FT_STEPS = 40                      # the classifier fine-tune's steps
+SWEEP_STYLES = 2
+
+
+def _eval_config(cfg, tmp, name, **tpu):
+    """male2female on the phase-11 dataset (`tpu` changes, e.g. the dtype),
+    written where the CLIs read it."""
+    from aclgan_tpu_torch.config import save_config
+
+    derived = dataclasses.replace(
+        cfg, data=dataclasses.replace(cfg.data, synthetic=False,
+                                      data_root=str(Path(tmp) / "ds")),
+        tpu=dataclasses.replace(cfg.tpu, **tpu))
+    path = Path(tmp) / f"{name}.yaml"
+    save_config(derived, path)
+    return str(path)
+
+
+def _files(folder):
+    return sorted(str(p.relative_to(folder)) for p in Path(folder).rglob("*") if p.is_file())
+
+
+def phase_dataset(tmp):
+    t0 = time.time()
+    out = subprocess.run([sys.executable, str(ROOT / "tools" / "make_dataset.py"), "--out",
+                          str(Path(tmp) / "ds"), "--style", "hard", "--n", "64",
+                          "--n_test", "64", "--size", "286"],
+                         capture_output=True, text=True, timeout=600)
+    if out.returncode:
+        raise RuntimeError(f"make_dataset.py failed ({out.returncode}): {out.stderr[-2000:]}")
+    counts = {d: len(list((Path(tmp) / "ds" / d).glob("*.jpg")))
+              for d in ("trainA", "trainB", "testA", "testB")}
+    if set(counts.values()) != {64}:
+        raise AssertionError(f"dataset: {counts}")
+    log(f"[dataset] make_dataset.py --style hard: {counts} JPEGs at 286^2 in "
+        f"{time.time() - t0:.1f} s")
+
+
+def phase_train_inception(tmp):
+    """`cli.train_inception` at 149^2, batch 32; returns the `.pt` path."""
+    from aclgan_tpu_torch.cli import train_inception
+
+    out = str(Path(tmp) / "inc.pt")
+    torch.cuda.reset_peak_memory_stats()
+    r = train_inception.main(["--data_root", str(Path(tmp) / "ds"), "--out", out,
+                              "--steps", str(FT_STEPS), "--batch", "32", "--size", "149"])
+    if not (math.isfinite(r["loss"]) and Path(out).is_file()):
+        raise AssertionError(f"train_inception: {r}")
+    log(f"[train_inception] InceptionV3 (2 classes), 149^2, batch 32, {FT_STEPS} steps: "
+        f"{r['steps_per_second']:.2f} steps/s ({r['train_seconds']:.2f} s, the first "
+        f"step's cuDNN set-up included), last loss {r['loss']:.4f}, full-set accuracy "
+        f"{r['accuracy']:.4f}; peak memory {torch.cuda.max_memory_allocated() / 2**30:.3f} "
+        f"GiB; {Path(out).stat().st_size} B")
+    # the step alone, on device-resident batches: CUDA events, then a profile
+    from aclgan_tpu_torch.eval.inception import InceptionV3
+
+    model = InceptionV3(num_classes=2, gen=torch.Generator().manual_seed(0)).cuda().eval()
+    opt = train_inception.make_optimizer(model, 2e-4)
+    x = torch.rand(32, 149, 149, 3, device="cuda")
+    y = torch.randint(0, 2, (32,), device="cuda")
+    ms = time_ms(lambda: train_inception.train_step(model, opt, x, y))
+    log(f"[train_inception] one step at batch 32, 149^2, after warm-up: {ms:.2f} ms = "
+        f"{1e3 / ms:.2f} steps/s (mean of 20, CUDA events)")
+    _profile("one fine-tune step at batch 32, 149^2",
+             lambda: train_inception.train_step(model, opt, x, y))
+    return out
+
+
+def phase_cli_test(cfg, tmp, ckpt):
+    """`cli.test` in float32 on the card against the CPU; returns its K1
+    launches."""
+    from aclgan_tpu_torch.cli import test as cli_test
+    from aclgan_tpu_torch.ops.kernels import instance_norm as K
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    path = _eval_config(cfg, tmp, "m2f_eval32", compute_dtype="float32")
+    image = sorted((Path(tmp) / "ds" / "testA").glob("*.jpg"))[0]
+    argv = ["--config", path, "--input", str(image), "--checkpoint", ckpt,
+            "--num_style", "10", "--seed", "10"]
+    K.launches = K.bwd_launches = 0
+    t0 = time.time()
+    card = cli_test.main(argv + ["--output_folder", str(Path(tmp) / "test_card")])
+    torch.cuda.synchronize()
+    card_s = time.time() - t0
+    launches = K.launches
+    if (launches, K.bwd_launches) != (LAUNCHES_PER_BATCH, 0):
+        raise AssertionError(f"cli.test: (K1, K2) launches {(launches, K.bwd_launches)}")
+    want = ["input.jpg"] + sorted(f"output{j:03d}{x}.jpg" for j in range(10)
+                                  for x in ("", "_img", "_mask"))
+    if _files(Path(tmp) / "test_card") != sorted(want):
+        raise AssertionError(f"cli.test files: {_files(Path(tmp) / 'test_card')}")
+    t0 = time.time()
+    cpu = cli_test.main(argv + ["--output_folder", str(Path(tmp) / "test_cpu"),
+                                "--device", "cpu"])
+    cpu_s = time.time() - t0
+
+    def u8(x):
+        return np.clip(np.rint((x + 1.0) * 127.5), 0, 255).astype(np.int16)
+
+    diff = np.abs(u8(card["outputs"]) - u8(cpu["outputs"]))
+    mask_err = float(np.abs(card["masks"] - cpu["masks"]).max())
+    log(f"[cli.test] f32, one {card['outputs'].shape[1]}x{card['outputs'].shape[2]} "
+        f"image, 10 styles: {launches} K1 launches, {len(want)} files in {card_s:.2f} s "
+        f"(model load included); vs --device cpu: max {diff.max()} LSB, mean "
+        f"{diff.mean():.5f} LSB, mask max err {mask_err:.2e} (CPU {cpu_s:.1f} s)")
+    if diff.max() > 2 or not np.isfinite(card["outputs"]).all():
+        raise AssertionError(f"cli.test: card differs from CPU by {diff.max()} LSB")
+    return launches
+
+
+def _scorer_parity(tmp, inc):
+    """The scorer's features and softmax on 8 testA images, card vs CPU."""
+    from aclgan_tpu_torch.data.dataset import load_image
+    from aclgan_tpu_torch.eval.inception import InceptionScorer
+
+    paths = sorted((Path(tmp) / "ds" / "testA").glob("*.jpg"))[:8]
+    x = np.stack([np.asarray(load_image(str(p)), np.float32) / 255.0 for p in paths])
+    card, cpu = InceptionScorer(inc), InceptionScorer(inc, device="cpu")
+    f_card, f_cpu = card.features(x), cpu.features(x)
+    p_card, p_cpu = card.predict(x), cpu.predict(x)
+    f_err = float(np.abs(f_card - f_cpu).max() / np.abs(f_cpu).max())
+    p_err = float(np.abs(p_card - p_cpu).max())
+    log(f"[cli.test_batch] scorer on the card vs the CPU (8 images, 286^2 -> 299^2, "
+        f"float32, TF32 off): features max err {f_err:.2e} of their largest "
+        f"({np.abs(f_cpu).max():.3e}), softmax max err {p_err:.2e}")
+    if f_err > 1e-3 or p_err > 1e-4:
+        raise AssertionError(f"scorer card vs CPU: features {f_err:.2e} > 1e-3 or softmax "
+                             f"{p_err:.2e} > 1e-4")
+    return card
+
+
+def _batch_rates(model, scorer, x):
+    """One test_batch batch (a style triple, translation + IS + FID scoring):
+    its device ms (CUDA events, median of 5), and the scorer's img/s alone."""
+    from aclgan_tpu_torch.cli.test_batch import translate_triplet
+    from aclgan_tpu_torch.eval.inception import full_f32, resize_299
+
+    s = torch.full((model.cfg.gen.style_dim,), 2.0)
+
+    def one_batch():
+        bar = translate_triplet(model, x, s, s, s)[0]
+        bar01 = (bar.float().cpu().numpy() + 1.0) / 2.0
+        scorer.features(bar01)
+        scorer.predict(bar01)
+
+    def timed(fn, reps=5):
+        fn()
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(reps):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            torch.cuda.synchronize()
+            times.append(start.elapsed_time(end))
+        return float(np.median(times))
+
+    batch_ms = timed(one_batch)
+    img = torch.rand(len(x), 3, 299, 299, device=scorer.device)
+    with torch.inference_mode(), full_f32():
+        fwd_ms = timed(lambda: scorer.model(img, True))
+    x01 = ((x.numpy() + 1.0) / 2.0)
+    call_ms = timed(lambda: scorer.features(x01))
+    log(f"[cli.test_batch] one batch of {len(x)} at 256^2, one style triple + "
+        f"features + softmax: {batch_ms:.2f} ms = {1e3 * len(x) / batch_ms:.1f} img/s "
+        f"(median of 5, CUDA events); the scorer at batch {len(x)}, 299^2, float32: "
+        f"network {fwd_ms:.2f} ms = {1e3 * len(x) / fwd_ms:.1f} img/s, `features()` "
+        f"from host 256^2 images {call_ms:.2f} ms = {1e3 * len(x) / call_ms:.1f} img/s")
+    _profile(f"one test_batch batch of {len(x)} (translate_triplet + scoring)", one_batch)
+    _profile(f"the scorer's `features()` at batch {len(x)} from host 256^2 images "
+             "(TF32 off)", lambda: scorer.features(x01))
+
+
+def phase_cli_test_batch(cfg, tmp, ckpt, inc):
+    """`cli.test_batch` with IS / CIS / FID; returns its K1 launches."""
+    from aclgan_tpu_torch.cli import test_batch
+    from aclgan_tpu_torch.data.loader import DataLoader, ImageDataset
+    from aclgan_tpu_torch.data.transforms import TransformSpec
+    from aclgan_tpu_torch.ops.kernels import instance_norm as K
+    from aclgan_tpu_torch.trainer import ACLGAN
+    from aclgan_tpu_torch.utils.checkpoint import load_generators
+
+    path = _eval_config(cfg, tmp, "m2f_eval")
+    ds, out = Path(tmp) / "ds", Path(tmp) / "test_batch"
+    torch.cuda.reset_peak_memory_stats()
+    K.launches = K.bwd_launches = 0
+    t0 = time.time()
+    r = test_batch.main(["--config", path, "--input_folder", str(ds / "testA"),
+                         "--output_folder", str(out), "--checkpoint", ckpt,
+                         "--batch", str(EVAL_BATCH), "--num_style", str(EVAL_STYLES),
+                         "--compute_IS", "--compute_CIS", "--compute_FID",
+                         "--fid_real_folder", str(ds / "testB"),
+                         "--inception_weights", inc, "--inception_b", inc])
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    peak = torch.cuda.max_memory_allocated()
+    launches = (K.launches, K.bwd_launches)
+    n_batches = -(-64 // EVAL_BATCH)
+    if launches != (K1_PER_TRIPLET * EVAL_STYLES * n_batches, 0):
+        raise AssertionError(f"cli.test_batch: (K1, K2) launches {launches}")
+    names = sorted(p.name for p in (ds / "testA").glob("*.jpg"))
+    want = sorted([f"input{i:03d}.jpg" for i in range(64)]
+                  + [f"_{j:02d}_{k}/{n}" for j in range(EVAL_STYLES) for k in ("bar", "mask")
+                     for n in names])
+    if _files(out) != want:
+        raise AssertionError(f"cli.test_batch: {len(_files(out))} files, expected {len(want)}")
+    scores = [r["IS"], r["CIS"], r["FID"]]
+    if not all(math.isfinite(v) for v in scores) or r["IS"] < 1.0 - 1e-9 or r["n_images"] != 64:
+        raise AssertionError(f"cli.test_batch: {r}")
+    log(f"[cli.test_batch] {cfg.tpu.compute_dtype}, 64 testA images at batch {EVAL_BATCH}, {EVAL_STYLES} "
+        f"styles: IS {r['IS']:.6f}, CIS {r['CIS']:.6f}, FID {r['FID']:.4f}, target-domain "
+        f"rate {r['target_domain_rate']:.4f}; {launches[0]} K1 launches; {len(want)} files; "
+        f"{wall:.2f} s end to end = {64 * EVAL_STYLES / wall:.2f} translations/s (start-up, "
+        f"two scorers, the real side, JPEG writes and the sqrtm included); scipy sqrtm "
+        f"2048^2 {r['fid_seconds']:.2f} s; peak memory {peak / 2**30:.3f} GiB ({peak} B)")
+
+    scorer = _scorer_parity(tmp, inc)
+    model = ACLGAN(cfg, device="cuda")
+    load_generators(ckpt, model)
+    size = cfg.data.resolved_sizes()[0]
+    spec = TransformSpec(new_size=size, crop_h=size, crop_w=size, flip=False)
+    loader = DataLoader(ImageDataset([str(ds / "testA" / n) for n in names], spec),
+                        EVAL_BATCH, train=False)
+    x, _ = next(loader.iter_padded())  # test_batch's first batch
+    _batch_rates(model, scorer, torch.from_numpy(x))
+    return launches[0]
+
+
+def phase_fid_curve(cfg, tmp, run_dir, inc):
+    """`cli.fid_curve` over two phase-9 snapshots; returns its K1 launches."""
+    import shutil
+
+    from aclgan_tpu_torch.cli import fid_curve
+    from aclgan_tpu_torch.ops.kernels import instance_norm as K
+
+    sweep = Path(tmp) / "sweep"
+    (sweep / "checkpoints").mkdir(parents=True)
+    for it in (20, 40):
+        shutil.copy(Path(run_dir) / f"gen_{it:08d}.pt", sweep / "checkpoints")
+    path = _eval_config(cfg, tmp, "m2f_sweep")
+    K.launches = K.bwd_launches = 0
+    r = fid_curve.main(["--config", path, "--run_dir", str(sweep), "--inception_weights",
+                        inc, "--n", "64", "--styles", str(SWEEP_STYLES), "--bootstrap",
+                        "20"])
+    torch.cuda.synchronize()
+    launches = (K.launches, K.bwd_launches)
+    if launches != (LAUNCHES_PER_BATCH * 2 * SWEEP_STYLES, 0):
+        raise AssertionError(f"cli.fid_curve: (K1, K2) launches {launches}")
+    doc = json.loads(Path(r["path"]).read_text())
+    keys = {"iteration", "fid", "target_domain_rate", "n_fake", "n_real", "fid_styles",
+            "fid_spread", "fid_ci95", "fid_f32_minus_f64"}
+    rows = doc["rows"]
+    if [row["iteration"] for row in rows] != [20, 40] or any(set(x) != keys for x in rows):
+        raise AssertionError(f"cli.fid_curve rows: {rows}")
+    vals = [v for row in rows for v in [row["fid"], row["fid_f32_minus_f64"],
+                                        *row["fid_ci95"], *row["fid_styles"]]]
+    if not all(math.isfinite(v) for v in vals) or not doc["complete"]:
+        raise AssertionError(f"cli.fid_curve: non-finite values in {rows}")
+    log(f"[cli.fid_curve] {cfg.tpu.compute_dtype}, 2 snapshots x {SWEEP_STYLES} styles, n 64, 20 bootstrap "
+        f"resamples: rows {json.dumps(rows)}; {launches[0]} K1 launches; seconds a "
+        f"snapshot {', '.join(f'{x:.2f}' for x in r['seconds'])}; scipy sqrtm 2048^2 "
+        f"{', '.join(f'{x:.2f}' for x in r['fid_seconds'])} s")
+    return launches[0]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         log("chip_smoke: no CUDA device available")
@@ -943,19 +1232,30 @@ def main() -> int:
         save_generators(ckpt, ACLGAN(cfg, device="cuda", seed=0))
         outs32 = phase_translator_f32(cfg, ckpt)
         phase_translator_bf16(cfg, ckpt, outs32)
-    torch.cuda.empty_cache()
-    phase_train_f32(cfg)
-    torch.cuda.empty_cache()
-    (k1["launches"], k2["launches"]), bare_s_per_it = phase_train_bf16(cfg)
-    by_path = {"train_step, one D+G iteration at batch 16 (phase 8)":
-               (k1["launches"], k2["launches"])}
-    torch.cuda.empty_cache()
-    with tempfile.TemporaryDirectory() as tmp:
+        torch.cuda.empty_cache()
+        phase_train_f32(cfg)
+        torch.cuda.empty_cache()
+        (k1["launches"], k2["launches"]), bare_s_per_it = phase_train_bf16(cfg)
+        by_path = {"train_step, one D+G iteration at batch 16 (phase 8)":
+                   (k1["launches"], k2["launches"])}
+        torch.cuda.empty_cache()
         _, by_path["train CLI, 40 iterations at batch 3 (phase 9)"] = \
             phase_train_cli_b3(cfg, tmp)
         torch.cuda.empty_cache()
         _, by_path["train CLI, 30 iterations at batch 16 (phase 10)"] = \
             phase_train_cli_b16(cfg, tmp, bare_s_per_it)
+        torch.cuda.empty_cache()
+        phase_dataset(tmp)
+        inc = phase_train_inception(tmp)
+        torch.cuda.empty_cache()
+        by_path["cli.test, one image x 10 styles, f32 (phase 13)"] = (
+            phase_cli_test(cfg, tmp, ckpt), 0)
+        by_path[f"cli.test_batch, 64 images at batch {EVAL_BATCH} x {EVAL_STYLES} styles "
+                "(phase 14)"] = (phase_cli_test_batch(cfg, tmp, ckpt, inc), 0)
+        torch.cuda.empty_cache()
+        run_dir = Path(tmp) / "b3" / "outputs" / "m2f_b3" / "checkpoints"
+        by_path[f"cli.fid_curve, 2 snapshots x {SWEEP_STYLES} styles x 64 images "
+                "(phase 15)"] = (phase_fid_curve(cfg, tmp, run_dir, inc), 0)
     for i, k in enumerate((k1, k2)):
         k["launches_by_path"] = {path: counts[i] for path, counts in by_path.items()}
 

@@ -1,4 +1,5 @@
-"""The port's CUDA kernels against their plain versions, on the card.
+"""The port's CUDA kernels against their plain versions, on the card, and the
+evaluation path's pieces on the card against the CPU.
 
 Imports no JAX, so it runs on a GPU host without it:
 
@@ -7,13 +8,20 @@ Imports no JAX, so it runs on a GPU host without it:
 Every test skips when no CUDA device is present.
 """
 
+import re
+import struct
+
 import numpy as np
 import pytest
 import torch
 
+from aclgan_tpu_torch.config import from_dict
 from aclgan_tpu_torch.data.loader import device_prefetch
+from aclgan_tpu_torch.eval.inception import InceptionScorer
 from aclgan_tpu_torch.ops.blocks import ConvBlock
 from aclgan_tpu_torch.ops.kernels import instance_norm as K
+from aclgan_tpu_torch.trainer import ACLGAN
+from aclgan_tpu_torch.utils.checkpoint import load_generators
 
 pytestmark = pytest.mark.cuda
 
@@ -183,3 +191,100 @@ def test_device_prefetch_delivers_every_batch_intact(cuda, n):
     assert len(got) == len(batches)
     for g, b in zip(got, batches):
         assert torch.equal(g.cpu(), torch.from_numpy(b))
+
+
+def test_inception_scorer_on_cuda_matches_cpu(cuda):
+    """pool3 features and softmax of the full-float32 scorer (TF32 off) on
+    the card against the CPU, through the resize from 256: features within
+    1e-3 of their largest value, probabilities within 1e-4."""
+    x = np.random.RandomState(0).rand(4, 256, 256, 3).astype(np.float32)
+    cpu = InceptionScorer(None, num_classes=2, device="cpu")
+    card = InceptionScorer(None, num_classes=2, device="cuda")
+    want, got = cpu.features(x), card.features(x)
+    np.testing.assert_allclose(got, want, rtol=1e-3, atol=1e-3 * np.abs(want).max())
+    np.testing.assert_allclose(card.predict(x), cpu.predict(x), rtol=1e-4, atol=1e-4)
+    assert torch.backends.cudnn.allow_tf32  # restored after each call
+
+
+# the inverse of utils/jax_weights.py::generator_state_dict (no PReLU), to
+# write a flax-layout generator snapshot without JAX
+_FLAX_PATHS = [
+    (r"enc_style\.model\.6\.(weight|bias)", "enc_style/Conv_0"),
+    (r"enc_style\.model\.(\d)\.conv\.(weight|bias)", "enc_style/ConvBlock_{0}/Conv_0"),
+    (r"(enc_content|dec)\.model\.\d\.model\.(\d)\.model\.(\d)\.conv\.(weight|bias)",
+     "{0}/ResBlocks_0/ResBlock_{1}/ConvBlock_{2}/Conv_0"),
+    (r"enc_content\.model\.(\d)\.conv\.(weight|bias)", "enc_content/ConvBlock_{0}/Conv_0"),
+    (r"dec\.model\.(\d)\.(conv|norm)\.(weight|bias|gamma|beta)", "dec/ConvBlock_{k}"),
+    (r"mlp\.model\.(\d)\.fc\.(weight|bias)", "mlp/LinearBlock_{0}/Dense_0"),
+]
+
+
+def _flax_generator(sd):
+    tree = {}
+    for key, t in sd.items():
+        for pattern, template in _FLAX_PATHS:
+            m = re.fullmatch(pattern, key)
+            if m:
+                break
+        g, a, leaf = m.groups(), t.numpy(), key.split(".")[-1]
+        path = template.format(*g, k=(int(g[0]) - 1) // 2 if template == "dec/ConvBlock_{k}"
+                               else 0).split("/")
+        if leaf in ("gamma", "beta"):
+            path.append(f"ln_{leaf}")
+        else:
+            if template == "dec/ConvBlock_{k}":
+                path.append("Conv_0")
+            path.append("kernel" if leaf == "weight" else "bias")
+            if leaf == "weight":
+                a = a.transpose(2, 3, 1, 0) if a.ndim == 4 else a.T
+        node = tree
+        for p in path[:-1]:
+            node = node.setdefault(p, {})
+        node[path[-1]] = np.ascontiguousarray(a)
+    return tree
+
+
+def _pack(obj) -> bytes:
+    """msgpack as flax writes it: maps, str, int, lists, bin, ndarray (ext 1)."""
+    if isinstance(obj, dict):
+        return (b"\xde" + struct.pack(">H", len(obj))
+                + b"".join(_pack(k) + _pack(v) for k, v in obj.items()))
+    if isinstance(obj, str):
+        return b"\xd9" + bytes([len(obj)]) + obj.encode()
+    if isinstance(obj, int):
+        return b"\xd2" + struct.pack(">i", obj)
+    if isinstance(obj, list):
+        return b"\xdc" + struct.pack(">H", len(obj)) + b"".join(_pack(v) for v in obj)
+    if isinstance(obj, bytes):
+        return b"\xc6" + struct.pack(">I", len(obj)) + obj
+    body = _pack([list(obj.shape), obj.dtype.name, obj.tobytes()])
+    return b"\xc9" + struct.pack(">I", len(body)) + b"\x01" + body
+
+
+def test_msgpack_generators_load_onto_cuda(cuda, tmp_path):
+    """A flax-layout `gen_%08d.msgpack` loads onto the card; the weights equal
+    the CPU load's and translate as the CPU does."""
+    raw = {"gen": {"dim": 8, "mlp_dim": 16, "style_dim": 8, "output_dim": 4,
+                   "n_downsample": 2, "n_res": 2}, "tpu": {"compute_dtype": "float32"}}
+    cfg = from_dict(raw)
+    src = ACLGAN(cfg, device="cpu", seed=3)
+    tree = {k: _flax_generator(src.gen(k).state_dict()) for k in ("AB", "BA")}
+    path = tmp_path / "gen_00000010.msgpack"
+    path.write_bytes(_pack(tree))
+    cpu, card = ACLGAN(cfg, device="cpu", seed=0), ACLGAN(cfg, device="cuda", seed=0)
+    for model in (cpu, card):
+        load_generators(str(path), model)
+    for k in ("AB", "BA"):
+        want = src.gen(k).state_dict()
+        for name, t in card.gen(k).state_dict().items():
+            assert t.is_cuda and torch.equal(t.cpu(), want[name]), name
+    x = torch.from_numpy(np.random.RandomState(1).randint(0, 256, (2, 32, 32, 3),
+                                                          dtype=np.uint8))
+    z = torch.randn(2, 8, generator=torch.Generator().manual_seed(2))
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        got, _ = card.translate(x, z)
+    finally:
+        torch.backends.cudnn.allow_tf32 = True
+    want, _ = cpu.translate(x, z)
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)

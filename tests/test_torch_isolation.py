@@ -15,7 +15,8 @@ from aclgan_tpu_torch import config
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "aclgan_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
 CONFIGS = sorted((ROOT / "configs").glob("*.yaml"))
-_FORBIDDEN_ROOTS = {"jax", "jaxlib", "flax", "optax"}
+# msgpack too: the GPU host has no msgpack package (utils/msgpack.py reads the format)
+_FORBIDDEN_ROOTS = {"jax", "jaxlib", "flax", "optax", "msgpack"}
 
 
 def _forbidden(module: str) -> bool:
@@ -40,6 +41,7 @@ def test_forbidden_matches_exactly():
     assert _forbidden("aclgan_tpu") and _forbidden("aclgan_tpu.config")
     assert _forbidden("jax.numpy") and _forbidden("flax.linen")
     assert not _forbidden("aclgan_tpu_torch") and not _forbidden("aclgan_tpu_torch.config")
+    assert _forbidden("msgpack") and not _forbidden("aclgan_tpu_torch.utils.msgpack")
 
 
 def test_serving_import_loads_no_jax():
@@ -55,6 +57,16 @@ def test_train_cli_import_loads_no_jax():
     code = ("import sys, aclgan_tpu_torch.cli.train; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'optax', 'aclgan_tpu')]; print(bad)")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=120, check=True).stdout
+    assert out.strip() == "[]"
+
+
+@pytest.mark.parametrize("module", ["test", "test_batch", "train_inception", "fid_curve"])
+def test_eval_cli_import_loads_no_jax(module):
+    code = (f"import sys, aclgan_tpu_torch.cli.{module}; "
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'flax', 'optax', 'msgpack', 'aclgan_tpu')]; print(bad)")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                          text=True, timeout=120, check=True).stdout
     assert out.strip() == "[]"

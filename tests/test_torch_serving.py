@@ -85,8 +85,8 @@ def test_checkpoint_roundtrip(served, tmp_path):
     for k in ("AB", "BA"):
         assert ckpt[k].keys() == ckpt2[k].keys()
         assert all(torch.equal(ckpt[k][n], ckpt2[k][n]) for n in ckpt[k])
-    with pytest.raises(ValueError, match=".pt"):
-        load_generators(str(tmp_path / "gen_00000001.msgpack"), model)
+    with pytest.raises(ValueError, match=".pt or .msgpack"):
+        load_generators(str(tmp_path / "gen_00000001.ckpt"), model)
 
 
 def test_bf16_compute_tracks_f32(served):
