@@ -73,3 +73,21 @@ def apply_transform(img, spec: TransformSpec, rng: np.random.Generator) -> np.nd
 def normalize_batch(batch_u8: np.ndarray) -> np.ndarray:
     """uint8 NHWC -> float32 in [-1, 1] (ToTensor + Normalize(.5,.5))."""
     return batch_u8.astype(np.float32) * (2.0 / 255.0) - 1.0
+
+
+def prep_image(img: np.ndarray, size: int) -> np.ndarray:
+    """uint8 HWC -> square (size, size): shortest-side resize + center crop
+    (`aclgan_tpu/serving.py::prep_image`). Shared by `serving.Translator` and
+    `export.ExportedTranslator`, so both feed the model the same pixels."""
+    arr = np.asarray(img)
+    if arr.ndim != 3 or arr.shape[-1] != 3:
+        raise ValueError(f"expected HxWx3 RGB image, got shape {arr.shape}")
+    arr = arr.astype(np.uint8, copy=False)
+    if arr.shape[:2] != (size, size):
+        from PIL import Image
+
+        arr = np.asarray(resize_shortest(Image.fromarray(arr), size), np.uint8)
+    h, w = arr.shape[:2]
+    top = (h - size) // 2
+    left = (w - size) // 2
+    return arr[top:top + size, left:left + size]

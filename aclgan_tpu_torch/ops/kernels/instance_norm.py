@@ -18,8 +18,20 @@ writes dx (8 bytes an element in bf16) and streams x four times and y, dy
 twice. Holding a row in shared memory, splitting it over a cluster, or
 saving (mean, rsig) from K1 for K2 is left for later work.
 
-`fused_instance_norm` runs the plain version for a tensor on the CPU (autograd
-gives its backward) and the kernels for a CUDA tensor; nothing falls back
+K1 is also one dispatcher op, `torch.ops.aclgan.instance_norm_fwd(x, scale,
+shift, eps, activ)` (activ: the code in `_FUSED_ACTS`), registered when this
+module is imported: its CUDA impl launches the kernel, its CPU impl is the
+plain version, and its fake impl gives `torch.export` the output's shape, so
+an exported translation step holds K1 as one graph node and launches the
+kernel on the card whatever device it was traced on. Loading such a program
+needs this module and nothing of the model. The op is defined through
+`torch.library.Library` rather than `torch.library.custom_op`: the latter
+wraps every call in more Python, and the serving and D-step paths call K1
+19 to 49 times a step.
+
+`fused_instance_norm` calls the op when no gradient is needed. With one, a
+tensor on the CPU takes the plain version (autograd gives its backward) and a
+CUDA tensor `_FusedInstanceNorm` (K1 forward, K2 backward). Nothing falls back
 from a kernel.
 """
 
@@ -229,18 +241,43 @@ def fused_instance_norm(x: torch.Tensor, scale: Optional[torch.Tensor] = None,
                         activ: str = "none",
                         prelu_alpha: Optional[torch.Tensor] = None) -> torch.Tensor:
     """IN (scale/shift None) or AdaIN, then activation. x: (N, C, H, W);
-    scale/shift: (N, C). A CPU tensor takes the plain version; a CUDA tensor
-    launches K1, and K2 in the backward when a gradient is needed (prelu/selu
-    are applied after the kernel in torch)."""
+    scale/shift: (N, C). Without a gradient, the `aclgan::instance_norm_fwd`
+    op: K1 on a CUDA tensor, the plain version on a CPU one. With one, the
+    plain version on the CPU and K1 + K2 (`_FusedInstanceNorm`) on CUDA.
+    prelu/selu are applied after the op or kernel in torch."""
     _check(x, scale, shift, activ)
-    if x.device.type == "cpu":
-        return instance_norm_plain(x, scale, shift, eps, activ, prelu_alpha)
-    if x.device.type != "cuda":
-        raise ValueError(f"no kernel for device {x.device}")
     act = activ if activ in _FUSED_ACTS else "none"
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad for t in (x, scale, shift)):
+        if x.device.type == "cpu":
+            return instance_norm_plain(x, scale, shift, eps, activ, prelu_alpha)
+        if x.device.type != "cuda":
+            raise ValueError(f"no kernel for device {x.device}")
         y = _FusedInstanceNorm.apply(x, scale, shift, eps, act)
     else:
-        y = _launch(x, _vec(scale, x), _vec(shift, x), eps, act)
+        y = torch.ops.aclgan.instance_norm_fwd(x, scale, shift, eps, _FUSED_ACTS[act])
     return y if act == activ else apply_activation(y, activ, prelu_alpha)
+
+
+# K1 as one dispatcher op (see the module docstring); kept alive with the module
+_ACT_NAMES = {code: name for name, code in _FUSED_ACTS.items()}
+_LIB = torch.library.Library("aclgan", "DEF")
+_LIB.define("instance_norm_fwd(Tensor x, Tensor? scale, Tensor? shift, float eps, "
+            "int activ) -> Tensor")
+
+
+def _op_cuda(x, scale, shift, eps, activ):
+    return _launch(x, _vec(scale, x), _vec(shift, x), eps, _ACT_NAMES[activ])
+
+
+def _op_cpu(x, scale, shift, eps, activ):
+    return instance_norm_plain(x, scale, shift, eps, _ACT_NAMES[activ])
+
+
+def _op_fake(x, scale, shift, eps, activ):
+    return torch.empty_like(x)
+
+
+_LIB.impl("instance_norm_fwd", _op_cuda, "CUDA")
+_LIB.impl("instance_norm_fwd", _op_cpu, "CPU")
+torch.library.register_fake("aclgan::instance_norm_fwd", _op_fake, lib=_LIB)

@@ -5,15 +5,18 @@
 
 Drives the port's paths at full width (male2female, random weights from a
 seed; InceptionV3 at 299^2), serving (A->B translation), training (D and G
-steps at the D1/G2 cadence) and evaluation (the test CLIs, IS / CIS / FID,
-the classifier fine-tune, the FID curve), through the hand-written CUDA
+steps at the D1/G2 cadence), evaluation (the test CLIs, IS / CIS / FID,
+the classifier fine-tune, the FID curve) and the serving stack (buckets,
+the exported artifact, the HTTP front), through the hand-written CUDA
 kernels, and fails, with a non-zero exit, if any phase fails:
 
 1. device info (torch/CUDA versions, nvidia-smi name and power limit);
 2. build every kernel under aclgan_tpu_torch/csrc with nvcc;
 3. K1 (instance-norm forward) against its plain PyTorch version at the
    serving shapes, with timings of the kernel, the plain version and one
-   library call over a Translator batch and over a D+G training iteration;
+   library call over a Translator batch and over a D+G training iteration,
+   and the host's microseconds a call through the `aclgan::` op costs
+   against the bare wrapper;
 4. K2 (instance-norm backward) against its plain version at the training
    shapes, with the same timings over one G step;
 5. Translator end to end in float32 (TF32 off): 70 requests in 3 batches of
@@ -53,8 +56,22 @@ kernels, and fails, with a non-zero exit, if any phase fails:
 15. `cli.fid_curve` over phase 9's snapshots 20 and 40, 64 images, 2
    styles, 20 bootstrap resamples: rows with the JAX tool's keys, finite
    FIDs and intervals, 19 K1 launches a snapshot a style, seconds a snapshot;
-16. one JSON line listing every kernel;
-17. last line: {"ok": true, "device": {...}}.
+16. [bucketed] `BucketedTranslator` (buckets 128/192/256, batch 32, bf16): 96
+   requests with short sides over 100-320 and explicit styles; each output
+   within 1 LSB of a plain Translator at its bucket; `compiled_shapes()` 3
+   after `warmup()` and after repeated traffic; 19 K1 launches a device
+   batch; img/s (host clock, resize and crop included);
+17. [export] `export_translator` at batch 32 on the card (seconds, 19 op
+   nodes), the artifact's MB, `ExportedTranslator`: 70 requests within
+   1 LSB of phase 6, 19 K1 launches a batch, img/s against the live
+   Translator in turns (live, exported, exported, live);
+18. [http] `serving_http.make_server` over a Translator at batch 16 with a
+   5 ms window on 127.0.0.1: closed-loop clients (a spawned process) POST
+   256^2 JPEGs at concurrency 1, 8, 32 and 48, then 8 over `--artifact`
+   (exported by `cli.export` at batch 16): img/s, p50 / p99 latency, the
+   mean coalesced batch, 0 errors, 19 K1 launches a device batch;
+19. one JSON line listing every kernel;
+20. last line: {"ok": true, "device": {...}}.
 
 Imports nothing of JAX.
 """
@@ -78,6 +95,7 @@ import torch
 import torch.nn.functional as F
 
 ROOT = Path(__file__).resolve().parent
+CONFIG = ROOT / "configs" / "male2female.yaml"
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM, NVIDIA data sheet
 F32_FLOPS_PER_S = 67e12      # H100 SXM, float32 outside the tensor cores
 MAIN_SHAPES = [(32, 64, 256, 256), (32, 128, 128, 128), (32, 256, 64, 64)]
@@ -182,6 +200,30 @@ def _log_total(tag, work, tot):
         f"{tot['bound_by']})")
 
 
+def _op_overhead():
+    """Host microseconds a K1 call costs through the dispatcher op and through
+    the bare wrapper `_launch`, at a shape whose kernel is trivial (1x1x8x8),
+    in turns (op, wrapper, wrapper, op), 5000 calls each."""
+    from aclgan_tpu_torch.ops.kernels import instance_norm as K
+
+    x = torch.randn(1, 1, 8, 8, device="cuda")
+    calls = {"op": lambda: torch.ops.aclgan.instance_norm_fwd(x, None, None, 1e-5, 1),
+             "wrapper": lambda: K._launch(x, None, None, 1e-5, "relu")}
+    us = {"op": [], "wrapper": []}
+    for turn in ("op", "wrapper", "wrapper", "op"):
+        for _ in range(200):
+            calls[turn]()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(5000):
+            calls[turn]()
+        torch.cuda.synchronize()
+        us[turn].append((time.perf_counter() - t0) / 5000 * 1e6)
+    log(f"[kernel] instance_norm host cost a call (1x1x8x8, 5000 calls, in turns): "
+        f"through the aclgan:: op {', '.join(f'{u:.2f}' for u in us['op'])} us, bare "
+        f"wrapper {', '.join(f'{u:.2f}' for u in us['wrapper'])} us")
+
+
 def phase_instance_norm_kernel():
     """K1 against its plain version; returns its kernels-line entry."""
     from aclgan_tpu_torch.ops.kernels import instance_norm as K
@@ -234,6 +276,7 @@ def phase_instance_norm_kernel():
     def nbytes(shape, affine):  # read x, write y (+ the f32 scale and shift)
         return 2 * 2 * math.prod(shape) + (2 * 4 * shape[0] * shape[1] if affine else 0)
 
+    _op_overhead()
     # serving: per Translator batch of 32, IN at 256^2 x64 once, 128^2 x128
     # once, 64^2 x256 nine times, AdaIN at 64^2 x256 eight times
     serving = _time_mix("instance_norm", _encode_mix(BATCH) + _decode_mix(BATCH), make,
@@ -459,20 +502,9 @@ def phase_translator_bf16(cfg, ckpt, outs32):
     _check_outputs(outs, masks, "bf16 cuda")
     diff = np.abs(np.stack(outs).astype(np.int16) - np.stack(outs32).astype(np.int16))
 
-    window = (imgs * 2)[:4 * BATCH]  # 4 full batches of requests
-    win_styles = np.concatenate([styles, styles])[:4 * BATCH]
-    for _ in range(2):
-        tr(window, win_styles)
+    window, win_styles = _window(imgs, styles)
     torch.cuda.reset_peak_memory_stats()
-    rates = []
-    for _ in range(7):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        tr(window, win_styles)
-        end.record()
-        torch.cuda.synchronize()
-        rates.append(len(window) / (start.elapsed_time(end) / 1e3))
+    rates = _img_rates(tr, window, win_styles)
     peak = torch.cuda.max_memory_allocated()
     log(f"[translator bf16] batch {BATCH}: p50 {np.median(rates):.1f} img/s over "
         f"7 windows of {len(window)} requests ({', '.join(f'{r:.1f}' for r in rates)}); "
@@ -481,6 +513,29 @@ def phase_translator_bf16(cfg, ckpt, outs32):
     if diff.mean() > 8:
         raise AssertionError(f"bf16 outputs drift {diff.mean():.2f} LSB on average from f32")
     _profile(f"one window of {len(window)} requests", lambda: tr(window, win_styles))
+    return outs
+
+
+def _window(imgs, styles):
+    """4 full batches of requests."""
+    return (imgs * 2)[:4 * BATCH], np.concatenate([styles, styles])[:4 * BATCH]
+
+
+def _img_rates(tr, window, win_styles, windows=7):
+    """img/s of `tr` over `windows` calls on `window` (CUDA events), after
+    2 warm-up calls."""
+    for _ in range(2):
+        tr(window, win_styles)
+    rates = []
+    for _ in range(windows):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        tr(window, win_styles)
+        end.record()
+        torch.cuda.synchronize()
+        rates.append(len(window) / (start.elapsed_time(end) / 1e3))
+    return rates
 
 
 def _train_model(cfg, device, seed=0):
@@ -1200,6 +1255,321 @@ def phase_fid_curve(cfg, tmp, run_dir, inc):
     return launches[0]
 
 
+# ------------------------------------------------------------------ serving stack
+BUCKETS = (128, 192, 256)
+N_BUCKETED = 96
+HTTP_BATCH = 16
+HTTP_WAIT_MS = 5.0
+HTTP_LEVELS = (1, 8, 32, 48)
+HTTP_SECONDS = 5.0
+
+
+def _max_lsb(got, want):
+    return max(int(np.abs(g.astype(np.int16) - w.astype(np.int16)).max())
+               for g, w in zip(got, want))
+
+
+def _bucketed_requests():
+    """96 requests whose short sides spread over 100-320, either orientation."""
+    rng = np.random.RandomState(2)
+    imgs = []
+    for _ in range(N_BUCKETED):
+        short = int(rng.randint(100, 321))
+        long = short + int(rng.randint(0, 65))
+        hw = (short, long) if rng.rand() < 0.5 else (long, short)
+        imgs.append(rng.randint(0, 256, hw + (3,), dtype=np.uint8))
+    return imgs, rng.randn(N_BUCKETED, 8).astype(np.float32)
+
+
+def phase_bucketed(cfg, ckpt):
+    """`BucketedTranslator` against a plain Translator at each bucket; returns
+    its K1 launches over the 96 requests."""
+    from aclgan_tpu_torch.data.transforms import prep_image
+    from aclgan_tpu_torch.ops.kernels import instance_norm as K
+    from aclgan_tpu_torch.serving import BucketedTranslator, Translator
+
+    imgs, styles = _bucketed_requests()
+    tr = BucketedTranslator(cfg, ckpt, buckets=BUCKETS, batch_size=BATCH)
+    tr.warmup()
+    if tr.compiled_shapes() != len(BUCKETS):
+        raise AssertionError(f"bucketed: {tr.compiled_shapes()} shapes after warmup")
+    groups: dict = {}
+    for i, im in enumerate(imgs):
+        groups.setdefault(tr.pick_bucket(im), []).append(i)
+    n_batches = sum(-(-len(v) // BATCH) for v in groups.values())
+    K.launches = 0
+    outs = tr(imgs, styles)
+    torch.cuda.synchronize()
+    launches = K.launches
+    if launches != LAUNCHES_PER_BATCH * n_batches:
+        raise AssertionError(f"bucketed: {launches} K1 launches for {n_batches} batches")
+    worst = 0
+    for b, idxs in sorted(groups.items()):
+        want = Translator(cfg, ckpt, batch_size=BATCH, size=b)([imgs[i] for i in idxs],
+                                                              styles[idxs])
+        got = [outs[i] for i in idxs]
+        if any(o.shape != (b, b, 3) or o.dtype != np.uint8 for o in got):
+            raise AssertionError(f"bucketed: an output of bucket {b} is not {b}x{b}x3 uint8")
+        worst = max(worst, _max_lsb(got, want))
+    if worst > 1:
+        raise AssertionError(f"bucketed: {worst} LSB from the plain Translator")
+    secs = []
+    for _ in range(5):  # the whole call: resize and crop on the host, batches, copies
+        t0 = time.perf_counter()
+        tr(imgs, styles)
+        secs.append(time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    for im in imgs:
+        prep_image(im, tr.pick_bucket(im))
+    prep_s = time.perf_counter() - t0
+    if tr.compiled_shapes() != len(BUCKETS):
+        raise AssertionError(f"bucketed: {tr.compiled_shapes()} shapes after repeat traffic")
+    p50 = float(np.median(secs))
+    log(f"[bucketed] buckets {BUCKETS}, batch {BATCH}, {cfg.tpu.compute_dtype}: "
+        f"{N_BUCKETED} requests "
+        f"(short sides 100-320) -> {', '.join(f'{b}: {len(v)}' for b, v in sorted(groups.items()))}"
+        f", {n_batches} device batches, {launches} K1 launches; vs the plain Translator at "
+        f"each bucket: max {worst} LSB; compiled_shapes {tr.compiled_shapes()} after warmup "
+        f"and repeat traffic; p50 {N_BUCKETED / p50:.1f} img/s over 5 calls "
+        f"({', '.join(f'{N_BUCKETED / x:.1f}' for x in secs)}), host clock; resize + crop "
+        f"alone {prep_s:.3f} s of the {p50:.3f} s")
+    return launches
+
+
+def phase_export(cfg, ckpt, tmp, outs16):
+    """Export at batch 32 on the card, save, load, serve phase 6's requests;
+    returns the K1 launches of those 70 requests."""
+    from aclgan_tpu_torch.export import (ExportedTranslator, export_translator,
+                                         kernel_nodes, save_artifact)
+    from aclgan_tpu_torch.ops.kernels import instance_norm as K
+    from aclgan_tpu_torch.serving import Translator
+
+    t0 = time.perf_counter()
+    exported, meta = export_translator(cfg, ckpt, batch_size=BATCH, device="cuda")
+    export_s = time.perf_counter() - t0
+    nodes = kernel_nodes(exported)
+    if nodes != LAUNCHES_PER_BATCH:
+        raise AssertionError(f"export: {nodes} aclgan:: nodes in the graph")
+    path = Path(tmp) / "m2f_a2b_b32.aclt"
+    t0 = time.perf_counter()
+    save_artifact(exported, meta, str(path))
+    save_s = time.perf_counter() - t0
+    del exported
+    t0 = time.perf_counter()
+    frozen = ExportedTranslator(str(path))
+    load_s = time.perf_counter() - t0
+    imgs, styles = _requests()
+    K.launches = 0
+    outs, masks = frozen(imgs, styles, return_masks=True)
+    torch.cuda.synchronize()
+    launches = K.launches
+    if launches != LAUNCHES_PER_BATCH * -(-N_REQUESTS // BATCH):
+        raise AssertionError(f"export: {launches} K1 launches for {N_REQUESTS} requests")
+    _check_outputs(outs, masks, "export")
+    worst = _max_lsb(outs, outs16)
+    if worst > 1:
+        raise AssertionError(f"export: {worst} LSB from phase 6's live Translator")
+    live = Translator(cfg, ckpt, batch_size=BATCH)
+    window, win_styles = _window(imgs, styles)
+    rates = {"live": [], "exported": []}
+    for turn in ("live", "exported", "exported", "live"):
+        rates[turn].append(float(np.median(
+            _img_rates(live if turn == "live" else frozen, window, win_styles, 5))))
+    log(f"[export] batch {BATCH}, 256^2, {cfg.tpu.compute_dtype}: export_translator "
+        f"{export_s:.2f} s on the card ({nodes} aclgan:: nodes), save {save_s:.2f} s, {path.stat().st_size / 1e6:.1f} "
+        f"MB ({path.stat().st_size} B), load + move {load_s:.2f} s; {N_REQUESTS} requests: "
+        f"{launches} K1 launches, vs phase 6's live Translator max {worst} LSB; img/s (p50 of "
+        f"5 windows of {len(window)}, in turns live, exported, exported, live): live "
+        f"{', '.join(f'{r:.1f}' for r in rates['live'])}, exported "
+        f"{', '.join(f'{r:.1f}' for r in rates['exported'])}")
+    return launches
+
+
+class _Recording:
+    """A translator proxy that records each device call's batch (the
+    coalesced batch before padding), as `tools/bench_serving.py` does, and
+    its host seconds (the worker's time inside the call, copies included)."""
+
+    def __init__(self, inner):
+        self._inner = inner
+        self.batch_sizes, self.seconds = [], []
+
+    def __call__(self, images, styles=None, **kw):
+        self.batch_sizes.append(len(images))
+        t0 = time.perf_counter()
+        out = self._inner(images, styles=styles, **kw)
+        self.seconds.append(time.perf_counter() - t0)
+        return out
+
+    def __getattr__(self, name):
+        return getattr(self._inner, name)
+
+
+def _http_clients(port, bodies, concurrency, seconds, out):
+    """Closed-loop clients (runs in a spawned process): `concurrency` threads
+    each POST one body, wait for the reply, and go again until the deadline.
+    Puts (latencies in s, errors, elapsed s) on `out`."""
+    import http.client
+    import threading
+
+    lat, errors, lock = [], [], threading.Lock()
+    stop_at = time.monotonic() + seconds
+
+    def client(k):
+        mine, i = [], k
+        while time.monotonic() < stop_at:
+            t0 = time.monotonic()
+            try:
+                conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+                conn.request("POST", "/translate", body=bodies[i % len(bodies)],
+                             headers={"Content-Type": "image/jpeg"})
+                r = conn.getresponse()
+                data = r.read()
+                conn.close()
+                if r.status != 200 or not data.startswith(b"\xff\xd8"):
+                    raise RuntimeError(f"status {r.status}: {data[:200]!r}")
+            except Exception as e:
+                with lock:
+                    errors.append(repr(e))
+                continue
+            mine.append(time.monotonic() - t0)
+            i += concurrency
+        with lock:
+            lat.extend(mine)
+
+    threads = [threading.Thread(target=client, args=(k,)) for k in range(concurrency)]
+    t0 = time.monotonic()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    out.put((lat, errors, time.monotonic() - t0))
+
+
+def _http_level(port, bodies, concurrency, rec, tag):
+    """One closed-loop level against a serving port; returns its numbers."""
+    import multiprocessing
+
+    from aclgan_tpu_torch.ops.kernels import instance_norm as K
+
+    ctx = multiprocessing.get_context("spawn")
+    q = ctx.Queue()
+    rec.batch_sizes.clear()
+    rec.seconds.clear()
+    K.launches = 0
+    proc = ctx.Process(target=_http_clients,
+                       args=(port, bodies, concurrency, HTTP_SECONDS, q))
+    proc.start()
+    try:
+        lat, errors, elapsed = q.get(timeout=HTTP_SECONDS + 120)
+    finally:
+        proc.join(timeout=30)
+        if proc.is_alive():
+            proc.kill()
+    torch.cuda.synchronize()
+    batches, call_s = list(rec.batch_sizes), list(rec.seconds)
+    if errors:
+        raise AssertionError(f"http {tag} c{concurrency}: {len(errors)} errors, first "
+                             f"{errors[0]}")
+    if not lat or K.launches != LAUNCHES_PER_BATCH * len(batches):
+        raise AssertionError(f"http {tag} c{concurrency}: {len(lat)} replies, {K.launches} "
+                             f"K1 launches for {len(batches)} device batches")
+    ms = np.asarray(sorted(lat)) * 1e3
+    row = dict(mode=tag, concurrency=concurrency, requests=len(lat),
+               img_s=len(lat) / elapsed, p50_ms=float(np.percentile(ms, 50)),
+               p99_ms=float(np.percentile(ms, 99)),
+               mean_batch=float(np.mean(batches)), device_batches=len(batches),
+               call_p50_ms=float(np.median(call_s)) * 1e3,
+               worker_busy=float(sum(call_s)) / elapsed, k1_launches=K.launches, errors=0)
+    log(f"[http] {tag}, concurrency {concurrency}: {row['img_s']:.1f} img/s, p50 "
+        f"{row['p50_ms']:.1f} ms, p99 {row['p99_ms']:.1f} ms, mean coalesced batch "
+        f"{row['mean_batch']:.2f} ({len(batches)} device batches, {K.launches} K1 "
+        f"launches), {len(lat)} requests in {elapsed:.2f} s, 0 errors; a translator call "
+        f"p50 {row['call_p50_ms']:.1f} ms, the worker inside calls "
+        f"{100 * row['worker_busy']:.1f}% of the level")
+    return row
+
+
+def _jpeg_bodies(n=16):
+    """256^2 JPEG request bodies of photo-like size (smooth images, quality 90)."""
+    from PIL import Image
+
+    rng = np.random.RandomState(3)
+    bodies = []
+    for _ in range(n):
+        small = Image.fromarray(rng.randint(0, 256, (16, 16, 3), dtype=np.uint8))
+        buf = io.BytesIO()
+        small.resize((256, 256), Image.BICUBIC).save(buf, format="JPEG", quality=90)
+        bodies.append(buf.getvalue())
+    return bodies
+
+
+def _serve(httpd):
+    import threading
+
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    return thread
+
+
+def _shutdown(httpd, thread):
+    httpd.shutdown()
+    httpd.server_close()
+    httpd.aclgan_async.close(drain=False)
+    thread.join(timeout=10)
+
+
+def phase_http(cfg, ckpt, tmp):
+    """The HTTP front over a Translator, then over an exported artifact;
+    returns the K1 launches of every level together."""
+    import urllib.request
+
+    from aclgan_tpu_torch.cli import export as cli_export
+    from aclgan_tpu_torch.serving import Translator
+    from aclgan_tpu_torch.serving_http import make_server, server_from_argv
+
+    bodies = _jpeg_bodies()
+    rec = _Recording(Translator(cfg, ckpt, batch_size=HTTP_BATCH))
+    httpd = make_server(rec, port=0, max_wait_ms=HTTP_WAIT_MS)
+    if httpd.request_queue_size != 128:
+        raise AssertionError(f"http: listen backlog {httpd.request_queue_size}")
+    port, thread = httpd.server_address[1], _serve(httpd)
+    rows = []
+    try:
+        for body in bodies[:3]:  # warm-up: cuDNN set-up at batch 16
+            req = urllib.request.Request(f"http://127.0.0.1:{port}/translate", data=body,
+                                         method="POST")
+            with urllib.request.urlopen(req, timeout=120) as r:
+                r.read()
+        for c in HTTP_LEVELS:
+            rows.append(_http_level(port, bodies, c, rec, "checkpoint"))
+    finally:
+        _shutdown(httpd, thread)
+
+    art = str(Path(tmp) / f"m2f_a2b_b{HTTP_BATCH}.aclt")
+    t0 = time.perf_counter()
+    cli_export.main(["--config", str(CONFIG), "--checkpoint", ckpt, "--output", art,
+                     "--batch", str(HTTP_BATCH)])
+    export_s = time.perf_counter() - t0
+    httpd = server_from_argv(["--artifact", art, "--port", "0", "--max_wait_ms",
+                              str(HTTP_WAIT_MS)])
+    rec = httpd.aclgan_async.translator = _Recording(httpd.aclgan_async.translator)
+    port, thread = httpd.server_address[1], _serve(httpd)
+    try:
+        for body in bodies[:3]:
+            req = urllib.request.Request(f"http://127.0.0.1:{port}/translate", data=body,
+                                         method="POST")
+            with urllib.request.urlopen(req, timeout=120) as r:
+                r.read()
+        rows.append(_http_level(port, bodies, 8, rec, "artifact"))
+    finally:
+        _shutdown(httpd, thread)
+    log(f"[http] batch {HTTP_BATCH}, {HTTP_WAIT_MS} ms window, {HTTP_SECONDS} s a level, "
+        f"bodies {min(map(len, bodies))}-{max(map(len, bodies))} B; cli.export at batch "
+        f"{HTTP_BATCH} {export_s:.2f} s; rows {json.dumps(rows)}")
+    return sum(r["k1_launches"] for r in rows)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         log("chip_smoke: no CUDA device available")
@@ -1226,12 +1596,12 @@ def main() -> int:
     k2 = phase_instance_norm_bwd_kernel()
     torch.cuda.empty_cache()
 
-    cfg = load_config(ROOT / "configs" / "male2female.yaml")
+    cfg = load_config(CONFIG)
     with tempfile.TemporaryDirectory() as tmp:
         ckpt = str(Path(tmp) / "gen_00000000.pt")
         save_generators(ckpt, ACLGAN(cfg, device="cuda", seed=0))
         outs32 = phase_translator_f32(cfg, ckpt)
-        phase_translator_bf16(cfg, ckpt, outs32)
+        outs16 = phase_translator_bf16(cfg, ckpt, outs32)
         torch.cuda.empty_cache()
         phase_train_f32(cfg)
         torch.cuda.empty_cache()
@@ -1256,6 +1626,15 @@ def main() -> int:
         run_dir = Path(tmp) / "b3" / "outputs" / "m2f_b3" / "checkpoints"
         by_path[f"cli.fid_curve, 2 snapshots x {SWEEP_STYLES} styles x 64 images "
                 "(phase 15)"] = (phase_fid_curve(cfg, tmp, run_dir, inc), 0)
+        torch.cuda.empty_cache()
+        by_path[f"BucketedTranslator, {N_BUCKETED} requests over buckets {BUCKETS} "
+                "(phase 16)"] = (phase_bucketed(cfg, ckpt), 0)
+        torch.cuda.empty_cache()
+        by_path[f"ExportedTranslator, {N_REQUESTS} requests at batch {BATCH} "
+                "(phase 17)"] = (phase_export(cfg, ckpt, tmp, outs16), 0)
+        torch.cuda.empty_cache()
+        by_path[f"HTTP front, levels {HTTP_LEVELS} + artifact at 8, batch {HTTP_BATCH} "
+                "(phase 18)"] = (phase_http(cfg, ckpt, tmp), 0)
     for i, k in enumerate((k1, k2)):
         k["launches_by_path"] = {path: counts[i] for path, counts in by_path.items()}
 

@@ -1,5 +1,5 @@
 """The port's CUDA kernels against their plain versions, on the card, and the
-evaluation path's pieces on the card against the CPU.
+evaluation and serving paths' pieces on the card against the CPU.
 
 Imports no JAX, so it runs on a GPU host without it:
 
@@ -18,10 +18,12 @@ import torch
 from aclgan_tpu_torch.config import from_dict
 from aclgan_tpu_torch.data.loader import device_prefetch
 from aclgan_tpu_torch.eval.inception import InceptionScorer
+from aclgan_tpu_torch.export import ExportedTranslator, export_translator, save_artifact
 from aclgan_tpu_torch.ops.blocks import ConvBlock
 from aclgan_tpu_torch.ops.kernels import instance_norm as K
+from aclgan_tpu_torch.serving import AsyncTranslator, BucketedTranslator
 from aclgan_tpu_torch.trainer import ACLGAN
-from aclgan_tpu_torch.utils.checkpoint import load_generators
+from aclgan_tpu_torch.utils.checkpoint import load_generators, save_generators
 
 pytestmark = pytest.mark.cuda
 
@@ -45,6 +47,23 @@ def test_instance_norm_kernel_matches_plain(cuda, dtype, tol):
             torch.cuda.synchronize()
             assert K.launches == before + 1
             want = K.instance_norm_plain(x, *args, activ=activ)
+            torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 0.05)])
+def test_instance_norm_op_on_cuda_is_the_kernel(cuda, dtype, tol):
+    """`aclgan::instance_norm_fwd` on CUDA tensors launches K1 once a call and
+    equals the plain version; a bf16 non-contiguous AdaIN slice is taken."""
+    x = (torch.randn(2, 16, 12, 10, device="cuda", generator=cuda) * 2 + 0.5).to(dtype)
+    vec = torch.randn(2, 48, device="cuda", generator=cuda).to(dtype)
+    scale, shift = vec[:, 16:32], vec[:, :16]
+    for name, code in K._FUSED_ACTS.items():
+        for args in ((None, None), (scale, shift)):
+            before = K.launches
+            got = torch.ops.aclgan.instance_norm_fwd(x, *args, 1e-5, code)
+            torch.cuda.synchronize()
+            assert K.launches == before + 1 and got.dtype == dtype
+            want = K.instance_norm_plain(x, *args, activ=name)
             torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
 
 
@@ -288,3 +307,66 @@ def test_msgpack_generators_load_onto_cuda(cuda, tmp_path):
         torch.backends.cudnn.allow_tf32 = True
     want, _ = cpu.translate(x, z)
     torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+
+
+_SERVE_RAW = {"gen": {"dim": 8, "mlp_dim": 16, "style_dim": 8, "output_dim": 4,
+                      "n_downsample": 2, "n_res": 4}, "tpu": {"compute_dtype": "float32"}}
+
+
+def _served(tmp_path):
+    cfg = from_dict(_SERVE_RAW)
+    path = str(tmp_path / "gen_00000000.pt")
+    save_generators(path, ACLGAN(cfg, device="cpu", seed=0))
+    return cfg, path
+
+
+def _max_lsb(got, want):
+    return max(int(np.abs(g.astype(int) - w.astype(int)).max()) for g, w in zip(got, want))
+
+
+def test_artifact_traced_on_cpu_launches_k1_on_the_card(cuda, tmp_path):
+    """An artifact traced on the CPU, moved to the card at load: 19 K1
+    launches a batch, outputs within 2 LSB of the same artifact on the CPU."""
+    cfg, path = _served(tmp_path)
+    exported, meta = export_translator(cfg, path, batch_size=2, size=32, device="cpu")
+    art = str(tmp_path / "tiny.aclt")
+    save_artifact(exported, meta, art)
+    rng = np.random.RandomState(0)
+    imgs = [rng.randint(0, 256, (32, 40, 3), dtype=np.uint8) for _ in range(3)]
+    styles = rng.randn(3, 8).astype(np.float32)
+    card = ExportedTranslator(art, device="cuda")
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        before = K.launches
+        got = card(imgs, styles)
+        torch.cuda.synchronize()
+        assert K.launches - before == 19 * 2
+    finally:
+        torch.backends.cudnn.allow_tf32 = True
+    want = ExportedTranslator(art, device="cpu")(imgs, styles)
+    assert _max_lsb(got, want) <= 2
+
+
+def test_bucketed_and_async_on_cuda_match_cpu(cuda, tmp_path):
+    cfg, path = _served(tmp_path)
+    kw = dict(buckets=(16, 32), batch_size=2)
+    card = BucketedTranslator(cfg, path, device="cuda", **kw)
+    rng = np.random.RandomState(1)
+    imgs = [rng.randint(0, 256, (s, s + 4, 3), dtype=np.uint8) for s in (12, 30, 16, 40, 20)]
+    styles = rng.randn(len(imgs), 8).astype(np.float32)
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        before = K.launches
+        got = card(imgs, styles)
+        torch.cuda.synchronize()
+        # bucket 16: 2 images, 1 batch; bucket 32: 3 images, 2 batches
+        assert K.launches - before == 19 * 3
+        assert card.compiled_shapes() == 2
+        with AsyncTranslator(card, max_batch=2, max_wait_ms=50.0) as srv:
+            futs = [srv.submit(im, style=s) for im, s in zip(imgs, styles)]
+            coalesced = [f.result(timeout=60) for f in futs]
+    finally:
+        torch.backends.cudnn.allow_tf32 = True
+    want = BucketedTranslator(cfg, path, device="cpu", **kw)(imgs, styles)
+    assert _max_lsb(got, want) <= 2
+    assert _max_lsb(coalesced, want) <= 2
