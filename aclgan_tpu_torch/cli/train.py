@@ -13,7 +13,9 @@ Port of `aclgan_tpu/cli/train.py` on one device (CUDA unless `--device cpu`):
   each, copied to the host as one stacked tensor; image grids + HTML every
   image_save_iter and `train_current` every image_display_iter; a snapshot
   set every snapshot_save_iter and at the end;
-- `--resume` restores networks, optimizers, EMA, step and the z stream;
+- `--resume` restores networks, optimizers, EMA, step and the z stream from
+  the newest snapshot set, the port's `.pt` or a JAX run's `.msgpack` (whose
+  z stream restarts from (seed, step));
 - `--profile_dir` writes a `torch.profiler` trace of iterations 10..14.
 
 Not ported: the multi-host and mesh branches; `tpu.distributed` or

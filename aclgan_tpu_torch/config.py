@@ -4,9 +4,10 @@ The schema is the JAX package's (`aclgan_tpu/config.py`): the same
 dataclasses, field names, defaults and unknown-key rejection, so one YAML file
 configures both packages. The `tpu:` block is accepted whole; of its knobs
 the port reads `compute_dtype` (conv/dense compute type; params stay
-float32) and `ema_decay`, and refuses the training knobs it has not ported
-(`grad_accum > 1`, `remat`, `moment_dtype` other than float32). The others
-are TPU/XLA knobs the port ignores.
+float32), `ema_decay`, `remat`, `grad_accum` and `moment_dtype`, and rejects
+the values the JAX package rejects (`trainer.py`). The others are TPU/XLA
+knobs the port ignores, except `distributed` and `mesh_data > 1`, which the
+train CLI refuses (one device).
 
 `load_config` parses the YAML subset `configs/*.yaml` uses — `key: scalar`
 lines, one level of nested mappings, `#` comments — with PyYAML's YAML 1.1
@@ -83,9 +84,8 @@ class DataConfig:
 @dataclass
 class TpuConfig:
     """The JAX package's `tpu:` block. The port reads `compute_dtype` and the
-    training knobs (`ema_decay`; `grad_accum`, `remat` and `moment_dtype`
-    only to refuse what is not ported); the rest are TPU/XLA knobs, kept so
-    the same YAML files validate."""
+    training knobs (`ema_decay`, `remat`, `grad_accum`, `moment_dtype`); the
+    rest are TPU/XLA knobs, kept so the same YAML files validate."""
 
     compute_dtype: str = "bfloat16"   # dtype of conv/matmul compute; params stay f32
     use_pallas: bool = False

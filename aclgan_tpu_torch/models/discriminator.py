@@ -6,7 +6,11 @@ padding left out of the divisor) between scales. Returns the list of
 per-scale logit maps; the loss heads are in `aclgan_tpu_torch.losses`.
 Submodules follow the reference, so `state_dict()` keys are the names
 `aclgan_tpu.utils.torch_import.map_discriminator_state_dict` maps
-(`cnns.{s}.{layer}.conv.weight`, final 1x1 `cnns.{s}.{n_layer}.weight`).
+(`cnns.{s}.{layer}.conv.weight`, final 1x1 `cnns.{s}.{n_layer}.weight`; under
+sn `cnns.{s}.{layer}.conv.module.{weight_bar,bias,weight_u,weight_v}`, under bn
+`cnns.{s}.{layer}.norm.{weight,bias,running_mean,running_var,...}`). The first
+block of each scale has no norm and the final 1x1 is a bare conv, whatever
+`norm` says (networks.py:40,46).
 """
 
 from __future__ import annotations
@@ -40,16 +44,14 @@ class MsDiscriminator(nn.Module):
     """num_scales PatchGAN stacks over a downsampling pyramid (networks.py:49-57).
 
     Gaussian N(0, 0.02) init, as the trainer builds every discriminator.
-    `norm` may be none, in or ln; bn and sn are not ported yet."""
+    `norm` may be none, in, ln, bn or sn. In train mode (the default) bn's
+    running stats and sn's u / v advance on every forward, as the reference's
+    do inside both the D and the G update."""
 
     def __init__(self, cfg: DisConfig, input_dim: int, init_type: str = "gaussian",
                  dtype: torch.dtype = torch.float32,
                  gen: Optional[torch.Generator] = None):
         super().__init__()
-        if cfg.norm in ("bn", "sn"):
-            raise NotImplementedError(
-                f"discriminator norm {cfg.norm!r} is not ported yet (ROADMAP.md, Queue 1, "
-                "M1: BatchNorm and spectral norm)")
         self.cnns = nn.ModuleList(
             [_scale_net(cfg, input_dim, init_type, dtype, gen)
              for _ in range(cfg.num_scales)])

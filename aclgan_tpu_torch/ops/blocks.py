@@ -12,7 +12,7 @@ CPU. The JAX package's TPU-only conv layouts (polyphase heads, packed 7x7,
 collapsed-tap upsample) are not ported: the decoder upsamples, then convs.
 
 - ConvBlock    <- Conv2dBlock   (networks.py:312-371): pad -> conv -> norm -> act
-- LinearBlock  <- LinearBlock   (networks.py:373-418)
+- LinearBlock  <- LinearBlock   (networks.py:373-418): dense -> norm -> act
 - ResBlock(s)  <- ResBlock(s)   (networks.py:269-278, 297-310)
 - MLP          <- MLP           (networks.py:280-292)
 """
@@ -28,8 +28,9 @@ from torch import nn
 from aclgan_tpu_torch.ops.activations import ACTIVATIONS, apply_activation
 from aclgan_tpu_torch.ops.initializers import make_initializer
 from aclgan_tpu_torch.ops.kernels.instance_norm import fused_instance_norm
-from aclgan_tpu_torch.ops.norms import sample_layer_norm
+from aclgan_tpu_torch.ops.norms import BatchNorm, sample_layer_norm
 from aclgan_tpu_torch.ops.pad import PAD_MODES, pad2d
+from aclgan_tpu_torch.ops.spectral import SpectralConv2d, SpectralLinear
 
 AdainParams = Tuple[torch.Tensor, torch.Tensor]  # (scale, shift), each (N, C)
 
@@ -88,7 +89,9 @@ def _check_activation(activ: str) -> None:
 
 
 class ConvBlock(nn.Module):
-    """pad -> conv(VALID) -> norm (none / in / ln / adain) -> activation."""
+    """pad -> conv(VALID) -> norm (none / in / ln / adain / bn / sn) ->
+    activation. 'sn' wraps the conv (`SpectralConv2d`) and adds no norm
+    layer, as the reference's Conv2dBlock does."""
 
     def __init__(self, in_dim: int, out_dim: int, kernel_size: int, stride: int,
                  padding: int = 0, norm: str = "none", activ: str = "relu",
@@ -98,16 +101,19 @@ class ConvBlock(nn.Module):
         super().__init__()
         if pad_type not in PAD_MODES:
             raise ValueError(f"Unsupported padding type: {pad_type!r}")
-        if norm not in ("none", "in", "ln", "adain"):
+        if norm not in ("none", "in", "ln", "adain", "bn", "sn"):
             raise ValueError(f"Unsupported normalization: {norm!r}")
         _check_activation(activ)
         self.padding = padding
         self.pad_type = pad_type
         self.norm_type = norm
         self.activ = activ
-        self.conv = Conv2d(in_dim, out_dim, kernel_size, stride, init_type, dtype, gen)
+        conv_cls = SpectralConv2d if norm == "sn" else Conv2d
+        self.conv = conv_cls(in_dim, out_dim, kernel_size, stride, init_type, dtype, gen)
         if norm == "ln":
             self.norm = LayerNorm(out_dim, gen)
+        elif norm == "bn":
+            self.norm = BatchNorm(out_dim)
         if activ == "prelu":
             self.activation = nn.PReLU()  # weight (1,) = 0.25, as the reference
 
@@ -126,31 +132,55 @@ class ConvBlock(nn.Module):
             # output is copied, a contiguous one passes as it is
             return fused_instance_norm(x.contiguous(), scale, shift, activ=self.activ,
                                        prelu_alpha=self._prelu_alpha())
-        if self.norm_type == "ln":
+        if self.norm_type in ("ln", "bn"):
             x = self.norm(x)
         return apply_activation(x, self.activ, self._prelu_alpha())
 
 
 class LinearBlock(nn.Module):
-    """dense -> activation (networks.py:373-418). Only norm 'none' is ported:
-    the generator's MLP uses no other."""
+    """dense -> norm (none / bn / in / ln / sn) -> activation
+    (`aclgan_tpu/ops/blocks.py:205-251`). On (N, F): 'in' normalizes each
+    sample over F (biased var, eps inside the sqrt, no affine); 'ln' is the
+    custom LayerNorm's 2-D form (Bessel-corrected std, divide by std + eps,
+    per-feature affine); 'sn' wraps the dense."""
 
     def __init__(self, in_dim: int, out_dim: int, norm: str = "none",
                  activ: str = "relu", init_type: str = "kaiming",
                  dtype: torch.dtype = torch.float32,
                  gen: Optional[torch.Generator] = None):
         super().__init__()
-        if norm != "none":
-            raise ValueError(f"LinearBlock norm {norm!r} is not ported (only 'none')")
+        if norm not in ("none", "bn", "in", "ln", "sn"):
+            raise ValueError(f"Unsupported normalization: {norm!r}")
         _check_activation(activ)
+        self.norm_type = norm
         self.activ = activ
-        self.fc = Linear(in_dim, out_dim, init_type, dtype, gen)
+        fc_cls = SpectralLinear if norm == "sn" else Linear
+        self.fc = fc_cls(in_dim, out_dim, init_type, dtype, gen)
+        if norm == "ln":
+            self.norm = LayerNorm(out_dim, gen)
+        elif norm == "bn":
+            self.norm = BatchNorm(out_dim)
         if activ == "prelu":
             self.activation = nn.PReLU()
 
+    def _norm(self, x: torch.Tensor) -> torch.Tensor:
+        if self.norm_type == "bn":
+            return self.norm(x)
+        x32 = x.float()
+        mean = x32.mean(dim=-1, keepdim=True)
+        if self.norm_type == "in":
+            var = (x32 - mean).square().mean(dim=-1, keepdim=True)
+            return ((x32 - mean) / torch.sqrt(var + 1e-5)).to(x.dtype)
+        std = x32.std(dim=-1, keepdim=True)  # Bessel-corrected
+        out = (x32 - mean) / (std + self.norm.eps)
+        return (out * self.norm.gamma.float() + self.norm.beta.float()).to(x.dtype)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = self.fc(x)
+        if self.norm_type in ("bn", "in", "ln"):
+            x = self._norm(x)
         alpha = self.activation.weight if self.activ == "prelu" else None
-        return apply_activation(self.fc(x), self.activ, alpha)
+        return apply_activation(x, self.activ, alpha)
 
 
 class ResBlock(nn.Module):

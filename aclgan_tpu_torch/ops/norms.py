@@ -7,6 +7,10 @@
 - sample_layer_norm — the reference's custom LayerNorm: per-sample stats over
   all of (C,H,W), Bessel-corrected std, divide by `(std + eps)`, per-channel
   affine.
+- BatchNorm — torch nn.BatchNorm2d/1d with default args, as the JAX
+  `TorchBatchNorm`: momentum 0.1 in the torch convention, the biased batch
+  variance to normalize and the Bessel-corrected one in `running_var`, the
+  running stats in eval mode.
 
 Stats are float32 whatever the input dtype; the result is cast back to the
 input dtype. These are the plain versions: on a CUDA tensor the model's
@@ -16,6 +20,8 @@ IN/AdaIN layers run the fused kernel in `ops/kernels/instance_norm.py`.
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
+from torch import nn
 
 
 def _normalize(x: torch.Tensor, eps: float) -> torch.Tensor:
@@ -48,4 +54,23 @@ def sample_layer_norm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
     out = (x32 - mean) / (std + eps)
     out = out * gamma.float()[None, :, None, None] + beta.float()[None, :, None, None]
     return out.to(x.dtype)
+
+
+class BatchNorm(nn.BatchNorm2d):
+    """nn.BatchNorm2d's parameters, buffers and state-dict keys (`weight`,
+    `bias`, `running_mean`, `running_var`, `num_batches_tracked`), so that a
+    reference `.pt` loads as it is, computed in float32 on (N, C, H, W) or
+    (N, C) input of any float dtype and cast back. Stats are over every
+    non-channel axis."""
+
+    def _check_input_dim(self, x: torch.Tensor) -> None:
+        if x.dim() not in (2, 4):
+            raise ValueError(f"BatchNorm takes (N, C) or (N, C, H, W), got {tuple(x.shape)}")
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        self._check_input_dim(x)
+        if self.training:
+            self.num_batches_tracked.add_(1)
+        return F.batch_norm(x.float(), self.running_mean, self.running_var, self.weight,
+                            self.bias, self.training, self.momentum, self.eps).to(x.dtype)
 

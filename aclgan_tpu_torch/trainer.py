@@ -13,21 +13,28 @@ Port of `aclgan_tpu/trainer.py` (`to_model_range`, `ACLGAN`: `init_state`,
   inject the JAX draws through `train_step(z=...)`.
 - Params stay float32; each conv/dense casts to `cfg.tpu.compute_dtype`
   itself (no autocast), as flax's `dtype=` does.
+- `tpu.remat` wraps the G step's encoder / decoder calls in
+  `torch.utils.checkpoint` (non-reentrant) where the JAX step uses
+  `jax.checkpoint`; `tpu.grad_accum` runs the strided micro-batches one after
+  another, summing gradients, where the JAX step scans them;
+  `tpu.moment_dtype: bfloat16` takes `optim.AdamBf16Mu`.
 
-Calls to the same network are batched along dim 0 (every norm is per
-sample), image pairs for the consistency discriminator along channels.
+Calls to the same network are batched along dim 0 (every generator norm is
+per sample), image pairs for the consistency discriminator along channels.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Sequence, Tuple, Union
+from typing import Any, Callable, Dict, FrozenSet, List, Optional, Sequence, Tuple, Union
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from aclgan_tpu_torch import losses
 from aclgan_tpu_torch.config import Config
 from aclgan_tpu_torch.models.discriminator import MsDiscriminator
 from aclgan_tpu_torch.models.generator import AdaINGenerator
+from aclgan_tpu_torch.optim import AdamBf16Mu
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 GEN_NAMES = ("AB", "BA")
@@ -59,18 +66,23 @@ def to_model_range(x: torch.Tensor) -> torch.Tensor:
     return x.float() * (2.0 / 255.0) - 1.0
 
 
-def _check_trainable(cfg: Config) -> None:
-    """Raise on the train options the port does not have yet."""
-    tpu = cfg.tpu
-    if int(tpu.grad_accum) > 1:
-        raise NotImplementedError("tpu.grad_accum > 1 is not ported yet (ROADMAP.md, "
-                                  "Queue 1, M4)")
-    if tpu.remat not in (False, "", None, "none"):
-        raise NotImplementedError("tpu.remat is not ported yet (ROADMAP.md, Queue 1, M4: "
-                                  "torch.utils.checkpoint)")
-    if tpu.moment_dtype != "float32":
-        raise NotImplementedError(f"tpu.moment_dtype {tpu.moment_dtype!r} is not ported "
-                                  "yet (ROADMAP.md, Queue 1, M4: float32 moments only)")
+def _remat_families(remat: Any) -> FrozenSet[str]:
+    """The generator calls `tpu.remat` recomputes (`aclgan_tpu/trainer.py:201-210`)."""
+    if remat in (False, "", None, "none"):
+        return frozenset()
+    if remat in (True, "all"):
+        return frozenset({"encode", "decode"})
+    if remat in ("encode", "decode"):
+        return frozenset({remat})
+    raise ValueError(f"tpu.remat must be bool|'all'|'encode'|'decode', got {remat!r}")
+
+
+def _micro_batches(x: torch.Tensor, accum: int) -> List[torch.Tensor]:
+    """The strided split of `aclgan_tpu/trainer.py:490-514`: micro-batch m
+    takes the samples whose index % accum == m."""
+    if x.shape[0] % accum:
+        raise ValueError(f"batch_size {x.shape[0]} not divisible by tpu.grad_accum {accum}")
+    return [x[m::accum] for m in range(accum)]
 
 
 class ACLGAN:
@@ -94,18 +106,23 @@ class ACLGAN:
 
         self.gen_AB = make()
         self.gen_BA = make()
+        self.remat = _remat_families(cfg.tpu.remat)
+        self.accum = max(1, int(cfg.tpu.grad_accum))  # as the JAX step reads it
+        if cfg.tpu.moment_dtype not in _DTYPES:
+            raise ValueError(f"tpu.moment_dtype {cfg.tpu.moment_dtype!r} not supported "
+                             f"({sorted(_DTYPES)})")
 
     # ------------------------------------------------------------------
     def init_state(self, seed: Optional[int] = None) -> None:
         """Build the training state (`aclgan_tpu/trainer.py:150-190`): the three
         discriminators (gaussian init; dis_2 sees input_dim_b channels), one
         Adam over both generators and one over the discriminators (coupled L2
-        weight decay, as `torch.optim.Adam` has it), the EMA copies when
+        weight decay, as `torch.optim.Adam` has it; `AdamBf16Mu` under
+        `tpu.moment_dtype: bfloat16`), the EMA copies when
         `tpu.ema_decay > 0`, step 0, and the z generator. Discriminator
         weights draw from seed + 1 (the generators took the seed), z from
         the seed on the device."""
         cfg = self.cfg
-        _check_trainable(cfg)
         seed = self.seed if seed is None else seed
         gen = torch.Generator().manual_seed(seed + 1)
         dims = {"A": cfg.data.input_dim_a, "B": cfg.data.input_dim_a,
@@ -117,8 +134,9 @@ class ACLGAN:
                     weight_decay=cfg.weight_decay)
         self.gen_params = [p for n in GEN_NAMES for p in self.gen(n).parameters()]
         self.dis_params = [p for n in DIS_NAMES for p in self.dis(n).parameters()]
-        self.gen_opt = torch.optim.Adam(self.gen_params, **adam)
-        self.dis_opt = torch.optim.Adam(self.dis_params, **adam)
+        adam_cls = AdamBf16Mu if cfg.tpu.moment_dtype == "bfloat16" else torch.optim.Adam
+        self.gen_opt = adam_cls(self.gen_params, **adam)
+        self.dis_opt = adam_cls(self.dis_params, **adam)
         self.ema_decay = float(cfg.tpu.ema_decay)
         self.ema = None
         if self.ema_decay > 0:  # copies, never views of the live weights
@@ -127,6 +145,11 @@ class ACLGAN:
                         for n in GEN_NAMES}
         self.step = 0
         self.z_gen = torch.Generator(device=self.device).manual_seed(seed)
+
+    def reseed_z(self, step: int) -> None:
+        """Restart the z stream from (seed, step): a resume whose snapshot
+        carries no z generator state (a JAX run's threefry key cannot seed it)."""
+        self.z_gen.manual_seed((self.seed * 2**32 + step) % 2**63)
 
     def gen(self, name: str) -> AdaINGenerator:
         return getattr(self, f"gen_{name}")
@@ -157,6 +180,16 @@ class ACLGAN:
             return img, None
         return losses.focus_translation(img, bg, mask), mask
 
+    def _call(self, family: str, fn: Callable, *args: torch.Tensor) -> torch.Tensor:
+        """fn(*args), recomputed in the backward when `tpu.remat` names its
+        family and a graph is being recorded. Non-reentrant: the reentrant
+        form drops the parameters' gradients when no input requires one (the
+        images) and refuses `torch.autograd.grad`. No RNG runs inside, so its
+        state is not saved."""
+        if family in self.remat and torch.is_grad_enabled():
+            return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False)
+        return fn(*args)
+
     def generator_forward(self, x_a: torch.Tensor, x_b: torch.Tensor, z1: torch.Tensor,
                           z2: torch.Tensor, z3: torch.Tensor,
                           with_recon: bool) -> Dict[str, Optional[torch.Tensor]]:
@@ -166,28 +199,30 @@ class ACLGAN:
         d = self.dtype
         x_a, x_b = x_a.to(d), x_b.to(d)
         g_ab, g_ba = self.gen_AB, self.gen_BA
+        call = self._call
         if with_recon:
-            c_ab = g_ab.encode_content(torch.cat([x_a, x_b], 0))
+            c_ab = call("encode", g_ab.encode_content, torch.cat([x_a, x_b], 0))
             c_1, c_4 = c_ab[:b], c_ab[b:]
-            s_4 = g_ab.encode_style(x_b)
-            c_2 = g_ba.encode_content(x_a)
-            s_2 = g_ba.encode_style(x_a)
+            s_4 = call("encode", g_ab.encode_style, x_b)
+            c_2 = call("encode", g_ba.encode_content, x_a)
+            s_2 = call("encode", g_ba.encode_style, x_a)
         else:
-            c_1 = g_ab.encode_content(x_a)
-            c_2 = g_ba.encode_content(x_a)
+            c_1 = call("encode", g_ab.encode_content, x_a)
+            c_2 = call("encode", g_ba.encode_content, x_a)
         z1, z2, z3 = z1.to(d), (self.cfg.alpha * z2).to(d), z3.to(d)  # alpha: z2 only
 
         if with_recon:
-            dec_ab = g_ab.decode(torch.cat([c_1, c_4], 0), torch.cat([z1, s_4], 0))
+            dec_ab = call("decode", g_ab.decode, torch.cat([c_1, c_4], 0),
+                          torch.cat([z1, s_4], 0))
             dec_B, dec_B_recon = dec_ab[:b], dec_ab[b:]
         else:
-            dec_B = g_ab.decode(c_1, z1)
+            dec_B = call("decode", g_ab.decode, c_1, z1)
         x_B_fake, x_B_mask = self._blend(dec_B, x_a)
 
-        c_3 = g_ba.encode_content(x_B_fake)
+        c_3 = call("encode", g_ba.encode_content, x_B_fake)
         contents = [c_2, c_3] + ([c_2] if with_recon else [])
         styles = [z2, z3] + ([s_2] if with_recon else [])
-        dec_ba = g_ba.decode(torch.cat(contents, 0), torch.cat(styles, 0))
+        dec_ba = call("decode", g_ba.decode, torch.cat(contents, 0), torch.cat(styles, 0))
         x_A_fake, x_A_mask = self._blend(dec_ba[:b], x_a)
         x_A2_fake, x_A2_mask = self._blend(dec_ba[b:2 * b], x_B_fake)
 
@@ -262,25 +297,49 @@ class ACLGAN:
             group["lr"] = lr
         opt.step()
 
-    def dis_update(self, x_a: torch.Tensor, x_b: torch.Tensor, z: ZTriple) -> Metrics:
-        """One discriminator update (`:544-571`); the generators run without
-        a graph."""
+    def _micro(self, x_a: torch.Tensor, x_b: torch.Tensor, z: ZTriple):
+        """(x_a, x_b, z) of each micro-batch: the whole batch when accum is 1."""
+        if self.accum == 1:
+            return [(x_a, x_b, z)]
+        parts = [_micro_batches(t, self.accum) for t in (x_a, x_b, *z)]
+        return [(xa, xb, (z1, z2, z3)) for xa, xb, z1, z2, z3 in zip(*parts)]
+
+    def _accumulate(self, loss_fn: Callable, params: List[torch.Tensor], x_a: torch.Tensor,
+                    x_b: torch.Tensor, z: ZTriple) -> Metrics:
+        """`loss_fn(x_a, x_b, z)`'s gradients for `params`, summed over the
+        micro-batches and divided once into `.grad` (`:516-542`); returns the
+        micro-batch mean of the metrics."""
+        grads, per_micro = None, []
+        for xa, xb, zm in self._micro(x_a, x_b, z):
+            total, metrics = loss_fn(xa, xb, zm)
+            g = torch.autograd.grad(total, params)
+            grads = g if grads is None else [a + b for a, b in zip(grads, g)]
+            per_micro.append(metrics)
+        for p, g in zip(params, grads):
+            p.grad = g if self.accum == 1 else g / self.accum
+        if len(per_micro) == 1:
+            return per_micro[0]
+        return {k: torch.stack([m[k] for m in per_micro]).mean(0) for k in per_micro[0]}
+
+    def _dis_step_loss(self, x_a: torch.Tensor, x_b: torch.Tensor, z: ZTriple
+                       ) -> Tuple[torch.Tensor, Metrics]:
         with torch.no_grad():
             fwd = self.generator_forward(x_a, x_b, *z, with_recon=False)
-        total, metrics = self._dis_loss(fwd, x_a, x_b)
-        self.dis_opt.zero_grad(set_to_none=True)
-        total.backward()
+        return self._dis_loss(fwd, x_a, x_b)
+
+    def dis_update(self, x_a: torch.Tensor, x_b: torch.Tensor, z: ZTriple) -> Metrics:
+        """One discriminator update (`:544-571`); the generators run without
+        a graph. bn stats and sn u / v advance on each micro-batch's forwards."""
+        metrics = self._accumulate(self._dis_step_loss, self.dis_params, x_a, x_b, z)
         self._apply(self.dis_opt)
         return metrics
 
     def gen_update(self, x_a: torch.Tensor, x_b: torch.Tensor, z: ZTriple) -> Metrics:
         """One generator update (`:573-603`) against the discriminators already
         stepped this iteration. Gradients are taken for the generators' params
-        only: the discriminators' weight gradients are never computed."""
-        total, metrics = self._gen_loss(x_a, x_b, z)
-        grads = torch.autograd.grad(total, self.gen_params)
-        for p, g in zip(self.gen_params, grads):
-            p.grad = g
+        only: the discriminators' weight gradients are never computed (their
+        bn stats and sn u / v still advance on these forwards)."""
+        metrics = self._accumulate(self._gen_loss, self.gen_params, x_a, x_b, z)
         self._apply(self.gen_opt)
         if self.ema is not None:
             d = self.ema_decay

@@ -1,10 +1,15 @@
-"""A reader for flax msgpack files (`flax.serialization.msgpack_serialize`).
+"""A reader and a writer of flax msgpack files (`flax.serialization.msgpack_serialize`).
 
-The JAX package writes its generator snapshots (`gen_/ema_%08d.msgpack`) and
-its fine-tuned InceptionV3 weights this way. The port reads them without the
-`msgpack` package or flax: this module decodes the msgpack format itself.
+The JAX package writes its snapshot sets (`gen_/dis_/ema_%08d.msgpack`,
+`optimizer.msgpack`) and its fine-tuned InceptionV3 weights this way. The port
+reads them without the `msgpack` package or flax: this module decodes the
+msgpack format itself.
 
     tree = read_msgpack("gen_00020000.msgpack")   # {'AB': {...}, 'BA': {...}}
+
+`dumps` writes the same format (ndarrays, torch tensors in bfloat16 included,
+as ext type 1; numpy scalars as ext type 3), so that a JAX-layout snapshot set
+can be made where JAX is absent; no CLI exposes it.
 
 What it decodes: maps, arrays, str, bin, ints, floats, nil, bool, and flax's
 extension types (`flax/serialization.py`, `_MsgpackExtType`):
@@ -161,3 +166,87 @@ def loads(data: bytes) -> Any:
 def read_msgpack(path: str) -> Any:
     with open(path, "rb") as f:
         return loads(f.read())
+
+
+_NAMES = {dtype: name for name, dtype in _DTYPES.items()}
+
+
+def _pack_uint(n: int, fix_max: int, fix_base: int, codes: Tuple[int, ...]) -> bytes:
+    """A length or count: fixed form up to fix_max, else the 8/16/32-bit codes
+    (None where the format has no 8-bit form)."""
+    if n <= fix_max:
+        return bytes([fix_base | n])
+    for code, fmt, top in zip(codes, (">B", ">H", ">I"), (0xFF, 0xFFFF, 0xFFFFFFFF)):
+        if code is not None and n <= top:
+            return bytes([code]) + struct.pack(fmt, n)
+    raise ValueError(f"{n} items are more than msgpack can hold")
+
+
+def _pack_int(n: int) -> bytes:
+    if 0 <= n <= 0x7F or -32 <= n < 0:
+        return struct.pack(">b" if n < 0 else ">B", n)
+    for code, fmt, lo, hi in ((0xCC, ">B", 0, 2**8 - 1), (0xCD, ">H", 0, 2**16 - 1),
+                              (0xCE, ">I", 0, 2**32 - 1), (0xCF, ">Q", 0, 2**64 - 1),
+                              (0xD0, ">b", -2**7, -1), (0xD1, ">h", -2**15, -1),
+                              (0xD2, ">i", -2**31, -1), (0xD3, ">q", -2**63, -1)):
+        if lo <= n <= hi:
+            return bytes([code]) + struct.pack(fmt, n)
+    raise ValueError(f"{n} does not fit a msgpack integer")
+
+
+def _pack_ext(code: int, data: bytes) -> bytes:
+    n = len(data)
+    fixed = {1: 0xD4, 2: 0xD5, 4: 0xD6, 8: 0xD7, 16: 0xD8}
+    if n in fixed:
+        head = bytes([fixed[n]])
+    elif n <= 0xFF:
+        head = b"\xc7" + struct.pack(">B", n)
+    elif n <= 0xFFFF:
+        head = b"\xc8" + struct.pack(">H", n)
+    else:
+        head = b"\xc9" + struct.pack(">I", n)
+    return head + struct.pack(">b", code) + data
+
+
+def _array_bytes(t: torch.Tensor) -> bytes:
+    """flax `_ndarray_to_bytes`: (shape, dtype name, C-order bytes), packed."""
+    t = t.detach().cpu().contiguous()
+    if t.dtype not in _NAMES:
+        raise ValueError(f"array dtype {t.dtype} is not supported")
+    raw = t.reshape(-1).view(torch.uint8).numpy().tobytes()
+    return _pack([list(t.shape), _NAMES[t.dtype], raw])
+
+
+def _pack(obj: Any) -> bytes:
+    if obj is None:
+        return b"\xc0"
+    if isinstance(obj, bool):
+        return b"\xc3" if obj else b"\xc2"
+    if isinstance(obj, int):
+        return _pack_int(obj)
+    if isinstance(obj, float):
+        return b"\xcb" + struct.pack(">d", obj)
+    if isinstance(obj, str):
+        data = obj.encode("utf-8")
+        return _pack_uint(len(data), 0x1F, 0xA0, (0xD9, 0xDA, 0xDB)) + data
+    if isinstance(obj, bytes):
+        return _pack_uint(len(obj), -1, 0, (0xC4, 0xC5, 0xC6)) + obj
+    if isinstance(obj, dict):  # keys sorted, as flax's state dicts come out
+        return _pack_uint(len(obj), 0x0F, 0x80, (None, 0xDE, 0xDF)) + b"".join(
+            _pack(k) + _pack(obj[k]) for k in sorted(obj))
+    if isinstance(obj, (list, tuple)):
+        return _pack_uint(len(obj), 0x0F, 0x90, (None, 0xDC, 0xDD)) + b"".join(
+            _pack(v) for v in obj)
+    if isinstance(obj, torch.Tensor):
+        return _pack_ext(_EXT_NDARRAY, _array_bytes(obj))
+    if isinstance(obj, np.ndarray):
+        return _pack_ext(_EXT_NDARRAY, _array_bytes(torch.from_numpy(obj.copy())))
+    if isinstance(obj, np.generic):
+        return _pack_ext(_EXT_NPSCALAR, _array_bytes(torch.from_numpy(np.asarray(obj))))
+    raise TypeError(f"cannot write {type(obj).__name__} as flax msgpack")
+
+
+def dumps(tree: Any) -> bytes:
+    """Nested dicts / lists of tensors, arrays and scalars -> flax msgpack bytes
+    (arrays are not chunked: each must stay under 2**30 bytes)."""
+    return _pack(tree)

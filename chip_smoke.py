@@ -5,7 +5,8 @@
 
 Drives the port's paths at full width (male2female, random weights from a
 seed; InceptionV3 at 299^2), serving (A->B translation), training (D and G
-steps at the D1/G2 cadence), evaluation (the test CLIs, IS / CIS / FID,
+steps at the D1/G2 cadence; the bn / sn discriminators, tpu.remat,
+tpu.grad_accum, bf16 moments, a resumed JAX run), evaluation (the test CLIs, IS / CIS / FID,
 the classifier fine-tune, the FID curve) and the serving stack (buckets,
 the exported artifact, the HTTP front), through the hand-written CUDA
 kernels, and fails, with a non-zero exit, if any phase fails:
@@ -70,8 +71,23 @@ kernels, and fails, with a non-zero exit, if any phase fails:
    256^2 JPEGs at concurrency 1, 8, 32 and 48, then 8 over `--artifact`
    (exported by `cli.export` at batch 16): img/s, p50 / p99 latency, the
    mean coalesced batch, 0 errors, 19 K1 launches a device batch;
-19. one JSON line listing every kernel;
-20. last line: {"ok": true, "device": {...}}.
+19. [variants_f32] phase 7's cut (f32, 128^2, batch 2), one D+G iteration on
+   the card against the CPU for dis sn + nsgan, dis bn (batch 4), tpu.remat
+   all + grad_accum 2 (batch 4) and bf16 moments: metrics (rel 1e-3), the five
+   networks' gradients (rel-L2 1e-2), u / v and running stats (rel 1e-3),
+   (K1, K2) 98/49 a D+G iteration, 294/98 under remat all x accum 2;
+20. [remat_bf16] the shipped config (bf16, 256^2) at batch 16 under tpu.remat
+   none / decode / encode / all: it/s (p50 of windows, CUDA events), peak
+   memory, (K1, K2) of a D+G iteration (98 / 114 / 131 / 147, and 49);
+   batch 64 under remat all, under grad_accum 4 and without either (its OOM
+   printed as such); bf16 moments at 16: it/s and the optimizer's bytes;
+21. [jax_resume] a bf16 run at batch 16 with EMA written as a JAX-layout set
+   (`save_jax_checkpoint`), resumed bit-equal (weights, EMA, moments, step),
+   the next step on injected z against the writer's (phase 7's tolerances);
+   `cli.train --resume` on the set; `cli.convert` of its gen/dis msgpack and
+   of a port `.pt` snapshot; the import resumed in the CLI with fresh moments;
+22. one JSON line listing every kernel;
+23. last line: {"ok": true, "device": {...}}.
 
 Imports nothing of JAX.
 """
@@ -108,6 +124,7 @@ BATCH = 32
 K1_PER_STEP = 49
 K2_PER_G_STEP = 49             # the backward of every K1 of the G step
 TRAIN_BATCH = 16               # bench.py's training batch
+BIG_BATCH = 64                 # a batch only tpu.remat or tpu.grad_accum fits (phase 20)
 
 
 def _encode_mix(n):
@@ -1570,6 +1587,324 @@ def phase_http(cfg, ckpt, tmp):
     return sum(r["k1_launches"] for r in rows)
 
 
+# ------------------------------------------------------------------ training options
+K1_ENCODE, K1_DECODE = 11, 8      # IN layers of a content encode, AdaIN of a decode
+REMAT_EXTRA = {"none": 0, "decode": 2 * K1_DECODE, "encode": 3 * K1_ENCODE,
+               "all": 3 * K1_ENCODE + 2 * K1_DECODE}  # recomputed K1 a G step
+
+
+def _variant_cfg(cfg, size, dis=None, **tpu):
+    """Phase 7's cut (f32, `size`^2, smooth focus terms) with dis / tpu changes."""
+    return dataclasses.replace(
+        cfg, focus_delta=0.0, focus_epsilon=10.0,
+        dis=dataclasses.replace(cfg.dis, **(dis or {})),
+        tpu=dataclasses.replace(cfg.tpu, compute_dtype="float32", **tpu),
+        data=dataclasses.replace(cfg.data, crop_image_height=size, crop_image_width=size))
+
+
+def _collections(model):
+    """The discriminators' buffers: sn u / v and bn running stats, on the CPU."""
+    from aclgan_tpu_torch.trainer import DIS_NAMES
+
+    return {f"{n}/{k}": v.detach().float().cpu() for n in DIS_NAMES
+            for k, v in model.dis(n).state_dict().items()
+            if k.endswith(("weight_u", "weight_v", "running_mean", "running_var"))}
+
+
+def phase_variants_f32(cfg):
+    """[variants_f32] One D+G iteration on the card against the CPU for sn +
+    nsgan, bn (batch 4), remat all + grad_accum 2 (batch 4) and bf16 moments,
+    at phase 7's cut and tolerances. Returns {variant: (K1, K2)}."""
+    from aclgan_tpu_torch.ops.kernels import instance_norm as K
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    size = 128
+    variants = {
+        "sn_nsgan": (_variant_cfg(cfg, size, dis=dict(norm="sn", gan_type="nsgan")), 2, 1),
+        # batch 4: bn's batch stats over 2 samples of the deepest 2x2 rows are
+        # ill-conditioned enough to take card-vs-CPU gradients near 1e-2
+        "bn": (_variant_cfg(cfg, size, dis=dict(norm="bn")), 4, 1),
+        "remat_all_accum2": (_variant_cfg(cfg, size, remat="all", grad_accum=2), 4, 2),
+        "moments_bf16": (_variant_cfg(cfg, size, moment_dtype="bfloat16"), 2, 1),
+    }
+    counts = {}
+    for name, (vcfg, b, accum) in variants.items():
+        t0 = time.time()
+        rng = np.random.RandomState(5)
+        xa, xb = (rng.randint(0, 256, (b, size, size, 3), dtype=np.uint8) for _ in range(2))
+        z = {k: [rng.randn(b, vcfg.gen.style_dim).astype(np.float32) for _ in range(3)]
+             for k in ("dis", "gen")}
+
+        def run(device):
+            model = _train_model(vcfg, device)
+            K.launches = K.bwd_launches = 0
+            m = model.train_step(xa, xb, True, True, z=z)
+            out = {k: float(v) for k, v in m.items()}
+            launched = (K.launches, K.bwd_launches)
+            return out, launched, _grads(model), _collections(model)
+
+        got, launched, got_grads, got_col = run("cuda")
+        want_counts = (accum * (2 * K1_PER_STEP + (REMAT_EXTRA["all"] if "remat" in name
+                                                   else 0)), accum * K2_PER_G_STEP)
+        if launched != want_counts:
+            raise AssertionError(f"variants {name}: (K1, K2) {launched}, expected {want_counts}")
+        want, cpu_counts, want_grads, want_col = run("cpu")
+        if cpu_counts != (0, 0):
+            raise AssertionError(f"variants {name}: the CPU run launched kernels")
+        worst = max(abs(got[k] - w) / max(abs(w), 1e-12) for k, w in want.items())
+        if set(got) != set(want) or worst > 1e-3 or not all(map(math.isfinite, got.values())):
+            raise AssertionError(f"variants {name}: metrics max rel {worst:.2e} > 1e-3")
+        grad_err = {n: float((got_grads[n] - want_grads[n]).norm()
+                             / want_grads[n].norm().clamp_min(1e-30)) for n in want_grads}
+        if max(grad_err.values()) > 1e-2:
+            raise AssertionError(f"variants {name}: gradients rel-L2 {grad_err} > 1e-2")
+        # the G step's bn batch mean carries the conv bias before the bn, whose
+        # gradient the bn cancels: Adam's first step moves it by up to lr with
+        # the sign of float noise, on each side; a tenth reaches running_mean
+        slack = {k: 0.2 * vcfg.lr if k.endswith("running_mean") else 0.0 for k in want_col}
+        col_raw = {k: float((got_col[k] - w).abs().max()) for k, w in want_col.items()}
+        col_err = max((max(col_raw[k] - slack[k], 0.0) / float(w.abs().max().clamp_min(1e-30))
+                       for k, w in want_col.items()), default=0.0)
+        if ("sn" in name or name == "bn") and not want_col or col_err > 1e-3:
+            worst_keys = sorted(col_raw, key=col_raw.get)[-3:]
+            raise AssertionError(f"variants {name}: u / v or running stats rel {col_err:.2e} "
+                                 f"beyond the bias slack; largest abs differences "
+                                 f"{[(k, col_raw[k]) for k in worst_keys]}")
+        counts[name] = launched
+        log(f"[variants_f32] {name}: male2female full width, {size}^2, batch {b}, one D+G "
+            f"iteration; (K1, K2) {launched}; vs CPU: metrics max rel {worst:.2e}, gradients "
+            f"rel-L2 " + ", ".join(f"{n} {e:.2e}" for n, e in grad_err.items())
+            + f", {len(want_col)} u/v or stat tensors max rel {col_err:.2e} (largest abs "
+            f"difference {max(col_raw.values(), default=0.0):.2e}) "
+            f"({time.time() - t0:.1f} s)")
+    return counts
+
+
+def gc_collect():
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _rate(model, batches, cadence_start, windows=3, window=6):
+    """p50 it/s of `model.train_step` at D1/G2 over `windows` windows (CUDA
+    events) after one D+G and one D warm-up iteration."""
+    it = cadence_start
+
+    def iteration():
+        nonlocal it
+        xa, xb = batches[it % len(batches)]
+        model.train_step(xa, xb, True, it % 2 == 0)
+        it += 1
+
+    for _ in range(2):
+        iteration()
+    rates = []
+    for _ in range(windows):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(window):
+            iteration()
+        end.record()
+        torch.cuda.synchronize()
+        rates.append(window / (start.elapsed_time(end) / 1e3))
+    return float(np.median(rates)), rates
+
+
+def _train_probe(cfg, b, tag):
+    """A fresh bf16 model at batch b: the (K1, K2) of its first D+G iteration,
+    p50 it/s, peak memory; an out-of-memory error is reported as such."""
+    from aclgan_tpu_torch.ops.kernels import instance_norm as K
+
+    gc_collect()
+    torch.cuda.reset_peak_memory_stats()
+    rng = np.random.RandomState(1)
+    batches = [tuple(torch.from_numpy(rng.randint(0, 256, (b, 256, 256, 3), dtype=np.uint8))
+                     .cuda() for _ in range(2)) for _ in range(2)]
+    model = None
+    try:
+        model = _train_model(cfg, "cuda")
+        K.launches = K.bwd_launches = 0
+        model.train_step(*batches[0], True, True)
+        torch.cuda.synchronize()
+        launched = (K.launches, K.bwd_launches)
+        p50, rates = _rate(model, batches, 1, *((3, 6) if b <= TRAIN_BATCH else (2, 2)))
+        peak = torch.cuda.max_memory_allocated()
+    except torch.cuda.OutOfMemoryError as e:
+        peak = torch.cuda.max_memory_allocated()
+        log(f"[remat_bf16] {tag}, batch {b}: out of memory (peak allocated before it "
+            f"{peak / 2**30:.3f} GiB): {str(e).splitlines()[0][:160]}")
+        del model, batches
+        gc_collect()
+        return None
+    opt_bytes = sum(t.numel() * t.element_size() for o in (model.gen_opt, model.dis_opt)
+                    for st in o.state.values() for t in st.values()
+                    if isinstance(t, torch.Tensor))
+    log(f"[remat_bf16] {tag}, batch {b}: p50 {p50:.3f} it/s = {p50 * b:.2f} img/s "
+        f"({', '.join(f'{r:.3f}' for r in rates)}); peak memory {peak / 2**30:.3f} GiB "
+        f"({peak} B); (K1, K2) of a D+G iteration {launched}; optimizer state "
+        f"{opt_bytes} B")
+    del model, batches
+    gc_collect()
+    return dict(it_s=p50, peak=peak, launches=launched, opt_bytes=opt_bytes)
+
+
+def phase_remat_bf16(cfg):
+    """[remat_bf16] The shipped config (bf16, 256^2) at batch 16 under each
+    tpu.remat family, then BIG_BATCH under remat all, under grad_accum 4 and
+    without either, then bf16 moments at 16. Returns {path: (K1, K2)}."""
+    b = TRAIN_BATCH
+    counts = {}
+    for remat in ("none", "decode", "encode", "all"):
+        r = _train_probe(dataclasses.replace(cfg, tpu=dataclasses.replace(
+            cfg.tpu, remat=False if remat == "none" else remat)), b, f"remat {remat}")
+        want = (2 * K1_PER_STEP + REMAT_EXTRA[remat], K2_PER_G_STEP)
+        if r is None or r["launches"] != want:
+            raise AssertionError(f"remat_bf16 {remat}: {r}, expected launches {want}")
+        counts[f"remat {remat}"] = r["launches"]
+    for tag, tpu in (("remat all", dict(remat="all")), ("grad_accum 4", dict(grad_accum=4)),
+                     ("remat none", {})):
+        r = _train_probe(dataclasses.replace(cfg, tpu=dataclasses.replace(cfg.tpu, **tpu)),
+                         BIG_BATCH, tag)
+        if r is not None:
+            accum = tpu.get("grad_accum", 1)
+            want = (accum * (2 * K1_PER_STEP + REMAT_EXTRA["all" if "remat" in tpu else
+                                                           "none"]), accum * K2_PER_G_STEP)
+            if r["launches"] != want:
+                raise AssertionError(f"remat_bf16 {tag} at {BIG_BATCH}: launches "
+                                     f"{r['launches']}")
+            counts[f"{tag}, batch {BIG_BATCH}"] = r["launches"]
+        elif tag != "remat none":  # only the un-remat'ed big batch may not fit
+            raise AssertionError(f"remat_bf16: {tag} at batch {BIG_BATCH} did not fit")
+    f32 = _train_probe(cfg, b, "moments float32 (for the optimizer bytes)")
+    bf16 = _train_probe(dataclasses.replace(cfg, tpu=dataclasses.replace(
+        cfg.tpu, moment_dtype="bfloat16")), b, "moments bfloat16")
+    log(f"[remat_bf16] optimizer state at batch {b}: bf16 moments {bf16['opt_bytes']} B "
+        f"against float32 {f32['opt_bytes']} B ({bf16['opt_bytes'] / f32['opt_bytes']:.4f}); "
+        f"it/s {bf16['it_s']:.3f} against {f32['it_s']:.3f}")
+    counts["moments bfloat16"] = bf16["launches"]
+    return counts
+
+
+def _snapshot_tensors(model):
+    """{path: tensor} of everything a snapshot set holds, on the CPU."""
+    snap = model.snapshot()
+    out = {}
+    for key in ("gen", "dis", "ema"):
+        out.update({f"{key}/{p}": t for p, t in _leaves(snap[key]).items()})
+    for key in ("gen_opt", "dis_opt"):
+        out.update({f"{key}/{p}": t for p, t in _leaves(snap[key]["state"]).items()})
+    return {k: v.detach().cpu() for k, v in out.items()}
+
+
+def phase_jax_resume(cfg, tmp):
+    """[jax_resume] A bf16 run at batch 16 with EMA written as a JAX-layout
+    snapshot set (`save_jax_checkpoint`: msgpack writer + inverse maps),
+    resumed bit-equal; the next step matches the writer's; `cli.train
+    --resume` continues it; `cli.convert` turns its gen/dis and a port `.pt`
+    snapshot into an import the CLI resumes. Returns {path: (K1, K2)}."""
+    from aclgan_tpu_torch.cli import convert as cli_convert
+    from aclgan_tpu_torch.ops.kernels import instance_norm as K
+    from aclgan_tpu_torch.trainer import ACLGAN
+    from aclgan_tpu_torch.utils.checkpoint import resume, save_jax_checkpoint
+
+    b = TRAIN_BATCH
+    derived, path = _cli_config(cfg, tmp, "m2f_jax", batch_size=b,
+                                tpu=dataclasses.replace(cfg.tpu, ema_decay=0.999))
+    ckpt_dir = Path(tmp) / "jaxrun" / "outputs" / "m2f_jax" / "checkpoints"
+    writer = _train_model(derived, "cuda")
+    rng = np.random.RandomState(7)
+    batches = [tuple(rng.randint(0, 256, (b, 256, 256, 3), dtype=np.uint8) for _ in range(2))
+               for _ in range(4)]
+    for it, (xa, xb) in enumerate(batches[:3]):
+        writer.train_step(xa, xb, True, it % 2 == 0)
+    save_jax_checkpoint(str(ckpt_dir), writer, iterations=2)
+    files = sorted(p.name for p in ckpt_dir.iterdir())
+    if files != ["dis_00000003.msgpack", "ema_00000003.msgpack", "gen_00000003.msgpack",
+                 "optimizer.msgpack"]:
+        raise AssertionError(f"jax_resume: wrote {files}")
+    reader = ACLGAN(derived, device="cuda", seed=derived.seed + 5)
+    reader.init_state()
+    if resume(str(ckpt_dir), reader) != 3:
+        raise AssertionError("jax_resume: the set is not iteration 3")
+    want, got = _snapshot_tensors(writer), _snapshot_tensors(reader)
+    restored_step = reader.step
+    if set(got) != set(want) or reader.step != writer.step:
+        raise AssertionError(f"jax_resume: entries differ by {sorted(set(got) ^ set(want))[:5]}"
+                             f", step {reader.step} vs {writer.step}")
+    unequal = [k for k, w in want.items()
+               if got[k].dtype != w.dtype or not torch.equal(got[k], w)]
+    if unequal:
+        raise AssertionError(f"jax_resume: {len(unequal)} tensors differ, first {unequal[:3]}")
+    xa, xb = batches[3]
+    z = {k: [rng.randn(b, derived.gen.style_dim).astype(np.float32) for _ in range(3)]
+         for k in ("dis", "gen")}
+    outs = []
+    for model in (writer, reader):
+        m = model.train_step(xa, xb, True, True, z=z)
+        outs.append(({k: float(v) for k, v in m.items()}, _grads(model)))
+    worst = max(abs(outs[1][0][k] - w) / max(abs(w), 1e-12) for k, w in outs[0][0].items())
+    grad_err = {n: float((outs[1][1][n] - w).norm() / w.norm().clamp_min(1e-30))
+                for n, w in outs[0][1].items()}
+    if worst > 1e-3 or max(grad_err.values()) > 1e-2:
+        raise AssertionError(f"jax_resume: next step metrics rel {worst:.2e}, gradients "
+                             f"{grad_err}")
+    log(f"[jax_resume] bf16 batch {b}, EMA 0.999: 3 iterations written as a JAX set "
+        f"({', '.join(files)}); resumed: {len(want)} tensors bit-equal, step {restored_step}; "
+        f"next step on injected z: metrics max rel {worst:.2e}, gradients rel-L2 "
+        + ", ".join(f"{n} {e:.2e}" for n, e in grad_err.items()))
+    del writer, reader, outs
+    gc_collect()
+
+    cadence = _cadence(derived, max(64, b * 8) // b, 4, 8)
+    K.launches = K.bwd_launches = 0
+    _run_cli(["--config", path, "--output_path", str(Path(tmp) / "jaxrun"), "--resume",
+              "--max_iter", "8"])
+    torch.cuda.synchronize()
+    resumed = (K.launches, K.bwd_launches)
+    if resumed != _expected_launches(cadence, samples=0):
+        raise AssertionError(f"jax_resume: CLI launches {resumed}")
+    counts = {f"train CLI --resume of a JAX set, 5 iterations at batch {b}": resumed}
+    _check_records(_records(Path(tmp) / "jaxrun" / "logs" / "m2f_jax"), range(4, 9),
+                   "jax_resume CLI")
+
+    imp = Path(tmp) / "imported" / "outputs" / "m2f_jax" / "checkpoints"
+    t0 = time.time()
+    cli_convert.main(["--config", path, "--gen", str(ckpt_dir / "gen_00000003.msgpack"),
+                      "--dis", str(ckpt_dir / "dis_00000003.msgpack"), "--output_dir",
+                      str(imp)])
+    convert_s = time.time() - t0
+    pt_out = Path(tmp) / "converted_pt"
+    cli_convert.main(["--config", path, "--gen", str(ckpt_dir / "gen_00000008.pt"),
+                      "--dis", str(ckpt_dir / "dis_00000008.pt"), "--output_dir",
+                      str(pt_out)])
+    for kind in ("gen", "dis"):
+        a = torch.load(ckpt_dir / f"{kind}_00000008.pt", weights_only=True)
+        c = torch.load(pt_out / f"{kind}_00000008.pt", weights_only=True)
+        if any(not torch.equal(a[n][k], c[n][k]) for n in a for k in a[n]):
+            raise AssertionError(f"jax_resume: cli.convert changed the port's {kind} .pt")
+    K.launches = K.bwd_launches = 0
+    _run_cli(["--config", path, "--output_path", str(Path(tmp) / "imported"), "--resume",
+              "--max_iter", "6"])
+    torch.cuda.synchronize()
+    imported = (K.launches, K.bwd_launches)
+    if imported != _expected_launches(_cadence(derived, max(64, b * 8) // b, 4, 6), 0):
+        raise AssertionError(f"jax_resume: imported CLI launches {imported}")
+    counts[f"train CLI --resume of a cli.convert import, 3 iterations at batch {b}"] = imported
+    _check_records(_records(Path(tmp) / "imported" / "logs" / "m2f_jax"), range(4, 7),
+                   "jax_resume imported CLI")
+    opt = torch.load(imp / "optimizer.pt", weights_only=True)
+    if int(opt["gen"]["state"][0]["step"]) != 2 or opt["step"] != 6:
+        raise AssertionError(f"jax_resume: the import did not start fresh moments: {opt['step']}")
+    log(f"[jax_resume] cli.train --resume of the JAX set to 8: (K1, K2) {resumed}, finite "
+        f"records 4..8; cli.convert of its gen/dis msgpack {convert_s:.2f} s, and of the "
+        f"CLI's gen/dis_00000008.pt (unchanged); the import resumed with fresh moments to 6: "
+        f"(K1, K2) {imported}, finite records 4..6")
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         log("chip_smoke: no CUDA device available")
@@ -1635,6 +1970,16 @@ def main() -> int:
         torch.cuda.empty_cache()
         by_path[f"HTTP front, levels {HTTP_LEVELS} + artifact at 8, batch {HTTP_BATCH} "
                 "(phase 18)"] = (phase_http(cfg, ckpt, tmp), 0)
+        torch.cuda.empty_cache()
+        for phase, fn in ((19, lambda: phase_variants_f32(cfg)),
+                          (20, lambda: phase_remat_bf16(cfg)),
+                          (21, lambda: phase_jax_resume(cfg, tmp))):
+            t0 = time.time()
+            paths = fn()
+            by_path.update({f"{path}, one D+G iteration (phase {phase})" if phase < 21
+                            else f"{path} (phase {phase})": c for path, c in paths.items()})
+            log(f"[phase {phase}] {time.time() - t0:.1f} s")
+            gc_collect()
     for i, k in enumerate((k1, k2)):
         k["launches_by_path"] = {path: counts[i] for path, counts in by_path.items()}
 

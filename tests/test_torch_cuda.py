@@ -370,3 +370,103 @@ def test_bucketed_and_async_on_cuda_match_cpu(cuda, tmp_path):
     want = BucketedTranslator(cfg, path, device="cpu", **kw)(imgs, styles)
     assert _max_lsb(got, want) <= 2
     assert _max_lsb(coalesced, want) <= 2
+
+
+_TRAIN_RAW = {"gen": {"dim": 8, "mlp_dim": 16, "style_dim": 8, "output_dim": 4,
+                      "n_downsample": 2, "n_res": 2},
+              "dis": {"dim": 8, "n_layer": 2, "num_scales": 2},
+              "crop_image_height": 16, "crop_image_width": 16, "batch_size": 4,
+              "focus_delta": 0.0, "focus_epsilon": 10.0,
+              "tpu": {"compute_dtype": "float32"}}
+
+
+def _train_cfg(dis=None, **tpu):
+    raw = {k: dict(v) if isinstance(v, dict) else v for k, v in _TRAIN_RAW.items()}
+    raw["tpu"].update(tpu)
+    raw["dis"].update(dis or {})
+    return from_dict(raw)
+
+
+def _train_batch(seed=0, b=4):
+    rng = np.random.RandomState(seed)
+    return tuple(rng.randint(0, 256, (b, 16, 16, 3), dtype=np.uint8) for _ in range(2))
+
+
+@pytest.mark.parametrize("remat,accum", [(False, 1), ("decode", 1), ("encode", 1),
+                                         ("all", 1), ("all", 2)])
+def test_remat_and_accum_launch_counts_on_cuda(cuda, remat, accum):
+    """K1 / K2 launches of one D+G iteration: the recomputed forwards of the
+    remat family launch K1 again, and each micro-batch launches its own."""
+    cfg = _train_cfg(remat=remat, grad_accum=accum)
+    enc = 1 + cfg.gen.n_downsample + 2 * cfg.gen.n_res   # IN layers of a content encode
+    dec = 2 * cfg.gen.n_res                              # AdaIN layers of a decode
+    step = 3 * enc + 2 * dec
+    extra = {False: 0, "decode": 2 * dec, "encode": 3 * enc, "all": 3 * enc + 2 * dec}[remat]
+    model = ACLGAN(cfg, device="cuda")
+    model.init_state()
+    k1, k2 = K.launches, K.bwd_launches
+    m = model.train_step(*_train_batch(), True, True)
+    torch.cuda.synchronize()
+    assert (K.launches - k1, K.bwd_launches - k2) == (accum * (2 * step + extra),
+                                                      accum * step)
+    assert all(torch.isfinite(v) for v in m.values())
+
+
+def _metrics_and_state(cfg, device):
+    model = ACLGAN(cfg, device=device, seed=1)
+    model.init_state()
+    rng = np.random.RandomState(2)
+    z = {k: [rng.randn(4, 8).astype(np.float32) for _ in range(3)] for k in ("dis", "gen")}
+    m = model.train_step(*_train_batch(3), True, True, z=z)
+    return ({k: float(v) for k, v in m.items()},
+            {f"{n}.{k}": v.detach().cpu() for n in ("A", "B", "2")
+             for k, v in model.dis(n).state_dict().items()
+             if k.endswith(("weight_u", "weight_v", "running_mean", "running_var"))})
+
+
+@pytest.mark.parametrize("norm", ["sn", "bn"])
+def test_sn_bn_discriminators_on_cuda_match_cpu(cuda, norm):
+    """One f32 D+G iteration (TF32 off) with sn or bn discriminators on the
+    card against the CPU: metrics, u / v and running stats. The G step's bn
+    batch mean carries the conv bias that the bn cancels (its gradient is
+    float noise): Adam's first step moves it by up to lr on each side, and a
+    tenth of that reaches running_mean."""
+    cfg = _train_cfg(dis={"norm": norm})
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        got, got_sd = _metrics_and_state(cfg, "cuda")
+    finally:
+        torch.backends.cudnn.allow_tf32 = True
+    want, want_sd = _metrics_and_state(cfg, "cpu")
+    for k, w in want.items():
+        assert abs(got[k] - w) <= 1e-3 * abs(w) + 1e-6, k
+    assert len(want_sd) == 12  # 2 scales x 1 normed layer x 3 discriminators x 2
+    for k, w in want_sd.items():
+        atol = 0.2 * cfg.lr if k.endswith("running_mean") else 1e-6
+        torch.testing.assert_close(got_sd[k], w, rtol=1e-3, atol=atol, msg=k)
+
+
+def test_bf16_moment_adam_on_cuda_matches_cpu(cuda):
+    from aclgan_tpu_torch.optim import AdamBf16Mu
+
+    gen = torch.Generator().manual_seed(0)
+    shapes = [(8, 4, 3, 3), (16,), (5, 7)]
+    start = [torch.randn(s, generator=gen) for s in shapes]
+    grads = [[torch.randn(s, generator=gen) for s in shapes] for _ in range(4)]
+    runs = {}
+    for device in ("cpu", "cuda"):
+        params = [p.clone().to(device).requires_grad_() for p in start]
+        opt = AdamBf16Mu(params, lr=1e-3, betas=(0.9, 0.999), weight_decay=1e-4)
+        for gs in grads:
+            for p, g in zip(params, gs):
+                p.grad = g.to(device)
+            opt.step()
+        runs[device] = (params, opt)
+    for p_cpu, p_cuda in zip(runs["cpu"][0], runs["cuda"][0]):
+        torch.testing.assert_close(p_cuda.detach().cpu(), p_cpu.detach(), rtol=0, atol=1e-6)
+        st_cpu, st_cuda = runs["cpu"][1].state[p_cpu], runs["cuda"][1].state[p_cuda]
+        assert st_cuda["exp_avg"].dtype == torch.bfloat16 and st_cuda["exp_avg"].is_cuda
+        torch.testing.assert_close(st_cuda["exp_avg"].cpu().float(),
+                                   st_cpu["exp_avg"].float(), rtol=0, atol=2 ** -8)
+        torch.testing.assert_close(st_cuda["exp_avg_sq"].cpu(), st_cpu["exp_avg_sq"],
+                                   rtol=1e-6, atol=0)

@@ -100,11 +100,20 @@ def test_state_dict_maps_back_to_the_jax_tree():
 
 @pytest.mark.parametrize("norm", ["bn", "sn"])
 def test_unported_norms_raise(norm):
+    """bn and sn are ported (tests/test_torch_variants.py); weights of another
+    norm still raise: a norm-none state dict lacks their keys, and a norm-none
+    flax tree lacks their leaves."""
     dcfg = dataclasses.replace(from_dict(tiny_config().to_dict()).dis, norm=norm)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        MsDiscriminator(dcfg, 3)
-    with pytest.raises(NotImplementedError):
-        discriminator_state_dict({}, dcfg)
+    _, _, params, plain, _ = _dis_pair("none")
+    dis = MsDiscriminator(dcfg, 3)
+    with pytest.raises(RuntimeError, match="Missing key"):
+        dis.load_state_dict(plain.state_dict())
+    if norm == "sn":
+        with pytest.raises(KeyError):
+            discriminator_state_dict(params, dcfg)
+    else:  # the bn affine leaves are missing
+        with pytest.raises(KeyError, match="TorchBatchNorm_0"):
+            discriminator_state_dict(params, dcfg)
 
 
 def test_gaussian_init_and_bf16_compute():

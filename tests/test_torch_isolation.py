@@ -82,6 +82,16 @@ def test_serving_stack_import_loads_no_jax(module):
     assert out.strip() == "[]"
 
 
+@pytest.mark.parametrize("module", ["optim", "ops.spectral", "cli.convert"])
+def test_training_modules_import_loads_no_jax(module):
+    code = (f"import sys, aclgan_tpu_torch.{module}; "
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'flax', 'optax', 'msgpack', 'aclgan_tpu')]; print(bad)")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=120, check=True).stdout
+    assert out.strip() == "[]"
+
+
 @pytest.mark.parametrize("path", CONFIGS, ids=lambda p: p.name)
 def test_config_reader_matches_jax(path):
     # repr, not ==, so that an int read as a float (or the reverse) fails

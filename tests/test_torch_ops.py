@@ -102,7 +102,7 @@ def test_initializer_std_and_seed(init_type, std):
     torch.testing.assert_close(w, init((64, 32, 3, 3), torch.Generator().manual_seed(0)),
                                rtol=0, atol=0)
     with pytest.raises(ValueError):
-        make_initializer("orthogonal")
+        make_initializer("bogus")
 
 
 @pytest.mark.parametrize("k,s,p,norm,activ", [
@@ -144,7 +144,7 @@ def test_convblock_matches_jax(k, s, p, norm, activ):
 
 def test_convblock_rejects_unported_options():
     with pytest.raises(ValueError, match="normalization"):
-        ConvBlock(3, 4, 3, 1, 1, norm="bn")
+        ConvBlock(3, 4, 3, 1, 1, norm="bogus")
     with pytest.raises(ValueError, match="padding"):
         ConvBlock(3, 4, 3, 1, 1, pad_type="circular")
     with pytest.raises(ValueError, match="adain"):
