@@ -2,9 +2,9 @@
 
 Folder mode recursively collects files by extension whitelist, sorted; file-list
 mode reads relative paths from a text file. Decoding converts to RGB through
-Pillow, imported when a file is decoded: the GPU host has no Pillow and trains
-on the synthetic dataset, so `require_pillow` refuses a file dataset there
-before any worker starts.
+Pillow, imported when a file is decoded; JPEGs may go through the native core
+instead (`data/native.py`). Where Pillow is missing, `require_pillow` refuses
+a file dataset that needs it before any worker starts.
 """
 
 from __future__ import annotations

@@ -6,11 +6,11 @@ release the GIL) fills a bounded set of ready NHWC batches, yielded in order;
 side CUDA stream. drop_last=True and shuffle=train, as the reference's torch
 DataLoader. For the same config and seed the batches are byte-identical to
 the JAX loader's, for any `num_workers`: every random draw comes from a
-numpy generator keyed by (seed, epoch, batch), and the synthetic datasets
-take the same `zlib.crc32` seeds.
-
-Not ported: the libjpeg decode core (`aclgan_tpu/data/native.py`); JPEGs
-decode through Pillow.
+numpy generator keyed by (seed, epoch, batch), the synthetic datasets take
+the same `zlib.crc32` seeds, and JPEGs take the same route: through the
+libjpeg core (`data/native.py`, the same source and flags as the JAX
+package's) when it builds, with the JAX loader's draws, and through Pillow
+when it does not or with `use_native=False`.
 """
 
 from __future__ import annotations
@@ -44,12 +44,26 @@ class _Dataset:
 
 
 class ImageDataset(_Dataset):
-    """Image files decoded with Pillow, then flipped, resized and cropped."""
+    """Image files decoded, flipped, resized and cropped. With `use_native`
+    and the core built, JPEGs go through `data/native.py`; other files, and
+    every file otherwise, through Pillow. Either route draws the flip first,
+    so the augmentation stream stays deterministic per (seed, epoch, batch)."""
 
-    def __init__(self, paths: Sequence[str], spec: TransformSpec):
+    def __init__(self, paths: Sequence[str], spec: TransformSpec,
+                 use_native: bool = True):
         self.paths = list(paths)
         self.spec = spec
         self._warned = False
+        self._native = None
+        if use_native:
+            from aclgan_tpu_torch.data import native
+
+            self._native = native if native.available() else None
+
+    @property
+    def native(self) -> bool:
+        """True when JPEGs decode through the native core."""
+        return self._native is not None
 
     def __len__(self) -> int:
         return len(self.paths)
@@ -76,7 +90,20 @@ class ImageDataset(_Dataset):
         # the flip is drawn before the file is read, as the JAX loader does,
         # so a substituted neighbour sees the same rng state there
         flip = bool(spec.flip and rng.random() < 0.5)
-        img = load_image(self.paths[index])
+        path = self.paths[index]
+        if self._native is not None and path.lower().endswith((".jpg", ".jpeg")):
+            top_frac, left_frac = rng.random(), rng.random()
+            with open(path, "rb") as f:
+                data = f.read()
+            out = self._native.decode_jpeg_augment(data, spec.new_size, spec.crop_h,
+                                                   spec.crop_w, flip, top_frac, left_frac)
+            if out is not None:
+                return out
+            # a failed decode (corrupt file, image smaller than the crop) goes
+            # to Pillow on a generator seeded from the crop draw, as in JAX
+            rng2 = np.random.default_rng([int(top_frac * 1e9)])
+            return apply_transform(load_image(path), spec, rng2)
+        img = load_image(path)
         if flip:
             img = flip_left_right(img)
         no_flip = TransformSpec(spec.new_size, spec.crop_h, spec.crop_w, False)
@@ -243,16 +270,19 @@ def _make_dataset(cfg: Config, which: str, train: bool) -> _Dataset:
         # zlib.crc32, not hash(): str hashing is randomized per interpreter
         return SyntheticDataset(size=max(64, cfg.batch_size * 8), image_hw=hw,
                                 seed=zlib.crc32(which.encode()) % (2 ** 31))
-    require_pillow()
     if data.data_root:
         sub = {"train_a": "trainA", "train_b": "trainB",
                "test_a": "testA", "test_b": "testB"}[which]
-        return ImageDataset(list_images_folder(os.path.join(data.data_root, sub)), spec)
-    folder = getattr(data, f"data_folder_{which}")
-    lst = getattr(data, f"data_list_{which}")
-    if folder is None or lst is None:
-        raise ValueError(f"No data_root and no data_folder/list for {which}")
-    return ImageDataset(list_images_filelist(folder, lst), spec)
+        ds = ImageDataset(list_images_folder(os.path.join(data.data_root, sub)), spec)
+    else:
+        folder = getattr(data, f"data_folder_{which}")
+        lst = getattr(data, f"data_list_{which}")
+        if folder is None or lst is None:
+            raise ValueError(f"No data_root and no data_folder/list for {which}")
+        ds = ImageDataset(list_images_filelist(folder, lst), spec)
+    if not (ds.native and all(p.lower().endswith((".jpg", ".jpeg")) for p in ds.paths)):
+        require_pillow()  # the native core decodes JPEGs only
+    return ds
 
 
 def get_all_data_loaders(cfg: Config, seed: int = 0):

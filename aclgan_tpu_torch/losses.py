@@ -74,16 +74,18 @@ def focus_translation_eval(x_fg: torch.Tensor, x_bg: torch.Tensor,
 
 
 def focus_size_loss(mask01: torch.Tensor, upper: float, lower: float,
-                    delta: float) -> torch.Tensor:
+                    delta: float, total=torch.sum) -> torch.Tensor:
     """relu(sum(m - upper))^2*delta + relu(sum(lower - m))^2*delta, the sums
-    over the whole batch tensor (trainer.py:149-157)."""
+    over the whole batch tensor (trainer.py:149-157). `total` takes the sums:
+    under data parallelism, over every rank's rows."""
     m = mask01.float()
-    over = F.relu(torch.sum(m - upper))
-    under = F.relu(torch.sum(lower - m))
+    over = F.relu(total(m - upper))
+    under = F.relu(total(lower - m))
     return (over * over + under * under) * delta
 
 
-def focus_digit_loss(mask01: torch.Tensor, epsilon: float) -> torch.Tensor:
+def focus_digit_loss(mask01: torch.Tensor, epsilon: float,
+                     total=torch.sum) -> torch.Tensor:
     """Binarization pressure: sum(1/(|m-0.5|+eps)) (trainer.py:151,154,158)."""
     m = mask01.float()
-    return torch.sum(1.0 / (torch.abs(m - 0.5) + epsilon))
+    return total(1.0 / (torch.abs(m - 0.5) + epsilon))

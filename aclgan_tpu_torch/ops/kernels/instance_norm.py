@@ -37,6 +37,7 @@ from a kernel.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 from typing import Optional
 
@@ -140,6 +141,15 @@ def _raise_on(lib: ctypes.CDLL, err: int, what: str) -> None:
                            + lib.aclgan_cuda_error_string(err).decode())
 
 
+def _launch_device(x: torch.Tensor):
+    """The kernels launch on the runtime's current device: a guard that makes
+    it x's, entered only when it is not (the guard costs host time on every
+    call, and the short rows' launches are host-bound)."""
+    if x.device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(x.device)
+
+
 def _launch(x: torch.Tensor, scale, shift, eps: float, activ: str) -> torch.Tensor:
     """K1 on a CUDA tensor; scale/shift None or f32 (N, C) on x's device."""
     global launches
@@ -148,10 +158,11 @@ def _launch(x: torch.Tensor, scale, shift, eps: float, activ: str) -> torch.Tens
     if rows == 0 or row_len == 0:
         return y
     lib = _library()
-    err = lib.aclgan_instance_norm_fwd(
-        x.data_ptr(), _ptr(scale), _ptr(shift), y.data_ptr(),
-        rows, row_len, _DTYPES[x.dtype], _FUSED_ACTS[activ], float(eps),
-        torch.cuda.current_stream(x.device).cuda_stream)
+    with _launch_device(x):
+        err = lib.aclgan_instance_norm_fwd(
+            x.data_ptr(), _ptr(scale), _ptr(shift), y.data_ptr(),
+            rows, row_len, _DTYPES[x.dtype], _FUSED_ACTS[activ], float(eps),
+            torch.cuda.current_stream(x.device).cuda_stream)
     _raise_on(lib, err, "instance_norm")
     launches += 1
     return y
@@ -180,10 +191,11 @@ def instance_norm_bwd(x: torch.Tensor, scale: Optional[torch.Tensor], y: torch.T
     if rows == 0 or row_len == 0:
         return dx, ds, db
     lib = _library()
-    err = lib.aclgan_instance_norm_bwd(
-        x.data_ptr(), _ptr(scale), y.data_ptr(), dy.data_ptr(), dx.data_ptr(),
-        _ptr(ds), _ptr(db), rows, row_len, _DTYPES[x.dtype], _FUSED_ACTS[activ],
-        float(eps), torch.cuda.current_stream(x.device).cuda_stream)
+    with _launch_device(x):
+        err = lib.aclgan_instance_norm_bwd(
+            x.data_ptr(), _ptr(scale), y.data_ptr(), dy.data_ptr(), dx.data_ptr(),
+            _ptr(ds), _ptr(db), rows, row_len, _DTYPES[x.dtype], _FUSED_ACTS[activ],
+            float(eps), torch.cuda.current_stream(x.device).cuda_stream)
     _raise_on(lib, err, "instance_norm backward")
     bwd_launches += 1
     return dx, ds, db

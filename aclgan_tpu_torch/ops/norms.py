@@ -23,6 +23,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from aclgan_tpu_torch.parallel.mesh import all_reduce_sum
+
 
 def _normalize(x: torch.Tensor, eps: float) -> torch.Tensor:
     x32 = x.float()
@@ -61,7 +63,14 @@ class BatchNorm(nn.BatchNorm2d):
     `bias`, `running_mean`, `running_var`, `num_batches_tracked`), so that a
     reference `.pt` loads as it is, computed in float32 on (N, C, H, W) or
     (N, C) input of any float dtype and cast back. Stats are over every
-    non-channel axis."""
+    non-channel axis.
+
+    With `mesh` set (a `parallel.mesh.DataMesh`), training-mode statistics
+    are those of the global batch, as GSPMD gives the JAX step: one f32
+    all-reduce of each channel's (count, sum, sum of squares), whose
+    backward all-reduces the two gradient sums."""
+
+    mesh = None
 
     def _check_input_dim(self, x: torch.Tensor) -> None:
         if x.dim() not in (2, 4):
@@ -71,6 +80,26 @@ class BatchNorm(nn.BatchNorm2d):
         self._check_input_dim(x)
         if self.training:
             self.num_batches_tracked.add_(1)
+            if self.mesh is not None:
+                return self._global_batch_norm(x)
         return F.batch_norm(x.float(), self.running_mean, self.running_var, self.weight,
                             self.bias, self.training, self.momentum, self.eps).to(x.dtype)
+
+    def _global_batch_norm(self, x: torch.Tensor) -> torch.Tensor:
+        x32 = x.float()
+        axes = [0] + list(range(2, x.dim()))
+        count = torch.full((x.shape[1],), x32.numel() / x.shape[1], device=x.device)
+        stats = all_reduce_sum(torch.stack([count, x32.sum(axes),
+                                            (x32 * x32).sum(axes)]))
+        n = stats[0]
+        mean = stats[1] / n
+        var = torch.clamp(stats[2] / n - mean * mean, min=0.0)  # biased
+        with torch.no_grad():
+            m = self.momentum
+            self.running_mean.mul_(1 - m).add_(m * mean)
+            self.running_var.mul_(1 - m).add_(m * var * n / (n - 1))  # Bessel
+        shape = [1, -1] + [1] * (x.dim() - 2)
+        scale = self.weight * torch.rsqrt(var + self.eps)
+        y = (x32 - mean.view(shape)) * scale.view(shape) + self.bias.view(shape)
+        return y.to(x.dtype)
 

@@ -12,6 +12,11 @@ Port of `aclgan_tpu/serving.py`:
   concurrent single-image requests into device batches (latency window +
   max batch), returning futures.
 
+`Translator(devices=k)` serves each batch on k devices: one generator
+replica a device, each taking its k-th of the batch's rows (the JAX
+package's batch-sharded mesh, `aclgan_tpu/serving.py:110-127`); -1 is every
+visible GPU. With `device="cpu"` it runs k replicas on the CPU.
+
     tr = Translator("configs/male2female.yaml", "gen_00350000.pt")
     outs = tr(list_of_uint8_images)            # list of HxWx3 uint8
 
@@ -34,7 +39,7 @@ import torch
 
 from aclgan_tpu_torch.config import Config, load_config
 from aclgan_tpu_torch.data.transforms import normalize_batch, prep_image
-from aclgan_tpu_torch.trainer import ACLGAN
+from aclgan_tpu_torch.trainer import ACLGAN, resolve_device
 from aclgan_tpu_torch.utils.checkpoint import load_generators
 
 
@@ -58,8 +63,6 @@ class Translator:
         devices: int = 1,
         device: Union[str, torch.device] = "cuda",
     ):
-        if devices != 1:
-            raise NotImplementedError("multi-device serving is not ported yet")
         cfg = load_config(config) if isinstance(config, str) else config
         self.cfg = cfg
         self.a2b = a2b
@@ -71,9 +74,16 @@ class Translator:
         if self.size % stride:
             raise ValueError(f"size {self.size} must be a multiple of the "
                              f"generator stride {stride} (2**n_downsample)")
-        self.model = ACLGAN(cfg, device=device)
+        replica_devices = _replica_devices(device, devices, batch_size)
+        self.model = ACLGAN(cfg, device=replica_devices[0])
         load_generators(checkpoint, self.model)
         self.device = self.model.device
+        self.replicas = [self.model]
+        for dev in replica_devices[1:]:
+            replica = ACLGAN(cfg, device=dev)
+            for name in ("AB", "BA"):
+                replica.gen(name).load_state_dict(self.model.gen(name).state_dict())
+            self.replicas.append(replica)
         self._rng = torch.Generator().manual_seed(seed)
         self._rng_lock = threading.Lock()
 
@@ -113,7 +123,22 @@ class Translator:
         return styles
 
     def _translate(self, x: torch.Tensor, z: torch.Tensor):
-        return translate_u8(self.model, x, z, self.a2b)
+        """The served step on one padded batch: each replica translates its
+        rows on its own device (every op, K1 included, follows its tensors'
+        device, so launches on k devices overlap), and the outputs come back
+        in row order."""
+        if len(self.replicas) == 1:
+            return translate_u8(self.model, x, z, self.a2b)
+        parts = []
+        for model, xs, zs in zip(self.replicas, x.chunk(len(self.replicas)),
+                                 z.chunk(len(self.replicas))):
+            dev = model.device
+            parts.append(translate_u8(model, xs.to(dev, non_blocking=True),
+                                      zs.to(dev, non_blocking=True), self.a2b))
+        img = torch.cat([p[0].to(self.device) for p in parts])
+        masks = [p[1] for p in parts]
+        return img, None if masks[0] is None else torch.cat([m.to(self.device)
+                                                              for m in masks])
 
     def _run_batches(self, prepped: np.ndarray, styles: np.ndarray):
         outs: List[np.ndarray] = []
@@ -135,6 +160,30 @@ class Translator:
             if mask is not None:
                 masks.extend(list(mask[:keep].float().cpu().numpy()))
         return outs, masks
+
+
+def _replica_devices(device: Union[str, torch.device], devices: int,
+                     batch_size: int) -> List[torch.device]:
+    """The devices of a Translator's replicas: `devices` of them (-1: every
+    visible GPU, or one CPU), from `device` on."""
+    dev = resolve_device(device)
+    if dev.type == "cuda":
+        count = torch.cuda.device_count()
+        first = torch.cuda.current_device() if dev.index is None else dev.index
+        n = count - first if devices == -1 else devices
+    else:
+        count, first = None, 0
+        n = 1 if devices == -1 else devices
+    if n < 1:
+        raise ValueError(f"devices must be -1 or positive, got {devices}")
+    if batch_size % n:
+        raise ValueError(f"batch_size {batch_size} not divisible by {n} devices")
+    if count is not None and first + n > count:
+        raise ValueError(f"mesh_data={n} > available devices {count - first}")
+    if n == 1:
+        return [dev]
+    return [torch.device(dev.type, first + i) if count is not None else dev
+            for i in range(n)]
 
 
 class BucketedTranslator(Translator):

@@ -18,6 +18,14 @@ Port of `aclgan_tpu/trainer.py` (`to_model_range`, `ACLGAN`: `init_state`,
   `jax.checkpoint`; `tpu.grad_accum` runs the strided micro-batches one after
   another, summing gradients, where the JAX step scans them;
   `tpu.moment_dtype: bfloat16` takes `optim.AdamBf16Mu`.
+- Data parallelism (`mesh`, one process a GPU; `parallel/mesh.py`): each
+  rank steps on its rows of the global batch and draws the global z, keeping
+  its rows; bn's batch statistics and the focus loss's batch sums are
+  all-reduced in the forward, so every loss is the global batch's; after the
+  backward each network's gradient is averaged over the ranks in one flat
+  all-reduce, and the metrics are averaged before they return. The step
+  equals the single-process step on the gathered batch, as GSPMD makes the
+  JAX one.
 
 Calls to the same network are batched along dim 0 (every generator norm is
 per sample), image pairs for the consistency discriminator along channels.
@@ -25,6 +33,7 @@ per sample), image pairs for the consistency discriminator along channels.
 
 from __future__ import annotations
 
+import os
 from typing import Any, Callable, Dict, FrozenSet, List, Optional, Sequence, Tuple, Union
 
 import torch
@@ -34,7 +43,10 @@ from aclgan_tpu_torch import losses
 from aclgan_tpu_torch.config import Config
 from aclgan_tpu_torch.models.discriminator import MsDiscriminator
 from aclgan_tpu_torch.models.generator import AdaINGenerator
+from aclgan_tpu_torch.ops.norms import BatchNorm
 from aclgan_tpu_torch.optim import AdamBf16Mu
+from aclgan_tpu_torch.parallel.mesh import (DataMesh, all_reduce_mean, all_reduce_sum,
+                                            batch_sharding)
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 GEN_NAMES = ("AB", "BA")
@@ -89,12 +101,14 @@ class ACLGAN:
     """Holds `gen_AB` / `gen_BA` (both built on input_dim_a channels) with
     float32 params, computing in `cfg.tpu.compute_dtype`. `init_state` adds
     what training needs: `dis_A` / `dis_B` / `dis_2`, the optimizers, the EMA
-    and the step; serving builds only the generators."""
+    and the step; serving builds only the generators. With a `mesh`, the
+    train step is one rank's share of a data-parallel step."""
 
     def __init__(self, cfg: Config, device: Union[str, torch.device] = "cuda",
-                 seed: Optional[int] = None):
+                 seed: Optional[int] = None, mesh: Optional[DataMesh] = None):
         self.cfg = cfg
         self.device = resolve_device(device)
+        self.mesh = mesh
         self.dtype = compute_dtype(cfg)
         self.use_focus = cfg.use_focus
         self.seed = cfg.seed if seed is None else seed
@@ -106,6 +120,17 @@ class ACLGAN:
 
         self.gen_AB = make()
         self.gen_BA = make()
+        # the VGG perceptual loss's network, loaded when vgg_w > 0 as the JAX
+        # trainer does; like it (and the reference), the step adds no VGG term
+        self.vgg = None
+        if cfg.vgg_w > 0:
+            from aclgan_tpu_torch.models.vgg import load_vgg16
+
+            weights = None
+            if cfg.vgg_model_path:
+                cand = os.path.join(cfg.vgg_model_path, "models", "vgg16.weight")
+                weights = cand if os.path.exists(cand) else None
+            self.vgg = load_vgg16(weights, dtype=self.dtype, device=self.device)
         self.remat = _remat_families(cfg.tpu.remat)
         self.accum = max(1, int(cfg.tpu.grad_accum))  # as the JAX step reads it
         if cfg.tpu.moment_dtype not in _DTYPES:
@@ -130,6 +155,9 @@ class ACLGAN:
         for name in DIS_NAMES:
             setattr(self, f"dis_{name}", MsDiscriminator(
                 cfg.dis, dims[name], "gaussian", self.dtype, gen).to(self.device))
+            for m in self.dis(name).modules():
+                if isinstance(m, BatchNorm):
+                    m.mesh = self.mesh  # batch statistics of the global batch
         adam = dict(lr=cfg.lr, betas=(cfg.beta1, cfg.beta2), eps=1e-8,
                     weight_decay=cfg.weight_decay)
         self.gen_params = [p for n in GEN_NAMES for p in self.gen(n).parameters()]
@@ -145,6 +173,15 @@ class ACLGAN:
                         for n in GEN_NAMES}
         self.step = 0
         self.z_gen = torch.Generator(device=self.device).manual_seed(seed)
+
+    def compute_vgg_loss(self, img: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+        """The perceptual loss on relu5_3 features of two NCHW [-1, 1] batches
+        (`aclgan_tpu/trainer.py:128-134`)."""
+        if self.vgg is None:
+            raise RuntimeError("vgg_w == 0: VGG not loaded")
+        from aclgan_tpu_torch.models.vgg import compute_vgg_loss
+
+        return compute_vgg_loss(self.vgg, img, target)
 
     def reseed_z(self, step: int) -> None:
         """Restart the z stream from (seed, step): a resume whose snapshot
@@ -273,14 +310,17 @@ class ACLGAN:
         metrics = {"loss_gen_adv_A": adv_A, "loss_gen_adv_B": adv_B,
                    "loss_gen_adv_2": adv_2}
         if self.use_focus:
-            # masks mapped to [0,1], then size + digit terms over H*W*B*3
-            norm = x_a.shape[2] * x_a.shape[3] * b * 3
+            # masks mapped to [0,1], then size + digit terms over H*W*B*3; the
+            # terms' sums run over the global batch
+            batch_sum = torch.sum if self.mesh is None else self._global_sum
+            world = 1 if self.mesh is None else self.mesh.world
+            norm = x_a.shape[2] * x_a.shape[3] * b * world * 3
             focus_total = 0.0
             for name in ("B", "A", "A2"):
                 m01 = (fwd[f"x_{name}_mask"].float() + 1.0) * 0.5
                 size_l = losses.focus_size_loss(m01, cfg.focus_upper, cfg.focus_lower,
-                                                cfg.focus_delta)
-                digit_l = losses.focus_digit_loss(m01, cfg.focus_epsilon)
+                                                cfg.focus_delta, batch_sum)
+                digit_l = losses.focus_digit_loss(m01, cfg.focus_epsilon, batch_sum)
                 metrics[f"loss_gen_focus_{name}_size"] = size_l
                 metrics[f"loss_gen_focus_{name}_digit"] = digit_l
                 focus_total = focus_total + size_l + digit_l
@@ -290,6 +330,17 @@ class ACLGAN:
         total = total + cfg.recon_x_w * idt_A + cfg.recon_x_w * idt_B
         metrics.update(loss_idt_A=idt_A, loss_idt_B=idt_B, loss_gen_total=total)
         return total, metrics
+
+    @staticmethod
+    def _global_sum(t: torch.Tensor) -> torch.Tensor:
+        return all_reduce_sum(torch.sum(t))
+
+    def _sync_grads(self, nets: Sequence[torch.nn.Module]) -> None:
+        """Average the gradients over the ranks: one flat all-reduce a network."""
+        if self.mesh is None:
+            return
+        for net in nets:
+            all_reduce_mean([p.grad for p in net.parameters()], self.mesh)
 
     def _apply(self, opt: torch.optim.Optimizer) -> None:
         lr = self.learning_rate(self.step)
@@ -331,6 +382,7 @@ class ACLGAN:
         """One discriminator update (`:544-571`); the generators run without
         a graph. bn stats and sn u / v advance on each micro-batch's forwards."""
         metrics = self._accumulate(self._dis_step_loss, self.dis_params, x_a, x_b, z)
+        self._sync_grads([self.dis(n) for n in DIS_NAMES])
         self._apply(self.dis_opt)
         return metrics
 
@@ -340,6 +392,7 @@ class ACLGAN:
         only: the discriminators' weight gradients are never computed (their
         bn stats and sn u / v still advance on these forwards)."""
         metrics = self._accumulate(self._gen_loss, self.gen_params, x_a, x_b, z)
+        self._sync_grads([self.gen(n) for n in GEN_NAMES])
         self._apply(self.gen_opt)
         if self.ema is not None:
             d = self.ema_decay
@@ -366,17 +419,26 @@ class ACLGAN:
         the cadence skipped since the last call, so `step` (and the StepLR
         schedule) follows the global iteration. `z` ({"dis": (z1, z2, z3),
         "gen": (...)}, each (B, style_dim)) replaces the draws. Returns the
-        metrics as 0-dim tensors under the JAX names, without a host sync."""
+        metrics as 0-dim tensors under the JAX names, without a host sync.
+
+        Under a `mesh`, x_a and x_b are this rank's rows of the global batch
+        and `z` is global: each rank keeps its rows of it, as of its own
+        global draw; the metrics are the global batch's."""
         if step_increment != 1:
             self.step += step_increment - 1
         x_a, x_b = self._images(x_a), self._images(x_b)
-        b = x_a.shape[0]
+        b = x_a.shape[0] * (1 if self.mesh is None else self.mesh.world)
+        rows = batch_sharding(self.mesh, b)
 
         def noise(kind: str) -> ZTriple:
             if z is not None:
-                return tuple(torch.as_tensor(v).to(self.device, torch.float32)
-                             for v in z[kind])
-            return self._draw_z(b)
+                zs = tuple(torch.as_tensor(v).to(self.device, torch.float32)
+                           for v in z[kind])
+                if any(v.shape[0] != b for v in zs):
+                    raise ValueError(f"z must hold the global batch's {b} rows")
+            else:
+                zs = self._draw_z(b)
+            return tuple(v[rows] for v in zs)
 
         metrics: Metrics = {}
         if do_dis:
@@ -384,7 +446,12 @@ class ACLGAN:
         if do_gen:
             metrics.update(self.gen_update(x_a, x_b, noise("gen")))
         self.step += 1
-        return {k: v.detach() for k, v in metrics.items()}
+        out = {k: v.detach() for k, v in metrics.items()}
+        if self.mesh is not None and out:
+            values = torch.stack(list(out.values()))
+            all_reduce_mean([values], self.mesh)
+            out = dict(zip(out, values.unbind()))
+        return out
 
     # ------------------------------------------------------------------
     @torch.no_grad()

@@ -8,6 +8,7 @@
 which the port's modules' `load_state_dict` takes. `generator_params` /
 `discriminator_params` / `discriminator_collections` go the other way, so a
 port model can be written as a JAX-layout snapshot set without JAX.
+`vgg_state_dict` / `vgg_params` do the same for `models/vgg.py`'s Vgg16.
 
 Both directions walk one table of (flax path, torch key, layout) leaves:
 - conv: (kh, kw, in, out) <-> (out, in, kh, kw); dense: (in, out) <-> (out, in);
@@ -212,3 +213,24 @@ def discriminator_collections(sd: Dict[str, torch.Tensor], dis_cfg
     for collection, (path, key, layout, _) in _collection_leaves(dis_cfg):
         _set(out[collection], path, _to_flax(sd[key], layout))
     return out["spectral"], out["batch_stats"]
+
+
+def _vgg_leaves() -> Iterator[Leaf]:
+    from aclgan_tpu_torch.models.vgg import _LAYERS
+
+    for layer in _LAYERS:
+        if layer != "pool":
+            yield (layer[0], "kernel"), f"{layer[0]}.weight", "conv", False
+            yield (layer[0], "bias"), f"{layer[0]}.bias", "vec", False
+
+
+def vgg_state_dict(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """flax Vgg16 params (`aclgan_tpu/models/vgg.py`) -> the port's state dict."""
+    sd: Dict[str, torch.Tensor] = {}
+    _to_state_dict(params, _vgg_leaves(), sd)
+    return sd
+
+
+def vgg_params(sd: Dict[str, torch.Tensor]) -> Dict[str, Any]:
+    """The port's Vgg16 state dict -> flax params."""
+    return _to_tree(sd, _vgg_leaves())

@@ -7,9 +7,12 @@ Drives the port's paths at full width (male2female, random weights from a
 seed; InceptionV3 at 299^2), serving (A->B translation), training (D and G
 steps at the D1/G2 cadence; the bn / sn discriminators, tpu.remat,
 tpu.grad_accum, bf16 moments, a resumed JAX run), evaluation (the test CLIs, IS / CIS / FID,
-the classifier fine-tune, the FID curve) and the serving stack (buckets,
-the exported artifact, the HTTP front), through the hand-written CUDA
-kernels, and fails, with a non-zero exit, if any phase fails:
+the classifier fine-tune, the FID curve), the serving stack (buckets,
+the exported artifact, the HTTP front), the JPEG decode core, data
+parallelism (two ranks on the card, the CLI under torchrun), the
+multi-replica Translator and the VGG perceptual loss, through the
+hand-written CUDA kernels, and fails, with a non-zero exit, if any phase
+fails:
 
 1. device info (torch/CUDA versions, nvidia-smi name and power limit);
 2. build every kernel under aclgan_tpu_torch/csrc with nvcc;
@@ -17,7 +20,7 @@ kernels, and fails, with a non-zero exit, if any phase fails:
    serving shapes, with timings of the kernel, the plain version and one
    library call over a Translator batch and over a D+G training iteration,
    and the host's microseconds a call through the `aclgan::` op costs
-   against the bare wrapper;
+   against the bare wrapper and the wrapper under a device guard;
 4. K2 (instance-norm backward) against its plain version at the training
    shapes, with the same timings over one G step;
 5. Translator end to end in float32 (TF32 off): 70 requests in 3 batches of
@@ -86,8 +89,31 @@ kernels, and fails, with a non-zero exit, if any phase fails:
    the next step on injected z against the writer's (phase 7's tolerances);
    `cli.train --resume` on the set; `cli.convert` of its gen/dis msgpack and
    of a port `.pt` snapshot; the import resumed in the CLI with fresh moments;
-22. one JSON line listing every kernel;
-23. last line: {"ok": true, "device": {...}}.
+22. [native] the port's libjpeg decode core built from `native/` into
+   `aclgan_tpu_torch/_build/` (a failed build fails the phase where
+   `/usr/include/jpeglib.h` exists); phase 11's 64 trainA JPEGs through the
+   loader at batch 16 with 1 worker and the config's workers, with the core
+   (when built) and through Pillow: img/s; the train CLI at batch 16 for 30 iterations on
+   that folder: p50 s per iteration against phase 10, (K1, K2);
+23. [dp_two_ranks] two processes on the one card joined over gloo with CUDA
+   tensors: one D+G iteration at phase 7's cut (f32, 128^2, global batch 4,
+   2 a rank) for dis in and dis bn on injected global z, against one process
+   at batch 4: metrics (rel 1e-4), the five networks' updated params (rel-L2
+   1e-3; their gradients reported), bn running stats (rel 1e-3 beyond the
+   0.2*lr slack), the ranks' params equal, (K1, K2) on each rank;
+24. [ddp_cli] `python -m torch.distributed.run --nproc_per_node 1 -m
+   aclgan_tpu_torch.cli.train` with `tpu.distributed: true` (NCCL) on the
+   shipped config, synthetic, batch 16, bf16: 30 iterations traced at 10..14,
+   then `--resume` to 35: p50 s per iteration against phase 10, the trace's
+   K1 / K2 events (equal to the traced steps' count), the records and the
+   snapshot files;
+25. [devices] `Translator(devices=-1)`: outputs equal to phase 6's; devices=2
+   raises the JAX message with one card visible;
+26. [vgg] `compute_vgg_loss` at 256^2, batch 16, f32: loss and image
+   gradients against the plain instance norm (rel 1e-4), ms a loss, (K1, K2)
+   a loss (2, 2);
+27. one JSON line listing every kernel;
+28. last line: {"ok": true, "device": {...}}.
 
 Imports nothing of JAX.
 """
@@ -99,6 +125,7 @@ import dataclasses
 import io
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -218,16 +245,23 @@ def _log_total(tag, work, tot):
 
 
 def _op_overhead():
-    """Host microseconds a K1 call costs through the dispatcher op and through
-    the bare wrapper `_launch`, at a shape whose kernel is trivial (1x1x8x8),
-    in turns (op, wrapper, wrapper, op), 5000 calls each."""
+    """Host microseconds a K1 call costs through the dispatcher op, through
+    the bare wrapper `_launch` and through the wrapper under a device guard
+    (what a launch on a non-current device pays), at a shape whose kernel is
+    trivial (1x1x8x8), in turns, 5000 calls each."""
     from aclgan_tpu_torch.ops.kernels import instance_norm as K
 
     x = torch.randn(1, 1, 8, 8, device="cuda")
+
+    def guarded():  # the wrapper under a device guard, as a launch on another device runs
+        with torch.cuda.device(x.device):
+            K._launch(x, None, None, 1e-5, "relu")
+
     calls = {"op": lambda: torch.ops.aclgan.instance_norm_fwd(x, None, None, 1e-5, 1),
-             "wrapper": lambda: K._launch(x, None, None, 1e-5, "relu")}
-    us = {"op": [], "wrapper": []}
-    for turn in ("op", "wrapper", "wrapper", "op"):
+             "wrapper": lambda: K._launch(x, None, None, 1e-5, "relu"),
+             "guarded": guarded}
+    us = {"op": [], "wrapper": [], "guarded": []}
+    for turn in ("op", "wrapper", "guarded", "guarded", "wrapper", "op"):
         for _ in range(200):
             calls[turn]()
         torch.cuda.synchronize()
@@ -238,7 +272,8 @@ def _op_overhead():
         us[turn].append((time.perf_counter() - t0) / 5000 * 1e6)
     log(f"[kernel] instance_norm host cost a call (1x1x8x8, 5000 calls, in turns): "
         f"through the aclgan:: op {', '.join(f'{u:.2f}' for u in us['op'])} us, bare "
-        f"wrapper {', '.join(f'{u:.2f}' for u in us['wrapper'])} us")
+        f"wrapper {', '.join(f'{u:.2f}' for u in us['wrapper'])} us, the wrapper under "
+        f"torch.cuda.device {', '.join(f'{u:.2f}' for u in us['guarded'])} us")
 
 
 def phase_instance_norm_kernel():
@@ -1074,8 +1109,8 @@ def phase_train_inception(tmp):
 
 
 def phase_cli_test(cfg, tmp, ckpt):
-    """`cli.test` in float32 on the card against the CPU; returns its K1
-    launches."""
+    """`cli.test` in float32 on the card against the CPU; returns its
+    (K1, K2) launches."""
     from aclgan_tpu_torch.cli import test as cli_test
     from aclgan_tpu_torch.ops.kernels import instance_norm as K
 
@@ -1090,9 +1125,9 @@ def phase_cli_test(cfg, tmp, ckpt):
     card = cli_test.main(argv + ["--output_folder", str(Path(tmp) / "test_card")])
     torch.cuda.synchronize()
     card_s = time.time() - t0
-    launches = K.launches
-    if (launches, K.bwd_launches) != (LAUNCHES_PER_BATCH, 0):
-        raise AssertionError(f"cli.test: (K1, K2) launches {(launches, K.bwd_launches)}")
+    launches = (K.launches, K.bwd_launches)
+    if launches != (LAUNCHES_PER_BATCH, 0):
+        raise AssertionError(f"cli.test: (K1, K2) launches {launches}")
     want = ["input.jpg"] + sorted(f"output{j:03d}{x}.jpg" for j in range(10)
                                   for x in ("", "_img", "_mask"))
     if _files(Path(tmp) / "test_card") != sorted(want):
@@ -1108,7 +1143,7 @@ def phase_cli_test(cfg, tmp, ckpt):
     diff = np.abs(u8(card["outputs"]) - u8(cpu["outputs"]))
     mask_err = float(np.abs(card["masks"] - cpu["masks"]).max())
     log(f"[cli.test] f32, one {card['outputs'].shape[1]}x{card['outputs'].shape[2]} "
-        f"image, 10 styles: {launches} K1 launches, {len(want)} files in {card_s:.2f} s "
+        f"image, 10 styles: (K1, K2) launches {launches}, {len(want)} files in {card_s:.2f} s "
         f"(model load included); vs --device cpu: max {diff.max()} LSB, mean "
         f"{diff.mean():.5f} LSB, mask max err {mask_err:.2e} (CPU {cpu_s:.1f} s)")
     if diff.max() > 2 or not np.isfinite(card["outputs"]).all():
@@ -1181,7 +1216,7 @@ def _batch_rates(model, scorer, x):
 
 
 def phase_cli_test_batch(cfg, tmp, ckpt, inc):
-    """`cli.test_batch` with IS / CIS / FID; returns its K1 launches."""
+    """`cli.test_batch` with IS / CIS / FID; returns its (K1, K2) launches."""
     from aclgan_tpu_torch.cli import test_batch
     from aclgan_tpu_torch.data.loader import DataLoader, ImageDataset
     from aclgan_tpu_torch.data.transforms import TransformSpec
@@ -1232,11 +1267,11 @@ def phase_cli_test_batch(cfg, tmp, ckpt, inc):
                         EVAL_BATCH, train=False)
     x, _ = next(loader.iter_padded())  # test_batch's first batch
     _batch_rates(model, scorer, torch.from_numpy(x))
-    return launches[0]
+    return launches
 
 
 def phase_fid_curve(cfg, tmp, run_dir, inc):
-    """`cli.fid_curve` over two phase-9 snapshots; returns its K1 launches."""
+    """`cli.fid_curve` over two phase-9 snapshots; returns its (K1, K2) launches."""
     import shutil
 
     from aclgan_tpu_torch.cli import fid_curve
@@ -1269,7 +1304,7 @@ def phase_fid_curve(cfg, tmp, run_dir, inc):
         f"resamples: rows {json.dumps(rows)}; {launches[0]} K1 launches; seconds a "
         f"snapshot {', '.join(f'{x:.2f}' for x in r['seconds'])}; scipy sqrtm 2048^2 "
         f"{', '.join(f'{x:.2f}' for x in r['fid_seconds'])} s")
-    return launches[0]
+    return launches
 
 
 # ------------------------------------------------------------------ serving stack
@@ -1314,12 +1349,13 @@ def phase_bucketed(cfg, ckpt):
     for i, im in enumerate(imgs):
         groups.setdefault(tr.pick_bucket(im), []).append(i)
     n_batches = sum(-(-len(v) // BATCH) for v in groups.values())
-    K.launches = 0
+    K.launches = K.bwd_launches = 0
     outs = tr(imgs, styles)
     torch.cuda.synchronize()
-    launches = K.launches
-    if launches != LAUNCHES_PER_BATCH * n_batches:
-        raise AssertionError(f"bucketed: {launches} K1 launches for {n_batches} batches")
+    launches = (K.launches, K.bwd_launches)
+    if launches != (LAUNCHES_PER_BATCH * n_batches, 0):
+        raise AssertionError(f"bucketed: (K1, K2) launches {launches} for {n_batches} "
+                             "batches")
     worst = 0
     for b, idxs in sorted(groups.items()):
         want = Translator(cfg, ckpt, batch_size=BATCH, size=b)([imgs[i] for i in idxs],
@@ -1345,7 +1381,7 @@ def phase_bucketed(cfg, ckpt):
     log(f"[bucketed] buckets {BUCKETS}, batch {BATCH}, {cfg.tpu.compute_dtype}: "
         f"{N_BUCKETED} requests "
         f"(short sides 100-320) -> {', '.join(f'{b}: {len(v)}' for b, v in sorted(groups.items()))}"
-        f", {n_batches} device batches, {launches} K1 launches; vs the plain Translator at "
+        f", {n_batches} device batches, (K1, K2) launches {launches}; vs the plain Translator at "
         f"each bucket: max {worst} LSB; compiled_shapes {tr.compiled_shapes()} after warmup "
         f"and repeat traffic; p50 {N_BUCKETED / p50:.1f} img/s over 5 calls "
         f"({', '.join(f'{N_BUCKETED / x:.1f}' for x in secs)}), host clock; resize + crop "
@@ -1355,7 +1391,7 @@ def phase_bucketed(cfg, ckpt):
 
 def phase_export(cfg, ckpt, tmp, outs16):
     """Export at batch 32 on the card, save, load, serve phase 6's requests;
-    returns the K1 launches of those 70 requests."""
+    returns the (K1, K2) launches of those 70 requests."""
     from aclgan_tpu_torch.export import (ExportedTranslator, export_translator,
                                          kernel_nodes, save_artifact)
     from aclgan_tpu_torch.ops.kernels import instance_norm as K
@@ -1376,12 +1412,13 @@ def phase_export(cfg, ckpt, tmp, outs16):
     frozen = ExportedTranslator(str(path))
     load_s = time.perf_counter() - t0
     imgs, styles = _requests()
-    K.launches = 0
+    K.launches = K.bwd_launches = 0
     outs, masks = frozen(imgs, styles, return_masks=True)
     torch.cuda.synchronize()
-    launches = K.launches
-    if launches != LAUNCHES_PER_BATCH * -(-N_REQUESTS // BATCH):
-        raise AssertionError(f"export: {launches} K1 launches for {N_REQUESTS} requests")
+    launches = (K.launches, K.bwd_launches)
+    if launches != (LAUNCHES_PER_BATCH * -(-N_REQUESTS // BATCH), 0):
+        raise AssertionError(f"export: (K1, K2) launches {launches} for {N_REQUESTS} "
+                             "requests")
     _check_outputs(outs, masks, "export")
     worst = _max_lsb(outs, outs16)
     if worst > 1:
@@ -1395,7 +1432,7 @@ def phase_export(cfg, ckpt, tmp, outs16):
     log(f"[export] batch {BATCH}, 256^2, {cfg.tpu.compute_dtype}: export_translator "
         f"{export_s:.2f} s on the card ({nodes} aclgan:: nodes), save {save_s:.2f} s, {path.stat().st_size / 1e6:.1f} "
         f"MB ({path.stat().st_size} B), load + move {load_s:.2f} s; {N_REQUESTS} requests: "
-        f"{launches} K1 launches, vs phase 6's live Translator max {worst} LSB; img/s (p50 of "
+        f"(K1, K2) launches {launches}, vs phase 6's live Translator max {worst} LSB; img/s (p50 of "
         f"5 windows of {len(window)}, in turns live, exported, exported, live): live "
         f"{', '.join(f'{r:.1f}' for r in rates['live'])}, exported "
         f"{', '.join(f'{r:.1f}' for r in rates['exported'])}")
@@ -1473,7 +1510,7 @@ def _http_level(port, bodies, concurrency, rec, tag):
     q = ctx.Queue()
     rec.batch_sizes.clear()
     rec.seconds.clear()
-    K.launches = 0
+    K.launches = K.bwd_launches = 0
     proc = ctx.Process(target=_http_clients,
                        args=(port, bodies, concurrency, HTTP_SECONDS, q))
     proc.start()
@@ -1488,16 +1525,18 @@ def _http_level(port, bodies, concurrency, rec, tag):
     if errors:
         raise AssertionError(f"http {tag} c{concurrency}: {len(errors)} errors, first "
                              f"{errors[0]}")
-    if not lat or K.launches != LAUNCHES_PER_BATCH * len(batches):
-        raise AssertionError(f"http {tag} c{concurrency}: {len(lat)} replies, {K.launches} "
-                             f"K1 launches for {len(batches)} device batches")
+    if not lat or (K.launches, K.bwd_launches) != (LAUNCHES_PER_BATCH * len(batches), 0):
+        raise AssertionError(f"http {tag} c{concurrency}: {len(lat)} replies, (K1, K2) "
+                             f"launches {(K.launches, K.bwd_launches)} for {len(batches)} "
+                             "device batches")
     ms = np.asarray(sorted(lat)) * 1e3
     row = dict(mode=tag, concurrency=concurrency, requests=len(lat),
                img_s=len(lat) / elapsed, p50_ms=float(np.percentile(ms, 50)),
                p99_ms=float(np.percentile(ms, 99)),
                mean_batch=float(np.mean(batches)), device_batches=len(batches),
                call_p50_ms=float(np.median(call_s)) * 1e3,
-               worker_busy=float(sum(call_s)) / elapsed, k1_launches=K.launches, errors=0)
+               worker_busy=float(sum(call_s)) / elapsed, k1_launches=K.launches,
+               k2_launches=K.bwd_launches, errors=0)
     log(f"[http] {tag}, concurrency {concurrency}: {row['img_s']:.1f} img/s, p50 "
         f"{row['p50_ms']:.1f} ms, p99 {row['p99_ms']:.1f} ms, mean coalesced batch "
         f"{row['mean_batch']:.2f} ({len(batches)} device batches, {K.launches} K1 "
@@ -1538,7 +1577,7 @@ def _shutdown(httpd, thread):
 
 def phase_http(cfg, ckpt, tmp):
     """The HTTP front over a Translator, then over an exported artifact;
-    returns the K1 launches of every level together."""
+    returns the (K1, K2) launches of every level together."""
     import urllib.request
 
     from aclgan_tpu_torch.cli import export as cli_export
@@ -1584,7 +1623,7 @@ def phase_http(cfg, ckpt, tmp):
     log(f"[http] batch {HTTP_BATCH}, {HTTP_WAIT_MS} ms window, {HTTP_SECONDS} s a level, "
         f"bodies {min(map(len, bodies))}-{max(map(len, bodies))} B; cli.export at batch "
         f"{HTTP_BATCH} {export_s:.2f} s; rows {json.dumps(rows)}")
-    return sum(r["k1_launches"] for r in rows)
+    return (sum(r["k1_launches"] for r in rows), sum(r["k2_launches"] for r in rows))
 
 
 # ------------------------------------------------------------------ training options
@@ -1905,6 +1944,376 @@ def phase_jax_resume(cfg, tmp):
     return counts
 
 
+# ------------------------------------------------------------------ slice 7
+DECODE_EPOCHS = 5                # timed epochs of phase 11's 64 trainA JPEGs
+DP_WORLD, DP_BATCH = 2, 4        # [dp_two_ranks]: ranks on the one card, global batch
+DDP_ITERS, DDP_RESUME_TO = 30, 35
+VGG_BATCH, VGG_SIZE = 16, 256
+
+
+def _decode_rate(paths, spec, use_native, workers):
+    """img/s of the port's loader (uint8 batches of TRAIN_BATCH, `workers`
+    threads) over DECODE_EPOCHS epochs of `paths`, after one warm-up epoch
+    (host clock); and whether JPEGs went through the native core."""
+    from aclgan_tpu_torch.data.loader import DataLoader, ImageDataset
+
+    ds = ImageDataset(paths, spec, use_native=use_native)
+    loader = DataLoader(ds, TRAIN_BATCH, train=True, num_workers=workers, seed=0,
+                        emit="uint8")
+    for _ in loader:
+        pass
+    n, t0 = 0, time.perf_counter()
+    for _ in range(DECODE_EPOCHS):
+        for batch in loader:
+            n += len(batch)
+    return n / (time.perf_counter() - t0), ds.native
+
+
+def phase_native(cfg, tmp, synthetic_s_per_it):
+    """[native] Build the port's libjpeg decode core; decode phase 11's JPEGs
+    through the loader with the core on (when it built) and off; then the
+    train CLI at batch 16 for 30 iterations on that folder against phase
+    10's synthetic run. Returns the CLI run's (K1, K2)."""
+    from aclgan_tpu_torch.data import native
+    from aclgan_tpu_torch.data.transforms import TransformSpec
+    from aclgan_tpu_torch.ops.kernels import instance_norm as K
+
+    headers = Path("/usr/include/jpeglib.h").exists()
+    t0 = time.time()
+    built = native.build()
+    log(f"[native] /usr/include/jpeglib.h {'present' if headers else 'absent'}; decode "
+        f"core {'built: ' + str(built.relative_to(ROOT)) if built else 'not built'} "
+        f"({time.time() - t0:.2f} s)")
+    if headers and built is None:
+        raise AssertionError("native: libjpeg's headers are present and the core did not build")
+    if built is not None and not native.available():
+        raise AssertionError(f"native: {built} built and does not load")
+    ds_root = Path(tmp) / "ds"
+    paths = sorted(str(p) for p in (ds_root / "trainA").glob("*.jpg"))
+    spec = TransformSpec(cfg.data.new_size, cfg.data.crop_image_height,
+                         cfg.data.crop_image_width, True)
+    rates = {}
+    for on in ([True] if built else []) + [False]:
+        for workers in (1, cfg.data.num_workers):
+            rate, used = _decode_rate(paths, spec, on, workers)
+            if used != on:
+                raise AssertionError(f"native: use_native={on} decoded natively={used}")
+            rates[f"{'native core' if on else 'Pillow'}, {workers} worker(s)"] = rate
+    log(f"[native] loader on {len(paths)} JPEGs at 286^2 -> {spec.crop_h}^2 (resize, crop, "
+        f"flip), batch {TRAIN_BATCH}, {DECODE_EPOCHS} epochs, {os.cpu_count()} host cores: "
+        + ", ".join(f"{k} {v:.1f} img/s" for k, v in rates.items()))
+
+    b = TRAIN_BATCH
+    derived = dataclasses.replace(cfg, batch_size=b, data=dataclasses.replace(
+        cfg.data, synthetic=False, data_root=str(ds_root)))
+    path = Path(tmp) / "m2f_jpeg.yaml"
+    from aclgan_tpu_torch.config import save_config
+
+    save_config(derived, path)
+    out = Path(tmp) / "jpeg"
+    epoch_len = len(paths) // b
+    cadence = _cadence(derived, epoch_len, 1, 30)
+    K.launches = K.bwd_launches = 0
+    lines = _run_cli(["--config", str(path), "--output_path", str(out), "--max_iter", "30"])
+    torch.cuda.synchronize()
+    launches = (K.launches, K.bwd_launches)
+    want = _expected_launches(cadence, samples=0)
+    if launches != want:
+        raise AssertionError(f"native: train CLI on JPEGs (K1, K2) {launches}, expected {want}")
+    _check_records(_records(out / "logs" / "m2f_jpeg"), range(1, 31), "train CLI on JPEGs")
+    p50, per_it, counts = _cli_seconds(lines, cadence, {1})
+    log(f"[native] train CLI on the JPEG folder ({'native core' if built else 'Pillow'}), "
+        f"256^2 batch {b}, {epoch_len} batches an epoch: p50 D+G {p50['D+G']:.4f} s, D "
+        f"{p50['D']:.4f} s ({counts} iterations), {per_it:.4f} s per iteration = "
+        f"{b / per_it:.2f} img/s; synthetic (phase 10) {synthetic_s_per_it:.4f} s: ratio "
+        f"{per_it / synthetic_s_per_it:.4f}; (K1, K2) launches {launches}")
+    return launches
+
+
+def _dp_rank(rank, world, port, cases, out_dir):
+    """One rank of [dp_two_ranks], in its own process on the one card: joins a
+    gloo group, then for each case one D+G iteration on its rows of the global
+    batch, with the global z injected; saves its metrics, (K1, K2), gradients,
+    parameters and bn buffers."""
+    import torch.distributed as dist
+
+    from aclgan_tpu_torch.ops.kernels import instance_norm as K
+    from aclgan_tpu_torch.parallel.mesh import batch_sharding, make_mesh, shard_state
+    from aclgan_tpu_torch.trainer import ACLGAN
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+                            world_size=world)
+    try:
+        mesh = make_mesh(-1)
+        for name, vcfg, xa, xb, z in cases:
+            model = ACLGAN(vcfg, device="cuda", mesh=mesh)
+            model.init_state()
+            shard_state(model, mesh)
+            rows = batch_sharding(mesh, xa.shape[0])
+            K.launches = K.bwd_launches = 0
+            m = model.train_step(xa[rows], xb[rows], True, True, z=z)
+            torch.save({"metrics": {k: float(v) for k, v in m.items()},
+                        "launches": (K.launches, K.bwd_launches), "grads": _grads(model),
+                        "params": _params(model), "collections": _collections(model)},
+                       Path(out_dir) / f"{name}.{rank}.pt")
+            del model
+    finally:
+        dist.destroy_process_group()
+
+
+def _params(model):
+    from aclgan_tpu_torch.trainer import DIS_NAMES, GEN_NAMES
+
+    nets = [(n, model.gen(n)) for n in GEN_NAMES] + [(n, model.dis(n)) for n in DIS_NAMES]
+    return {n: torch.cat([p.detach().double().flatten().cpu() for p in net.parameters()])
+            for n, net in nets}
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _rel(got, want):
+    return float((got - want).norm() / want.norm().clamp_min(1e-30))
+
+
+def phase_dp_two_ranks(cfg, tmp):
+    """[dp_two_ranks] Two processes on the one card over gloo with CUDA
+    tensors, one D+G iteration at phase 7's cut (f32, TF32 off, 128^2, global
+    batch 4, 2 a rank) for dis in and dis bn, against the single-process step
+    at batch 4. Returns {case: (K1, K2) of each rank}."""
+    import torch.multiprocessing as mp
+
+    from aclgan_tpu_torch.ops.kernels import instance_norm as K
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    size, b = 128, DP_BATCH
+    rng = np.random.RandomState(7)
+    cases = []
+    for norm in ("in", "bn"):
+        vcfg = _variant_cfg(cfg, size, dis=dict(norm=norm))
+        xa, xb = (torch.from_numpy(rng.randint(0, 256, (b, size, size, 3), dtype=np.uint8))
+                  for _ in range(2))
+        z = {k: [rng.randn(b, vcfg.gen.style_dim).astype(np.float32) for _ in range(3)]
+             for k in ("dis", "gen")}
+        cases.append((f"dis_{norm}", vcfg, xa, xb, z))
+    out_dir = Path(tmp) / "dp"
+    out_dir.mkdir()
+    t0 = time.time()
+    mp.start_processes(_dp_rank, args=(DP_WORLD, _free_port(), cases, str(out_dir)),
+                       nprocs=DP_WORLD, join=True, start_method="spawn")
+    ranks_s = time.time() - t0
+    counts = {}
+    for name, vcfg, xa, xb, z in cases:
+        ranks = [torch.load(out_dir / f"{name}.{r}.pt", weights_only=True)
+                 for r in range(DP_WORLD)]
+        model = _train_model(vcfg, "cuda")
+        K.launches = K.bwd_launches = 0
+        m = model.train_step(xa, xb, True, True, z=z)
+        want = {k: float(v) for k, v in m.items()}
+        single_counts = (K.launches, K.bwd_launches)
+        want_grads, want_params, want_col = _grads(model), _params(model), _collections(model)
+        del model
+        r0, r1 = ranks
+        if r0["launches"] != r1["launches"] or r0["launches"] != single_counts:
+            raise AssertionError(f"dp {name}: (K1, K2) ranks {r0['launches']} / "
+                                 f"{r1['launches']}, single process {single_counts}")
+        worst = max(abs(r0["metrics"][k] - w) / max(abs(w), 1e-12) for k, w in want.items())
+        if set(r0["metrics"]) != set(want) or worst > 1e-4:
+            raise AssertionError(f"dp {name}: metrics max rel {worst:.2e} > 1e-4")
+        param_err = {n: _rel(r0["params"][n], w) for n, w in want_params.items()}
+        # reported, not gated: under dis in the deepest scale normalizes 2x2
+        # rows, whose gradients carry float noise near 1e-2 rel-L2 (phase 19)
+        grad_err = {n: _rel(r0["grads"][n], w) for n, w in want_grads.items()}
+        if max(param_err.values()) > 1e-3:
+            raise AssertionError(f"dp {name}: params rel-L2 {param_err} > 1e-3")
+        same = all(torch.equal(r0[key][n], r1[key][n]) for key in ("params", "collections")
+                   for n in r0[key])
+        if not same:
+            raise AssertionError(f"dp {name}: the ranks' parameters or buffers differ")
+        # bn's running_mean: the conv bias before a bn moves by +-lr with the
+        # sign of float noise (phase 19); a tenth reaches the running mean
+        col = {k: float((r0["collections"][k] - w).abs().max()
+                        - (0.2 * vcfg.lr if k.endswith("running_mean") else 0.0))
+               / float(w.abs().max().clamp_min(1e-30)) for k, w in want_col.items()}
+        col_err = max(col.values(), default=0.0)
+        if (name == "dis_bn") != bool(want_col) or col_err > 1e-3:
+            raise AssertionError(f"dp {name}: running stats rel {col_err:.2e} beyond the slack")
+        counts[name] = r0["launches"]
+        log(f"[dp_two_ranks] {name}: male2female full width, {size}^2, global batch {b} over "
+            f"{DP_WORLD} ranks on one card (gloo, CUDA tensors), one D+G iteration; (K1, K2) "
+            f"each rank {r0['launches']}; vs one process at batch {b}: metrics max rel "
+            f"{worst:.2e}, params rel-L2 max {max(param_err.values()):.2e}, gradients "
+            f"rel-L2 " + ", ".join(f"{n} {e:.2e}" for n, e in grad_err.items())
+            + f", {len(want_col)} running-stat tensors rel {col_err:.2e}; ranks equal")
+    log(f"[dp_two_ranks] the two rank processes took {ranks_s:.1f} s (start, build load, "
+        f"both cases)")
+    return counts
+
+
+def _trace_launches(trace):
+    """(K1, K2) kernel events in a chrome trace of torch.profiler."""
+    events = json.loads(Path(trace).read_text()).get("traceEvents", [])
+    kernels = [e.get("name", "") for e in events if e.get("cat") == "kernel"]
+    return (sum("instance_norm_fwd" in k for k in kernels),
+            sum("instance_norm_bwd" in k for k in kernels))
+
+
+def phase_ddp_cli(cfg, tmp, cli_s_per_it):
+    """[ddp_cli] `torch.distributed.run --nproc_per_node 1 -m
+    aclgan_tpu_torch.cli.train` with `tpu.distributed: true` (NCCL) on the
+    shipped config, synthetic, batch 16, bf16: 30 iterations traced at
+    10..14, then `--resume` to 35; s/it p50 against phase 10's single process.
+    Returns the (K1, K2) kernel events of the traced window."""
+    b = TRAIN_BATCH
+    derived, path = _cli_config(cfg, tmp, "m2f_ddp", batch_size=b,
+                                tpu=dataclasses.replace(cfg.tpu, distributed=True))
+    out, prof_dir = Path(tmp) / "ddp", Path(tmp) / "ddp_trace"
+    base = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+            "--nproc_per_node", "1", "-m", "aclgan_tpu_torch.cli.train", "--config", path,
+            "--output_path", str(out)]
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(ROOT)] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+
+    def run(extra):
+        t0 = time.time()
+        proc = subprocess.run(base + extra, cwd=ROOT, env=env, capture_output=True, text=True,
+                              timeout=600)
+        if proc.returncode:
+            raise RuntimeError(f"ddp_cli {extra}: exit {proc.returncode}\n"
+                               f"{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+        return proc.stdout.splitlines(), time.time() - t0
+
+    lines, first_s = run(["--max_iter", str(DDP_ITERS), "--profile_dir", str(prof_dir)])
+    if not any("1 device(s)" in line for line in lines):
+        raise AssertionError("ddp_cli: no 'Training ... 1 device(s)' line")
+    epoch_len = max(64, b * 8) // b
+    cadence = _cadence(derived, epoch_len, 1, DDP_ITERS)
+    _check_records(_records(out / "logs" / "m2f_ddp"), range(1, DDP_ITERS + 1), "ddp_cli")
+    p50, per_it, counts = _cli_seconds(lines, cadence, {1} | set(range(11, 17)))
+    traced = _trace_launches(prof_dir / "trace.json")
+    window = _expected_launches({i: cadence[i] for i in range(11, 16)}, samples=0)
+    if traced != window:
+        raise AssertionError(f"ddp_cli: the trace holds (K1, K2) events {traced}, the "
+                             f"traced steps launch {window}")
+    resumed, resume_s = run(["--max_iter", str(DDP_RESUME_TO), "--resume"])
+    if not any(line == f"Resume from iteration {DDP_ITERS}" for line in resumed):
+        raise AssertionError("ddp_cli: --resume did not start from the snapshot")
+    _check_records(_records(out / "logs" / "m2f_ddp"), range(1, DDP_RESUME_TO + 1),
+                   "ddp_cli resumed")
+    ckpts = sorted(p.name for p in (out / "outputs" / "m2f_ddp" / "checkpoints").iterdir())
+    want_ckpts = sorted(f"{k}_{i:08d}.pt" for k in ("gen", "dis")
+                        for i in (DDP_ITERS, DDP_RESUME_TO)) + ["optimizer.pt"]
+    if ckpts != sorted(want_ckpts):
+        raise AssertionError(f"ddp_cli: snapshot files {ckpts}")
+    log(f"[ddp_cli] torchrun --nproc_per_node 1, tpu.distributed (NCCL), male2female 256^2 "
+        f"batch {b} bf16: p50 D+G {p50['D+G']:.4f} s, D {p50['D']:.4f} s ({counts} "
+        f"iterations), {per_it:.4f} s per iteration; single process (phase 10) "
+        f"{cli_s_per_it:.4f} s: ratio {per_it / cli_s_per_it:.4f}; traced (K1, K2) kernel "
+        f"events over iterations 11..15 {traced} (their steps launch {window}); "
+        f"{DDP_ITERS} iterations {first_s:.1f} s and --resume to {DDP_RESUME_TO} "
+        f"{resume_s:.1f} s wall with start-up; files {ckpts}")
+    return traced
+
+
+def phase_devices(cfg, ckpt, outs16):
+    """[devices] `Translator(devices=-1)` on the card equals phase 6's outputs;
+    devices=2 raises the JAX message when one card is visible. Returns its
+    (K1, K2) launches."""
+    from aclgan_tpu_torch.ops.kernels import instance_norm as K
+    from aclgan_tpu_torch.serving import Translator
+
+    imgs, styles = _requests()
+    tr = Translator(cfg, ckpt, batch_size=BATCH, devices=-1)
+    K.launches = K.bwd_launches = 0
+    outs = tr(imgs, styles)
+    torch.cuda.synchronize()
+    launches = (K.launches, K.bwd_launches)
+    n_dev = torch.cuda.device_count()
+    want = (LAUNCHES_PER_BATCH * -(-N_REQUESTS // BATCH) * n_dev, 0)  # each replica a batch
+    if len(tr.replicas) != n_dev or launches != want:
+        raise AssertionError(f"devices: {len(tr.replicas)} replicas on {n_dev} devices, "
+                             f"(K1, K2) launches {launches}, expected {want}")
+    if n_dev == 1 and not all(np.array_equal(a, b) for a, b in zip(outs, outs16)):
+        raise AssertionError("devices: devices=-1 differs from phase 6's outputs")
+    raised = "devices=2 not tried: more than one card is visible"
+    if n_dev == 1:
+        try:
+            Translator(cfg, ckpt, batch_size=BATCH, devices=2)
+        except ValueError as exc:
+            raised = str(exc)
+        if raised != "mesh_data=2 > available devices 1":
+            raise AssertionError(f"devices: devices=2 gave {raised!r}")
+    log(f"[devices] Translator(devices=-1): {len(tr.replicas)} replica(s) on {n_dev} "
+        f"visible card(s), {N_REQUESTS} requests, (K1, K2) launches {launches}, outputs "
+        f"equal to "
+        f"phase 6's; devices=2 raised {raised!r}")
+    return launches
+
+
+def _vgg_loss_plain(vgg, img, target):
+    """`models.vgg.compute_vgg_loss` with the plain instance norm."""
+    from aclgan_tpu_torch.models.vgg import vgg_preprocess
+    from aclgan_tpu_torch.ops.kernels.instance_norm import instance_norm_plain
+
+    a = vgg(vgg_preprocess(img)).contiguous()
+    b = vgg(vgg_preprocess(target)).contiguous()
+    return torch.mean(torch.square((instance_norm_plain(a) - instance_norm_plain(b)).float()))
+
+
+def phase_vgg():
+    """[vgg] `compute_vgg_loss` at 256^2, batch 16, f32, TF32 off, both images
+    needing a gradient: loss and image gradients with K1/K2 against the plain
+    instance norm; ms per loss (forward and backward); (K1, K2) per loss."""
+    from aclgan_tpu_torch.models.vgg import compute_vgg_loss, load_vgg16
+    from aclgan_tpu_torch.ops.kernels import instance_norm as K
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    vgg = load_vgg16(None, device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(0)
+    x, y = (torch.rand(VGG_BATCH, 3, VGG_SIZE, VGG_SIZE, device="cuda", generator=g) * 2 - 1
+            for _ in range(2))
+
+    def step(loss_fn):
+        xg, yg = x.clone().requires_grad_(), y.clone().requires_grad_()
+        loss = loss_fn(vgg, xg, yg)
+        loss.backward()
+        return loss.detach(), xg.grad, yg.grad
+
+    K.launches = K.bwd_launches = 0
+    got = step(compute_vgg_loss)
+    torch.cuda.synchronize()
+    launches = (K.launches, K.bwd_launches)
+    if launches != (2, 2):
+        raise AssertionError(f"vgg: (K1, K2) a loss {launches}, expected (2, 2)")
+    want = step(_vgg_loss_plain)
+    loss_rel = abs(float(got[0]) - float(want[0])) / abs(float(want[0]))
+    grad_rel = [_rel(a, b) for a, b in zip(got[1:], want[1:])]
+    if not math.isfinite(float(got[0])) or loss_rel > 1e-4 or max(grad_rel) > 1e-4:
+        raise AssertionError(f"vgg: loss rel {loss_rel:.2e}, image gradients rel-L2 "
+                             f"{grad_rel} (1e-4)")
+    ms = {name: time_ms(lambda f=f: step(f), iters=5)
+          for name, f in (("kernel", compute_vgg_loss), ("plain", _vgg_loss_plain))}
+    peak = torch.cuda.max_memory_allocated()
+    log(f"[vgg] compute_vgg_loss, Vgg16 to relu5_3, {VGG_BATCH}x3x{VGG_SIZE}^2 f32 (TF32 "
+        f"off), both images needing a gradient: loss {float(got[0]):.6e}, vs plain: loss rel "
+        f"{loss_rel:.2e}, image gradients rel-L2 {grad_rel[0]:.2e} / {grad_rel[1]:.2e}; "
+        f"(K1, K2) a loss {launches} on ({VGG_BATCH * 512}, "
+        f"{(VGG_SIZE // 8) ** 2}) rows; ms a loss (forward + backward, CUDA events, mean of "
+        f"5): with K1/K2 {ms['kernel']:.3f}, plain {ms['plain']:.3f}; peak memory "
+        f"{peak / 2**30:.3f} GiB")
+    del vgg, x, y
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         log("chip_smoke: no CUDA device available")
@@ -1947,29 +2356,29 @@ def main() -> int:
         _, by_path["train CLI, 40 iterations at batch 3 (phase 9)"] = \
             phase_train_cli_b3(cfg, tmp)
         torch.cuda.empty_cache()
-        _, by_path["train CLI, 30 iterations at batch 16 (phase 10)"] = \
+        cli16_s_per_it, by_path["train CLI, 30 iterations at batch 16 (phase 10)"] = \
             phase_train_cli_b16(cfg, tmp, bare_s_per_it)
         torch.cuda.empty_cache()
         phase_dataset(tmp)
         inc = phase_train_inception(tmp)
         torch.cuda.empty_cache()
-        by_path["cli.test, one image x 10 styles, f32 (phase 13)"] = (
-            phase_cli_test(cfg, tmp, ckpt), 0)
+        by_path["cli.test, one image x 10 styles, f32 (phase 13)"] = \
+            phase_cli_test(cfg, tmp, ckpt)
         by_path[f"cli.test_batch, 64 images at batch {EVAL_BATCH} x {EVAL_STYLES} styles "
-                "(phase 14)"] = (phase_cli_test_batch(cfg, tmp, ckpt, inc), 0)
+                "(phase 14)"] = phase_cli_test_batch(cfg, tmp, ckpt, inc)
         torch.cuda.empty_cache()
         run_dir = Path(tmp) / "b3" / "outputs" / "m2f_b3" / "checkpoints"
         by_path[f"cli.fid_curve, 2 snapshots x {SWEEP_STYLES} styles x 64 images "
-                "(phase 15)"] = (phase_fid_curve(cfg, tmp, run_dir, inc), 0)
+                "(phase 15)"] = phase_fid_curve(cfg, tmp, run_dir, inc)
         torch.cuda.empty_cache()
         by_path[f"BucketedTranslator, {N_BUCKETED} requests over buckets {BUCKETS} "
-                "(phase 16)"] = (phase_bucketed(cfg, ckpt), 0)
+                "(phase 16)"] = phase_bucketed(cfg, ckpt)
         torch.cuda.empty_cache()
         by_path[f"ExportedTranslator, {N_REQUESTS} requests at batch {BATCH} "
-                "(phase 17)"] = (phase_export(cfg, ckpt, tmp, outs16), 0)
+                "(phase 17)"] = phase_export(cfg, ckpt, tmp, outs16)
         torch.cuda.empty_cache()
         by_path[f"HTTP front, levels {HTTP_LEVELS} + artifact at 8, batch {HTTP_BATCH} "
-                "(phase 18)"] = (phase_http(cfg, ckpt, tmp), 0)
+                "(phase 18)"] = phase_http(cfg, ckpt, tmp)
         torch.cuda.empty_cache()
         for phase, fn in ((19, lambda: phase_variants_f32(cfg)),
                           (20, lambda: phase_remat_bf16(cfg)),
@@ -1978,6 +2387,27 @@ def main() -> int:
             paths = fn()
             by_path.update({f"{path}, one D+G iteration (phase {phase})" if phase < 21
                             else f"{path} (phase {phase})": c for path, c in paths.items()})
+            log(f"[phase {phase}] {time.time() - t0:.1f} s")
+            gc_collect()
+        for phase, fn, label in (
+                (22, lambda: phase_native(cfg, tmp, cli16_s_per_it),
+                 "train CLI on phase 11's JPEGs, 30 iterations at batch 16"),
+                (23, lambda: phase_dp_two_ranks(cfg, tmp), None),
+                (24, lambda: phase_ddp_cli(cfg, tmp, cli16_s_per_it),
+                 "torchrun train CLI at world 1, batch 16: kernel events over the traced "
+                 "iterations 11..15"),
+                (25, lambda: phase_devices(cfg, ckpt, outs16),
+                 f"Translator(devices=-1), {N_REQUESTS} requests at batch {BATCH}"),
+                (26, phase_vgg, f"compute_vgg_loss forward + backward, batch {VGG_BATCH}, "
+                                f"{VGG_SIZE}^2")):
+            t0 = time.time()
+            counts = fn()
+            if label is None:  # one entry a case, each rank's count
+                by_path.update({f"data-parallel rank of 2, {case}, one D+G iteration at "
+                                f"global batch {DP_BATCH} (phase {phase})": c
+                                for case, c in counts.items()})
+            else:
+                by_path[f"{label} (phase {phase})"] = counts
             log(f"[phase {phase}] {time.time() - t0:.1f} s")
             gc_collect()
     for i, k in enumerate((k1, k2)):

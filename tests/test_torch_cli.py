@@ -202,17 +202,21 @@ def test_cli_clamps_display_size_and_refuses_small_datasets(tmp_path, monkeypatc
         _run_port(monkeypatch, ["--config", cfg_path, "--output_path", str(tmp_path)])
 
 
-@pytest.mark.parametrize("tpu,err", [({"distributed": True}, NotImplementedError),
-                                     ({"mesh_data": 2}, NotImplementedError),
+@pytest.mark.parametrize("tpu,err", [({"distributed": True}, RuntimeError),
+                                     ({"mesh_data": 2}, ValueError),
                                      ({}, RuntimeError)])
-def test_cli_refuses_what_one_device_cannot_run(tmp_path, tpu, err):
-    """Multi-device configs raise naming M11; without a card, the default
-    `--device cuda` raises instead of falling back to the CPU."""
-    if err is RuntimeError and torch.cuda.is_available():
+def test_cli_refuses_what_one_device_cannot_run(tmp_path, monkeypatch, tpu, err):
+    """Multi-device configs in one process without torchrun's environment
+    raise naming torchrun (on the CPU, with gloo); without a card, the
+    default `--device cuda` raises instead of falling back to the CPU."""
+    if not tpu and torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
+    for key in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT"):
+        monkeypatch.delenv(key, raising=False)
     cfg_path = _write_config(tmp_path / "mini.yaml", tpu=tpu)
-    with pytest.raises(err, match="M11" if err is NotImplementedError else "CUDA"):
-        port_train.main(["--config", cfg_path, "--output_path", str(tmp_path)])
+    device = ["--device", "cpu"] if tpu else []
+    with pytest.raises(err, match="torchrun" if tpu else "CUDA"):
+        port_train.main(["--config", cfg_path, "--output_path", str(tmp_path)] + device)
 
 
 # ---------------------------------------------------------------- utilities

@@ -470,3 +470,121 @@ def test_bf16_moment_adam_on_cuda_matches_cpu(cuda):
                                    st_cpu["exp_avg"].float(), rtol=0, atol=2 ** -8)
         torch.testing.assert_close(st_cuda["exp_avg_sq"].cpu(), st_cpu["exp_avg_sq"],
                                    rtol=1e-6, atol=0)
+
+
+def test_vgg_loss_on_cuda_runs_k1_and_k2(cuda):
+    """`compute_vgg_loss` in f32 (TF32 off) on the card: its two feature
+    instance norms launch K1, and with both images needing a gradient K2
+    twice in the backward; the loss and both image gradients against the CPU."""
+    from aclgan_tpu_torch.models.vgg import compute_vgg_loss, load_vgg16
+
+    rng = np.random.RandomState(0)
+    imgs = [torch.from_numpy(rng.uniform(-1, 1, (2, 3, 32, 32)).astype(np.float32))
+            for _ in range(2)]
+    out = {}
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        for device in ("cpu", "cuda"):
+            vgg = load_vgg16(None, device=device)
+            x, y = (t.to(device).detach().requires_grad_() for t in imgs)
+            k1, k2 = K.launches, K.bwd_launches
+            loss = compute_vgg_loss(vgg, x, y)
+            loss.backward()
+            torch.cuda.synchronize()
+            out[device] = (float(loss.detach()), x.grad.cpu(), y.grad.cpu(),
+                           K.launches - k1, K.bwd_launches - k2)
+    finally:
+        torch.backends.cudnn.allow_tf32 = True
+    assert out["cuda"][3:] == (2, 2) and out["cpu"][3:] == (0, 0)
+    assert abs(out["cuda"][0] - out["cpu"][0]) <= 1e-4 * abs(out["cpu"][0])
+    for got, want in zip(out["cuda"][1:3], out["cpu"][1:3]):
+        assert float((got - want).norm() / want.norm()) < 1e-3
+
+
+def test_kernel_launch_follows_the_tensors_device(cuda):
+    """K1 and K2 on a tensor of the second card while the first is current:
+    they launch there (the device guard), equal the plain version, and leave
+    the current device as it was. Needs two cards."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    torch.cuda.set_device(0)
+    x = torch.randn(2, 8, 12, 10, device="cuda:1", requires_grad=True)
+    scale = torch.randn(2, 8, device="cuda:1", requires_grad=True)
+    shift = torch.randn(2, 8, device="cuda:1", requires_grad=True)
+    y = K.fused_instance_norm(x, scale, shift, activ="relu")
+    y.square().sum().backward()
+    torch.cuda.synchronize(1)
+    assert torch.cuda.current_device() == 0
+    xc, sc, bc = (t.detach().cpu().requires_grad_() for t in (x, scale, shift))
+    want = K.instance_norm_plain(xc, sc, bc, activ="relu")
+    want.square().sum().backward()
+    torch.testing.assert_close(y.detach().cpu(), want.detach(), rtol=1e-4, atol=1e-4)
+    for got, ref in ((x, xc), (scale, sc), (shift, bc)):
+        torch.testing.assert_close(got.grad.cpu(), ref.grad, rtol=1e-3, atol=1e-4)
+
+
+def test_translator_replicas_on_two_cards_match_one(cuda, tmp_path):
+    """`Translator(devices=2)` on two cards: the uint8 outputs of one replica.
+    Needs two cards; on one, devices=2 raises the JAX message."""
+    cfg, path = _served(tmp_path)
+    from aclgan_tpu_torch.serving import Translator
+
+    kw = dict(batch_size=4, size=16, seed=1)
+    if torch.cuda.device_count() < 2:
+        with pytest.raises(ValueError, match="mesh_data=2 > available devices 1"):
+            Translator(cfg, path, devices=2, **kw)
+        pytest.skip("needs two CUDA devices")
+    rng = np.random.RandomState(3)
+    imgs = [rng.randint(0, 256, (16, 16, 3), dtype=np.uint8) for _ in range(6)]
+    styles = rng.randn(6, cfg.gen.style_dim).astype(np.float32)
+    one = Translator(cfg, path, **kw)(imgs, styles)
+    two = Translator(cfg, path, devices=2, **kw)(imgs, styles)
+    assert all(np.array_equal(a, b) for a, b in zip(one, two))
+
+
+@pytest.mark.parametrize("norm", ["none", "bn"])
+def test_nccl_ranks_on_the_cards_match_one_process(cuda, tmp_path, norm):
+    """One data-parallel D+G iteration over NCCL, one rank a card (at most
+    four), against the single-process step on the first card at the global
+    batch, f32 with TF32 off: metrics rel 1e-4, each network's state rel-L2
+    1e-3 (a rank's smaller batch takes other cuDNN algorithms, as in
+    chip_smoke's [dp_two_ranks]), and equal state on every rank. Needs two
+    cards."""
+    world = min(torch.cuda.device_count(), 4)
+    if world < 2:
+        pytest.skip("needs two CUDA devices")
+    from tests import torch_dp_worker
+
+    cfg = _train_cfg(dis={"norm": norm})
+    b = 2 * world
+    x_a, x_b = _train_batch(3, b)
+    rng = np.random.RandomState(2)
+    z = {k: [rng.randn(b, cfg.gen.style_dim).astype(np.float32) for _ in range(3)]
+         for k in ("dis", "gen")}
+    single = ACLGAN(cfg, device="cuda", seed=1)
+    single.init_state()
+    snap_path = tmp_path / "start.pt"
+    torch.save(single.snapshot(), snap_path)
+    case = (norm, cfg.to_dict(), str(snap_path), torch.from_numpy(x_a),
+            torch.from_numpy(x_b), z)
+    torch_dp_worker.spawn(torch_dp_worker.dp_steps, world, ([case], str(tmp_path), "cuda"),
+                          timeout=300)
+    ranks = [torch.load(tmp_path / f"{norm}.{r}.pt", map_location="cpu", weights_only=True)
+             for r in range(world)]
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        want = {k: float(v) for k, v in single.train_step(x_a, x_b, True, True, z=z).items()}
+    finally:
+        torch.backends.cudnn.allow_tf32 = True
+    assert set(ranks[0]["metrics"]) == set(want)
+    for k, w in want.items():
+        assert abs(float(ranks[0]["metrics"][k]) - w) <= 1e-4 * abs(w) + 1e-6, k
+    snap = single.snapshot()
+    for kind in ("gen", "dis"):
+        for n, sd in snap[kind].items():
+            ref = torch.cat([v.double().flatten().cpu() for v in sd.values()])
+            got = torch.cat([v.double().flatten() for v in ranks[0][kind][n].values()])
+            assert float((got - ref).norm() / ref.norm()) < 1e-3, (kind, n)
+            for r in ranks[1:]:
+                for k, t in r[kind][n].items():
+                    assert torch.equal(t, ranks[0][kind][n][k]), (kind, n, k)

@@ -82,7 +82,8 @@ def test_serving_stack_import_loads_no_jax(module):
     assert out.strip() == "[]"
 
 
-@pytest.mark.parametrize("module", ["optim", "ops.spectral", "cli.convert"])
+@pytest.mark.parametrize("module", ["optim", "ops.spectral", "cli.convert", "data.native",
+                                    "parallel.mesh", "models.vgg"])
 def test_training_modules_import_loads_no_jax(module):
     code = (f"import sys, aclgan_tpu_torch.{module}; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "

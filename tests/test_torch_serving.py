@@ -100,8 +100,8 @@ def test_bf16_compute_tracks_f32(served):
 
 def test_translator_rejects_unported_and_missing_devices(served):
     cfg, path, *_ = served
-    with pytest.raises(NotImplementedError):
-        Translator(cfg, path, devices=2, device="cpu")
+    with pytest.raises(ValueError, match="batch_size 3 not divisible by 2 devices"):
+        Translator(cfg, path, batch_size=3, devices=2, device="cpu")
     with pytest.raises(ValueError, match="stride"):
         Translator(cfg, path, size=18, device="cpu")
     if torch.cuda.is_available():
