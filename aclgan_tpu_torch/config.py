@@ -5,9 +5,11 @@ dataclasses, field names, defaults and unknown-key rejection, so one YAML file
 configures both packages. The `tpu:` block is accepted whole; of its knobs
 the port reads `compute_dtype` (conv/dense compute type; params stay
 float32), `ema_decay`, `remat`, `grad_accum` and `moment_dtype`, and rejects
-the values the JAX package rejects (`trainer.py`). The others are TPU/XLA
-knobs the port ignores, except `distributed` and `mesh_data > 1`, which the
-train CLI refuses (one device).
+the values the JAX package rejects (`trainer.py`). The train CLI also reads
+`distributed` and `mesh_data` (data parallelism over torchrun's processes,
+`parallel/mesh.py`). Like the JAX CLI, it does not read `mesh_spatial`:
+spatial (H) sharding is entered through `parallel/spatial.make_mesh_2d` and
+an `ACLGAN` built on its mesh. The others are TPU/XLA knobs the port ignores.
 
 `load_config` parses the YAML subset `configs/*.yaml` uses — `key: scalar`
 lines, one level of nested mappings, `#` comments — with PyYAML's YAML 1.1

@@ -30,6 +30,16 @@
 // do not stay in L2 between passes. Taking (mean, rsig) saved by the forward
 // would drop two passes; the kernel recomputes them so that it stays a
 // function of (x, scale, y, dy), as _bwd_pallas is.
+//
+// The split form (K1m, K1a, K2m, K2a, below) computes the same two functions
+// when a row's elements are spread over ranks (H sharding): K1m and K2m
+// reduce this rank's part of each row to two f32 sums, the caller
+// all-reduces them over the ranks, and K1a and K2a apply the result. They
+// replace the same two TPU kernels, on the path where the JAX package lets
+// GSPMD split the statistics. Bound: bytes. K1m reads x once and K1a reads x
+// and writes y once, so the split forward reads x twice where the bound
+// reads it once; K2m reads x, y, dy and K2a reads them again and writes dx.
+// One 256-thread block a row, as K1 and K2.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -182,6 +192,114 @@ instance_norm_bwd_kernel(const T* __restrict__ x, const float* __restrict__ scal
   }
 }
 
+
+// ---------------------------------------------------------------------------
+// The split form, for rows whose elements lie on several ranks (an
+// activation sharded over H): each rank reduces its part of a row, the
+// caller all-reduces the partial sums over the ranks, and a second kernel
+// applies the result. Statistics follow the JAX sharded form
+// (aclgan_tpu/parallel/halo.py:146-157): mean = sum(x) / n,
+// var = max(sum(x^2) / n - mean^2, 0), rsig = rsqrt(var + eps), with n the
+// row's global length; the caller computes them from the all-reduced sums.
+//
+// K1m: per row, the f32 (sum x, sum x^2) of this rank's part, into out[2 row].
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+row_moments_kernel(const T* __restrict__ x, float* __restrict__ out, int64_t row_len) {
+  __shared__ float smem[kWarps];
+  const int64_t row = blockIdx.x;
+  const T* xr = x + row * row_len;
+  float s = 0.f, ss = 0.f;
+#pragma unroll 4
+  for (int64_t i = threadIdx.x; i < row_len; i += kThreads) {
+    const float v = load_f32(xr + i);
+    s += v;
+    ss += v * v;
+  }
+  s = block_sum(s, smem);
+  ss = block_sum(ss, smem);
+  if (threadIdx.x == 0) {
+    out[2 * row] = s;
+    out[2 * row + 1] = ss;
+  }
+}
+
+// K1a: y = act((x - mean[row]) * rsig[row] * s + b), cast to x's dtype.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+apply_kernel(const T* __restrict__ x, const float* __restrict__ mean,
+             const float* __restrict__ rsig, const float* __restrict__ scale,
+             const float* __restrict__ shift, T* __restrict__ y, int64_t row_len,
+             int act) {
+  const int64_t row = blockIdx.x;
+  const T* xr = x + row * row_len;
+  T* yr = y + row * row_len;
+  const float m = mean[row];
+  const float r = rsig[row];
+  const bool affine = scale != nullptr;
+  const float s = affine ? scale[row] : 1.f;
+  const float b = affine ? shift[row] : 0.f;
+#pragma unroll 4
+  for (int64_t i = threadIdx.x; i < row_len; i += kThreads) {
+    float v = (load_f32(xr + i) - m) * r;
+    if (affine) v = v * s + b;
+    store_f32(yr + i, activate(v, act));
+  }
+}
+
+// K2m: per row of this rank's part, dyp = dy gated through the activation
+// from y (as K2), xhat = (x - mean[row]) * rsig[row]; writes the f32
+// (sum dyp, sum dyp * xhat) into out[2 row].
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+bwd_row_sums_kernel(const T* __restrict__ x, const T* __restrict__ y,
+                    const T* __restrict__ dy, const float* __restrict__ mean,
+                    const float* __restrict__ rsig, float* __restrict__ out,
+                    int64_t row_len, int act) {
+  __shared__ float smem[kWarps];
+  const int64_t row = blockIdx.x;
+  const int64_t off = row * row_len;
+  const float m = mean[row];
+  const float r = rsig[row];
+  float s_dy = 0.f, s_dyx = 0.f;
+#pragma unroll 4
+  for (int64_t i = threadIdx.x; i < row_len; i += kThreads) {
+    const float g = gate(load_f32(dy + off + i), load_f32(y + off + i), act);
+    s_dy += g;
+    s_dyx += g * ((load_f32(x + off + i) - m) * r);
+  }
+  s_dy = block_sum(s_dy, smem);
+  s_dyx = block_sum(s_dyx, smem);
+  if (threadIdx.x == 0) {
+    out[2 * row] = s_dy;
+    out[2 * row + 1] = s_dyx;
+  }
+}
+
+// K2a: dx = rsig * s * (dyp - sums[2 row] / n - xhat * sums[2 row + 1] / n)
+// from the all-reduced sums and the row's global length n.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+bwd_apply_kernel(const T* __restrict__ x, const T* __restrict__ y,
+                 const T* __restrict__ dy, const float* __restrict__ mean,
+                 const float* __restrict__ rsig, const float* __restrict__ scale,
+                 const float* __restrict__ sums, T* __restrict__ dx, int64_t row_len,
+                 float inv_n, int act) {
+  const int64_t row = blockIdx.x;
+  const int64_t off = row * row_len;
+  const float m = mean[row];
+  const float r = rsig[row];
+  const float k = r * (scale != nullptr ? scale[row] : 1.f);
+  const float m_dy = sums[2 * row] * inv_n;
+  const float m_dyx = sums[2 * row + 1] * inv_n;
+#pragma unroll 4
+  for (int64_t i = threadIdx.x; i < row_len; i += kThreads) {
+    const float g = gate(load_f32(dy + off + i), load_f32(y + off + i), act);
+    const float xhat = (load_f32(x + off + i) - m) * r;
+    store_f32(dx + off + i, k * (g - m_dy - xhat * m_dyx));
+  }
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. scale/shift: both null (IN) or both
@@ -231,6 +349,63 @@ extern "C" int aclgan_instance_norm_bwd(const void* x, const float* scale,
   }
   return static_cast<int>(cudaGetLastError());
 }
+
+// The split form's four entry points. dtype, act and the layout as above;
+// mean, rsig (rows,) f32; out and sums (rows, 2) f32; scale/shift null or
+// (rows,) f32. K1m and K2m write every row of `out`; K2a takes inv_n =
+// 1 / (the row's global length).
+#define ACLGAN_DISPATCH(KERNEL, ...)                                          \
+  do {                                                                        \
+    const dim3 grid(static_cast<unsigned>(rows));                             \
+    cudaStream_t st = static_cast<cudaStream_t>(stream);                      \
+    if (dtype == 0) {                                                         \
+      using T = float;                                                        \
+      KERNEL<T><<<grid, kThreads, 0, st>>>(__VA_ARGS__);                      \
+    } else if (dtype == 1) {                                                  \
+      using T = __nv_bfloat16;                                                \
+      KERNEL<T><<<grid, kThreads, 0, st>>>(__VA_ARGS__);                      \
+    } else {                                                                  \
+      return static_cast<int>(cudaErrorInvalidValue);                         \
+    }                                                                         \
+    return static_cast<int>(cudaGetLastError());                              \
+  } while (0)
+
+extern "C" int aclgan_instance_norm_row_moments(const void* x, float* out, long long rows,
+                                                long long row_len, int dtype,
+                                                void* stream) {
+  ACLGAN_DISPATCH(row_moments_kernel, static_cast<const T*>(x), out, row_len);
+}
+
+extern "C" int aclgan_instance_norm_apply(const void* x, const float* mean,
+                                          const float* rsig, const float* scale,
+                                          const float* shift, void* y, long long rows,
+                                          long long row_len, int dtype, int act,
+                                          void* stream) {
+  ACLGAN_DISPATCH(apply_kernel, static_cast<const T*>(x), mean, rsig, scale, shift,
+                  static_cast<T*>(y), row_len, act);
+}
+
+extern "C" int aclgan_instance_norm_bwd_row_sums(const void* x, const void* y,
+                                                 const void* dy, const float* mean,
+                                                 const float* rsig, float* out,
+                                                 long long rows, long long row_len,
+                                                 int dtype, int act, void* stream) {
+  ACLGAN_DISPATCH(bwd_row_sums_kernel, static_cast<const T*>(x), static_cast<const T*>(y),
+                  static_cast<const T*>(dy), mean, rsig, out, row_len, act);
+}
+
+extern "C" int aclgan_instance_norm_bwd_apply(const void* x, const void* y, const void* dy,
+                                              const float* mean, const float* rsig,
+                                              const float* scale, const float* sums,
+                                              void* dx, long long rows, long long row_len,
+                                              float inv_n, int dtype, int act,
+                                              void* stream) {
+  ACLGAN_DISPATCH(bwd_apply_kernel, static_cast<const T*>(x), static_cast<const T*>(y),
+                  static_cast<const T*>(dy), mean, rsig, scale, sums, static_cast<T*>(dx),
+                  row_len, inv_n, act);
+}
+
+#undef ACLGAN_DISPATCH
 
 extern "C" const char* aclgan_cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

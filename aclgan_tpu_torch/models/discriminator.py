@@ -10,7 +10,8 @@ Submodules follow the reference, so `state_dict()` keys are the names
 sn `cnns.{s}.{layer}.conv.module.{weight_bar,bias,weight_u,weight_v}`, under bn
 `cnns.{s}.{layer}.norm.{weight,bias,running_mean,running_var,...}`). The first
 block of each scale has no norm and the final 1x1 is a bare conv, whatever
-`norm` says (networks.py:40,46).
+`norm` says (networks.py:40,46). Under a mesh that splits H, the pool
+between scales takes its halo rows from the neighbouring ranks.
 """
 
 from __future__ import annotations
@@ -46,7 +47,11 @@ class MsDiscriminator(nn.Module):
     Gaussian N(0, 0.02) init, as the trainer builds every discriminator.
     `norm` may be none, in, ln, bn or sn. In train mode (the default) bn's
     running stats and sn's u / v advance on every forward, as the reference's
-    do inside both the D and the G update."""
+    do inside both the D and the G update. `mesh` and `layer` are set by
+    `ACLGAN`, as on a ConvBlock."""
+
+    mesh = None
+    layer = ""
 
     def __init__(self, cfg: DisConfig, input_dim: int, init_type: str = "gaussian",
                  dtype: torch.dtype = torch.float32,
@@ -61,5 +66,5 @@ class MsDiscriminator(nn.Module):
         for i, net in enumerate(self.cnns):
             outputs.append(net(x))
             if i + 1 < len(self.cnns):
-                x = avg_pool_3x3_s2(x)
+                x = avg_pool_3x3_s2(x, self.mesh, f"{self.layer}.pool{i}")
         return outputs

@@ -11,6 +11,11 @@ Every `norm='in'` / `norm='adain'` ConvBlock goes through
 CPU. The JAX package's TPU-only conv layouts (polyphase heads, packed 7x7,
 collapsed-tap upsample) are not ported: the decoder upsamples, then convs.
 
+A ConvBlock's `mesh`, when `ACLGAN` sets one that splits H
+(`parallel/spatial.py`), makes it take its pad rows from the neighbouring
+ranks (`parallel/halo.py`) and its IN / AdaIN / LN statistics over the
+spatial group; with no mesh the block runs as on one device.
+
 - ConvBlock    <- Conv2dBlock   (networks.py:312-371): pad -> conv -> norm -> act
 - LinearBlock  <- LinearBlock   (networks.py:373-418): dense -> norm -> act
 - ResBlock(s)  <- ResBlock(s)   (networks.py:269-278, 297-310)
@@ -31,6 +36,8 @@ from aclgan_tpu_torch.ops.kernels.instance_norm import fused_instance_norm
 from aclgan_tpu_torch.ops.norms import BatchNorm, sample_layer_norm
 from aclgan_tpu_torch.ops.pad import PAD_MODES, pad2d
 from aclgan_tpu_torch.ops.spectral import SpectralConv2d, SpectralLinear
+from aclgan_tpu_torch.parallel.halo import halo_pad
+from aclgan_tpu_torch.parallel.spatial import sharded
 
 AdainParams = Tuple[torch.Tensor, torch.Tensor]  # (scale, shift), each (N, C)
 
@@ -79,8 +86,8 @@ class LayerNorm(nn.Module):
         self.beta = nn.Parameter(torch.zeros(num_features))
         self.eps = eps
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return sample_layer_norm(x, self.gamma, self.beta, self.eps)
+    def forward(self, x: torch.Tensor, mesh=None) -> torch.Tensor:
+        return sample_layer_norm(x, self.gamma, self.beta, self.eps, mesh)
 
 
 def _check_activation(activ: str) -> None:
@@ -91,7 +98,11 @@ def _check_activation(activ: str) -> None:
 class ConvBlock(nn.Module):
     """pad -> conv(VALID) -> norm (none / in / ln / adain / bn / sn) ->
     activation. 'sn' wraps the conv (`SpectralConv2d`) and adds no norm
-    layer, as the reference's Conv2dBlock does."""
+    layer, as the reference's Conv2dBlock does. `mesh` and `layer` (its name
+    in the network, for the halo's errors) are set by `ACLGAN`."""
+
+    mesh = None
+    layer = ""
 
     def __init__(self, in_dim: int, out_dim: int, kernel_size: int, stride: int,
                  padding: int = 0, norm: str = "none", activ: str = "relu",
@@ -104,6 +115,8 @@ class ConvBlock(nn.Module):
         if norm not in ("none", "in", "ln", "adain", "bn", "sn"):
             raise ValueError(f"Unsupported normalization: {norm!r}")
         _check_activation(activ)
+        self.kernel_size = kernel_size
+        self.stride = stride
         self.padding = padding
         self.pad_type = pad_type
         self.norm_type = norm
@@ -121,7 +134,11 @@ class ConvBlock(nn.Module):
         return self.activation.weight if self.activ == "prelu" else None
 
     def forward(self, x: torch.Tensor, adain: Optional[AdainParams] = None) -> torch.Tensor:
-        x = self.conv(pad2d(x, self.padding, self.pad_type))
+        if sharded(self.mesh):
+            x = self.conv(halo_pad(x, self.kernel_size, self.stride, self.padding,
+                                   self.pad_type, self.mesh, self.layer))
+        else:
+            x = self.conv(pad2d(x, self.padding, self.pad_type))
         if self.norm_type in ("in", "adain"):
             scale = shift = None
             if self.norm_type == "adain":
@@ -131,8 +148,10 @@ class ConvBlock(nn.Module):
             # the kernel reads NCHW-contiguous rows; a channels-last conv
             # output is copied, a contiguous one passes as it is
             return fused_instance_norm(x.contiguous(), scale, shift, activ=self.activ,
-                                       prelu_alpha=self._prelu_alpha())
-        if self.norm_type in ("ln", "bn"):
+                                       prelu_alpha=self._prelu_alpha(), mesh=self.mesh)
+        if self.norm_type == "ln":
+            x = self.norm(x, self.mesh)
+        elif self.norm_type == "bn":
             x = self.norm(x)
         return apply_activation(x, self.activ, self._prelu_alpha())
 

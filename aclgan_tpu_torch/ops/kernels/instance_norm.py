@@ -33,6 +33,16 @@ wraps every call in more Python, and the serving and D-step paths call K1
 tensor on the CPU takes the plain version (autograd gives its backward) and a
 CUDA tensor `_FusedInstanceNorm` (K1 forward, K2 backward). Nothing falls back
 from a kernel.
+
+Under a mesh that splits H over ranks (`parallel/spatial.py`), a row's
+elements lie on several ranks, and `fused_instance_norm` takes the split
+form, `_ShardedFusedInstanceNorm`: K1m (each row's f32 sum and sum of
+squares on this rank) -> one all-reduce over the spatial group -> the
+statistics -> K1a (normalize, affine, activation) in the forward; K2m (each
+row's sums of the gated dy and of it times xhat) -> one all-reduce -> K2a (dx)
+in the backward. The four kernels sit in the same `.cu` file, each with its
+plain version here; their wrappers take the plain version for a tensor on
+the CPU (the gloo ranks of the tests) and launch the kernel for a CUDA one.
 """
 
 from __future__ import annotations
@@ -42,9 +52,11 @@ import ctypes
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 
 from aclgan_tpu_torch.ops.activations import apply_activation
 from aclgan_tpu_torch.ops.norms import adaptive_instance_norm, instance_norm
+from aclgan_tpu_torch.parallel.spatial import sharded
 
 SOURCE = "instance_norm.cu"
 # activations the kernel applies itself; prelu and selu run after it in torch
@@ -55,6 +67,11 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # the smoke run reads them to show the model's path went through the kernels.
 launches = 0
 bwd_launches = 0
+# the split form's launches: K1m, K1a, K2m, K2a
+moments_launches = 0
+apply_launches = 0
+bwd_sums_launches = 0
+bwd_apply_launches = 0
 
 
 def instance_norm_plain(x: torch.Tensor, scale: Optional[torch.Tensor] = None,
@@ -229,6 +246,199 @@ class _FusedInstanceNorm(torch.autograd.Function):
         return dx, ds.to(ctx.dtypes[0]), db.to(ctx.dtypes[1]), None, None
 
 
+# ----------------------------------------------------------------- split form
+def row_moments_plain(x: torch.Tensor) -> torch.Tensor:
+    """K1m's function: each (n, c) row's f32 (sum x, sum x^2), (N, C, 2)."""
+    x32 = x.float()
+    return torch.stack([x32.sum((2, 3)), (x32 * x32).sum((2, 3))], -1)
+
+
+def _col(t: torch.Tensor) -> torch.Tensor:
+    return t.float()[:, :, None, None]
+
+
+def apply_plain(x: torch.Tensor, mean: torch.Tensor, rsig: torch.Tensor,
+                scale: Optional[torch.Tensor], shift: Optional[torch.Tensor],
+                activ: str = "none") -> torch.Tensor:
+    """K1a's function: act((x - mean) * rsig * scale + shift), the (N, C)
+    statistics given; cast to x's dtype before the activation, as
+    `instance_norm_plain`."""
+    y = (x.float() - _col(mean)) * _col(rsig)
+    if scale is not None:
+        y = y * _col(scale) + _col(shift)
+    return apply_activation(y.to(x.dtype), activ)
+
+
+def bwd_row_sums_plain(x: torch.Tensor, y: torch.Tensor, dy: torch.Tensor,
+                       mean: torch.Tensor, rsig: torch.Tensor,
+                       activ: str = "none") -> torch.Tensor:
+    """K2m's function: each row's f32 (sum dyp, sum dyp * xhat), (N, C, 2),
+    dyp = dy through the activation's gate, xhat from the given statistics."""
+    dyp = _gate(dy.float(), y.float(), activ)
+    xhat = (x.float() - _col(mean)) * _col(rsig)
+    return torch.stack([dyp.sum((2, 3)), (dyp * xhat).sum((2, 3))], -1)
+
+
+def bwd_apply_plain(x: torch.Tensor, y: torch.Tensor, dy: torch.Tensor,
+                    mean: torch.Tensor, rsig: torch.Tensor,
+                    scale: Optional[torch.Tensor], sums: torch.Tensor, n: int,
+                    activ: str = "none") -> torch.Tensor:
+    """K2a's function: dx = rsig * s * (dyp - sum dyp / n - xhat * sum(dyp *
+    xhat) / n), from the rows' sums over every rank and their global length
+    n; in x's dtype."""
+    dyp = _gate(dy.float(), y.float(), activ)
+    xhat = (x.float() - _col(mean)) * _col(rsig)
+    s = 1.0 if scale is None else _col(scale)
+    dx = _col(rsig) * s * (dyp - _col(sums[..., 0]) / n - xhat * _col(sums[..., 1]) / n)
+    return dx.to(x.dtype)
+
+
+def _split_args(x: torch.Tensor, what: str, *tensors: torch.Tensor):
+    """Rows, row length and stream of a split kernel's launch on CUDA
+    tensors; raises on any other device."""
+    if x.device.type != "cuda":
+        raise ValueError(f"{what} runs on a CUDA or CPU tensor, got {x.device}")
+    rows, row_len = _rows(x)
+    for t in tensors:
+        if t.shape != x.shape or t.dtype != x.dtype or not t.is_contiguous():
+            raise ValueError(f"{what}: y and dy must be NCHW-contiguous {tuple(x.shape)} "
+                             f"{x.dtype}, got {tuple(t.shape)} {t.dtype}")
+    return rows, row_len, torch.cuda.current_stream(x.device).cuda_stream
+
+
+def instance_norm_row_moments(x: torch.Tensor) -> torch.Tensor:
+    """K1m on a CUDA tensor (the plain version on a CPU one): (N, C, 2) f32."""
+    global moments_launches
+    if x.device.type == "cpu":
+        return row_moments_plain(x)
+    rows, row_len, stream = _split_args(x, "K1m")
+    out = torch.zeros(x.shape[:2] + (2,), device=x.device, dtype=torch.float32)
+    if rows == 0 or row_len == 0:
+        return out
+    lib = _library()
+    with _launch_device(x):
+        err = lib.aclgan_instance_norm_row_moments(x.data_ptr(), out.data_ptr(), rows,
+                                                   row_len, _DTYPES[x.dtype], stream)
+    _raise_on(lib, err, "instance_norm row moments")
+    moments_launches += 1
+    return out
+
+
+def instance_norm_apply(x: torch.Tensor, mean: torch.Tensor, rsig: torch.Tensor,
+                        scale: Optional[torch.Tensor], shift: Optional[torch.Tensor],
+                        activ: str = "none") -> torch.Tensor:
+    """K1a on a CUDA tensor (the plain version on a CPU one); mean, rsig,
+    scale and shift (N, C)."""
+    global apply_launches
+    if x.device.type == "cpu":
+        return apply_plain(x, mean, rsig, scale, shift, activ)
+    rows, row_len, stream = _split_args(x, "K1a")
+    y = torch.empty_like(x)
+    if rows == 0 or row_len == 0:
+        return y
+    mean, rsig, scale, shift = (_vec(t, x) for t in (mean, rsig, scale, shift))
+    lib = _library()
+    with _launch_device(x):
+        err = lib.aclgan_instance_norm_apply(
+            x.data_ptr(), mean.data_ptr(), rsig.data_ptr(), _ptr(scale), _ptr(shift),
+            y.data_ptr(), rows, row_len, _DTYPES[x.dtype], _FUSED_ACTS[activ], stream)
+    _raise_on(lib, err, "instance_norm apply")
+    apply_launches += 1
+    return y
+
+
+def instance_norm_bwd_row_sums(x: torch.Tensor, y: torch.Tensor, dy: torch.Tensor,
+                               mean: torch.Tensor, rsig: torch.Tensor,
+                               activ: str = "none") -> torch.Tensor:
+    """K2m on CUDA tensors (the plain version on CPU ones): (N, C, 2) f32."""
+    global bwd_sums_launches
+    if x.device.type == "cpu":
+        return bwd_row_sums_plain(x, y, dy, mean, rsig, activ)
+    rows, row_len, stream = _split_args(x, "K2m", y, dy)
+    out = torch.zeros(x.shape[:2] + (2,), device=x.device, dtype=torch.float32)
+    if rows == 0 or row_len == 0:
+        return out
+    mean, rsig = _vec(mean, x), _vec(rsig, x)
+    lib = _library()
+    with _launch_device(x):
+        err = lib.aclgan_instance_norm_bwd_row_sums(
+            x.data_ptr(), y.data_ptr(), dy.data_ptr(), mean.data_ptr(), rsig.data_ptr(),
+            out.data_ptr(), rows, row_len, _DTYPES[x.dtype], _FUSED_ACTS[activ], stream)
+    _raise_on(lib, err, "instance_norm backward row sums")
+    bwd_sums_launches += 1
+    return out
+
+
+def instance_norm_bwd_apply(x: torch.Tensor, y: torch.Tensor, dy: torch.Tensor,
+                            mean: torch.Tensor, rsig: torch.Tensor,
+                            scale: Optional[torch.Tensor], sums: torch.Tensor, n: int,
+                            activ: str = "none") -> torch.Tensor:
+    """K2a on CUDA tensors (the plain version on CPU ones): dx in x's dtype;
+    sums (N, C, 2) over every rank, n the rows' global length."""
+    global bwd_apply_launches
+    if x.device.type == "cpu":
+        return bwd_apply_plain(x, y, dy, mean, rsig, scale, sums, n, activ)
+    rows, row_len, stream = _split_args(x, "K2a", y, dy)
+    dx = torch.empty_like(x)
+    if rows == 0 or row_len == 0:
+        return dx
+    mean, rsig, scale, sums = (_vec(t, x) for t in (mean, rsig, scale, sums))
+    lib = _library()
+    with _launch_device(x):
+        err = lib.aclgan_instance_norm_bwd_apply(
+            x.data_ptr(), y.data_ptr(), dy.data_ptr(), mean.data_ptr(), rsig.data_ptr(),
+            _ptr(scale), sums.data_ptr(), dx.data_ptr(), rows, row_len, 1.0 / n,
+            _DTYPES[x.dtype], _FUSED_ACTS[activ], stream)
+    _raise_on(lib, err, "instance_norm backward apply")
+    bwd_apply_launches += 1
+    return dx
+
+
+def _stats(moments: torch.Tensor, n: int, eps: float):
+    """(mean, rsig) from the rows' (sum, sum of squares) over n elements, the
+    variance clamped at 0 (`aclgan_tpu/parallel/halo.py:146-157`)."""
+    mean = moments[..., 0] / n
+    var = torch.clamp(moments[..., 1] / n - mean * mean, min=0.0)
+    return mean, torch.rsqrt(var + eps)
+
+
+class _ShardedFusedInstanceNorm(torch.autograd.Function):
+    """IN / AdaIN + activation over rows split across the ranks of `group`
+    (each rank holding row_len of the n_spatial * row_len elements of every
+    row): K1m -> all-reduce -> K1a forward, K2m -> all-reduce -> K2a
+    backward. dscale and dshift are this rank's partial sums: the AdaIN
+    vector is replicated over the group, and its producer's gradients are
+    summed over the ranks afterwards, so all-reduced values here would count
+    them n_spatial times."""
+
+    @staticmethod
+    def forward(ctx, x, scale, shift, eps, activ, group, n_spatial):
+        s32, b32 = _vec(scale, x), _vec(shift, x)
+        moments = instance_norm_row_moments(x)
+        dist.all_reduce(moments, group=group)
+        n = x.shape[2] * x.shape[3] * n_spatial
+        mean, rsig = _stats(moments, n, eps)
+        y = instance_norm_apply(x, mean, rsig, s32, b32, activ)
+        ctx.save_for_backward(x, s32, mean, rsig, y)
+        ctx.activ, ctx.group, ctx.n = activ, group, n
+        ctx.dtypes = (None if scale is None else scale.dtype,
+                      None if shift is None else shift.dtype)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, s32, mean, rsig, y = ctx.saved_tensors
+        dy = dy.to(x.dtype).contiguous()
+        partial = instance_norm_bwd_row_sums(x, y, dy, mean, rsig, ctx.activ)
+        sums = partial.clone()
+        dist.all_reduce(sums, group=ctx.group)
+        dx = instance_norm_bwd_apply(x, y, dy, mean, rsig, s32, sums, ctx.n, ctx.activ)
+        if s32 is None:
+            return dx, None, None, None, None, None, None
+        return (dx, partial[..., 1].to(ctx.dtypes[0]), partial[..., 0].to(ctx.dtypes[1]),
+                None, None, None, None)
+
+
 def _library() -> ctypes.CDLL:
     from aclgan_tpu_torch.ops.kernels.build import load
 
@@ -243,6 +453,17 @@ def _library() -> ctypes.CDLL:
                                            ctypes.c_int, ctypes.c_int,
                                            ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
+    rows = [ctypes.c_longlong, ctypes.c_longlong]
+    for name, argtypes in (
+            ("row_moments", [ctypes.c_void_p] * 2 + rows + [ctypes.c_int, ctypes.c_void_p]),
+            ("apply", [ctypes.c_void_p] * 6 + rows + [ctypes.c_int] * 2 + [ctypes.c_void_p]),
+            ("bwd_row_sums",
+             [ctypes.c_void_p] * 6 + rows + [ctypes.c_int] * 2 + [ctypes.c_void_p]),
+            ("bwd_apply", [ctypes.c_void_p] * 8 + rows
+             + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])):
+        fn = getattr(lib, f"aclgan_instance_norm_{name}")
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
     lib.aclgan_cuda_error_string.argtypes = [ctypes.c_int]
     lib.aclgan_cuda_error_string.restype = ctypes.c_char_p
     return lib
@@ -250,16 +471,23 @@ def _library() -> ctypes.CDLL:
 
 def fused_instance_norm(x: torch.Tensor, scale: Optional[torch.Tensor] = None,
                         shift: Optional[torch.Tensor] = None, eps: float = 1e-5,
-                        activ: str = "none",
-                        prelu_alpha: Optional[torch.Tensor] = None) -> torch.Tensor:
+                        activ: str = "none", prelu_alpha: Optional[torch.Tensor] = None,
+                        mesh=None) -> torch.Tensor:
     """IN (scale/shift None) or AdaIN, then activation. x: (N, C, H, W);
     scale/shift: (N, C). Without a gradient, the `aclgan::instance_norm_fwd`
     op: K1 on a CUDA tensor, the plain version on a CPU one. With one, the
     plain version on the CPU and K1 + K2 (`_FusedInstanceNorm`) on CUDA.
-    prelu/selu are applied after the op or kernel in torch."""
+    Under a `mesh` that splits H, the split form (`_ShardedFusedInstanceNorm`)
+    with or without a gradient. prelu/selu are applied after the op or
+    kernel in torch."""
     _check(x, scale, shift, activ)
     act = activ if activ in _FUSED_ACTS else "none"
-    if torch.is_grad_enabled() and any(
+    if sharded(mesh):
+        if x.device.type not in ("cpu", "cuda"):
+            raise ValueError(f"no kernel for device {x.device}")
+        y = _ShardedFusedInstanceNorm.apply(x, scale, shift, eps, act, mesh.spatial_group,
+                                            mesh.n_spatial)
+    elif torch.is_grad_enabled() and any(
             t is not None and t.requires_grad for t in (x, scale, shift)):
         if x.device.type == "cpu":
             return instance_norm_plain(x, scale, shift, eps, activ, prelu_alpha)

@@ -15,6 +15,10 @@
 Stats are float32 whatever the input dtype; the result is cast back to the
 input dtype. These are the plain versions: on a CUDA tensor the model's
 IN/AdaIN layers run the fused kernel in `ops/kernels/instance_norm.py`.
+
+Under a mesh that splits H (`parallel/spatial.py`), `sample_layer_norm`
+all-reduces each sample's sums over the spatial group, and bn's training
+statistics cover every rank of the grid.
 """
 
 from __future__ import annotations
@@ -24,6 +28,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from aclgan_tpu_torch.parallel.mesh import all_reduce_sum
+from aclgan_tpu_torch.parallel.spatial import sharded
 
 
 def _normalize(x: torch.Tensor, eps: float) -> torch.Tensor:
@@ -48,11 +53,22 @@ def adaptive_instance_norm(x: torch.Tensor, scale: torch.Tensor,
 
 
 def sample_layer_norm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
-                      eps: float = 1e-5) -> torch.Tensor:
-    """The reference's custom LayerNorm. x: (N, C, H, W); gamma/beta: (C,)."""
+                      eps: float = 1e-5, mesh=None) -> torch.Tensor:
+    """The reference's custom LayerNorm. x: (N, C, H, W); gamma/beta: (C,).
+    Under an H-sharding mesh, each sample's (sum, sum of squares) over this
+    rank's (C, H, W) is all-reduced over the spatial group, and the std is
+    Bessel-corrected over the global count."""
     x32 = x.float()
-    mean = x32.mean(dim=(1, 2, 3), keepdim=True)
-    std = x32.std(dim=(1, 2, 3), keepdim=True)  # Bessel-corrected, as torch.std
+    if sharded(mesh):
+        n = x32[0].numel() * mesh.n_spatial
+        sums = all_reduce_sum(torch.stack([x32.sum((1, 2, 3)), (x32 * x32).sum((1, 2, 3))]),
+                              mesh.spatial_group)
+        mean = (sums[0] / n).view(-1, 1, 1, 1)
+        var = torch.clamp((sums[1] - n * mean.flatten() ** 2) / (n - 1), min=0.0)
+        std = torch.sqrt(var).view(-1, 1, 1, 1)
+    else:
+        mean = x32.mean(dim=(1, 2, 3), keepdim=True)
+        std = x32.std(dim=(1, 2, 3), keepdim=True)  # Bessel-corrected, as torch.std
     out = (x32 - mean) / (std + eps)
     out = out * gamma.float()[None, :, None, None] + beta.float()[None, :, None, None]
     return out.to(x.dtype)
@@ -65,9 +81,10 @@ class BatchNorm(nn.BatchNorm2d):
     (N, C) input of any float dtype and cast back. Stats are over every
     non-channel axis.
 
-    With `mesh` set (a `parallel.mesh.DataMesh`), training-mode statistics
-    are those of the global batch, as GSPMD gives the JAX step: one f32
-    all-reduce of each channel's (count, sum, sum of squares), whose
+    With `mesh` set (a `parallel.mesh.DataMesh` or a
+    `parallel.spatial.SpatialMesh`), training-mode statistics are those of
+    the global batch (every rank of the grid), as GSPMD gives the JAX step:
+    one f32 all-reduce of each channel's (count, sum, sum of squares), whose
     backward all-reduces the two gradient sums."""
 
     mesh = None
@@ -89,8 +106,8 @@ class BatchNorm(nn.BatchNorm2d):
         x32 = x.float()
         axes = [0] + list(range(2, x.dim()))
         count = torch.full((x.shape[1],), x32.numel() / x.shape[1], device=x.device)
-        stats = all_reduce_sum(torch.stack([count, x32.sum(axes),
-                                            (x32 * x32).sum(axes)]))
+        stats = all_reduce_sum(torch.stack([count, x32.sum(axes), (x32 * x32).sum(axes)]),
+                               self.mesh.world_group)
         n = stats[0]
         mean = stats[1] / n
         var = torch.clamp(stats[2] / n - mean * mean, min=0.0)  # biased

@@ -17,6 +17,11 @@ by `torchrun`) and does the exchange itself:
   batch sums become those of the global batch; `all_reduce_mean` averages
   gradients and metrics; `coordination_barrier` is `dist.barrier`.
 
+A mesh's collectives run over its `world_group`: the default group for a
+`DataMesh`, the mesh's ranks for a `parallel.spatial.SpatialMesh` (which
+also splits each image's rows over `n_spatial` ranks; a `DataMesh` has
+`n_spatial` 1).
+
 Only `all_reduce`, `broadcast` and `barrier` are used: they work with NCCL,
 with gloo on the CPU and with gloo on CUDA tensors.
 """
@@ -41,6 +46,8 @@ class DataMesh:
 
     rank: int
     world: int
+    world_group = None  # the default group
+    n_spatial = 1       # whole images on every rank
 
 
 def init_distributed(device_type: str) -> torch.device:
@@ -105,7 +112,7 @@ def replicate(tensors: Iterable[torch.Tensor], mesh: Optional[DataMesh]) -> None
     with torch.no_grad():
         for group in buckets.values():
             flat = _flatten_dense_tensors([t.detach() for t in group])
-            dist.broadcast(flat, 0)
+            dist.broadcast(flat, 0, group=mesh.world_group)
             for t, v in zip(group, _unflatten_dense_tensors(flat, group)):
                 t.copy_(v)
 
@@ -134,38 +141,40 @@ def _state_tensors(model) -> List[torch.Tensor]:
     return out
 
 
-def all_reduce_mean(tensors: List[torch.Tensor], mesh: DataMesh) -> None:
-    """Replace each tensor in place by its mean over the ranks: one
+def all_reduce_mean(tensors: List[torch.Tensor], mesh) -> None:
+    """Replace each tensor in place by its mean over the mesh's ranks: one
     all-reduce of a flat copy."""
     if not tensors:
         return
     flat = _flatten_dense_tensors(tensors)
-    dist.all_reduce(flat)
+    dist.all_reduce(flat, group=mesh.world_group)
     flat.div_(mesh.world)
     for t, v in zip(tensors, _unflatten_dense_tensors(flat, tensors)):
         t.copy_(v)
 
 
 class _AllReduceSum(torch.autograd.Function):
-    """y = the sum of x over the ranks. Every rank's y feeds the same loss, so
-    the gradient of x is the sum of y's gradients over the ranks."""
+    """y = the sum of x over the group's ranks. Every rank's y feeds the same
+    loss, so the gradient of x is the sum of y's gradients over the ranks."""
 
     @staticmethod
-    def forward(ctx, x):
+    def forward(ctx, x, group):
+        ctx.group = group
         y = x.clone()
-        dist.all_reduce(y)
+        dist.all_reduce(y, group=group)
         return y
 
     @staticmethod
     def backward(ctx, grad):
         grad = grad.contiguous().clone()
-        dist.all_reduce(grad)
-        return grad
+        dist.all_reduce(grad, group=ctx.group)
+        return grad, None
 
 
-def all_reduce_sum(x: torch.Tensor) -> torch.Tensor:
-    """The sum of `x` over the ranks, differentiable."""
-    return _AllReduceSum.apply(x)
+def all_reduce_sum(x: torch.Tensor, group=None) -> torch.Tensor:
+    """The sum of `x` over the ranks of `group` (None: every process),
+    differentiable."""
+    return _AllReduceSum.apply(x, group)
 
 
 def coordination_barrier(name: str = "") -> None:

@@ -26,6 +26,15 @@ Port of `aclgan_tpu/trainer.py` (`to_model_range`, `ACLGAN`: `init_state`,
   all-reduce, and the metrics are averaged before they return. The step
   equals the single-process step on the gathered batch, as GSPMD makes the
   JAX one.
+- Spatial sharding (a `parallel.spatial.SpatialMesh`, n_data x n_spatial
+  ranks): a rank holds its data index's rows and its H-slice of each image.
+  The layers exchange halo rows and all-reduce their statistics over the
+  spatial group (the mesh is set on them here), bn's over the grid. Each
+  rank's losses are means over its own elements; the shards are equal, so
+  the step's loss is their mean over the grid, which the same world
+  all-reduce of gradients and metrics takes. A term computed from sums
+  all-reduced over the grid (the focus size and digit terms) is equal on
+  every rank, and the mean counts it once.
 
 Calls to the same network are batched along dim 0 (every generator norm is
 per sample), image pairs for the consistency discriminator along channels.
@@ -43,10 +52,10 @@ from aclgan_tpu_torch import losses
 from aclgan_tpu_torch.config import Config
 from aclgan_tpu_torch.models.discriminator import MsDiscriminator
 from aclgan_tpu_torch.models.generator import AdaINGenerator
-from aclgan_tpu_torch.ops.norms import BatchNorm
 from aclgan_tpu_torch.optim import AdamBf16Mu
 from aclgan_tpu_torch.parallel.mesh import (DataMesh, all_reduce_mean, all_reduce_sum,
                                             batch_sharding)
+from aclgan_tpu_torch.parallel.spatial import SpatialMesh, data_rows
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 GEN_NAMES = ("AB", "BA")
@@ -102,10 +111,12 @@ class ACLGAN:
     float32 params, computing in `cfg.tpu.compute_dtype`. `init_state` adds
     what training needs: `dis_A` / `dis_B` / `dis_2`, the optimizers, the EMA
     and the step; serving builds only the generators. With a `mesh`, the
-    train step is one rank's share of a data-parallel step."""
+    train step is one rank's share of a data-parallel step, and under a
+    `SpatialMesh` the train step and `translate` take this rank's H-slice."""
 
     def __init__(self, cfg: Config, device: Union[str, torch.device] = "cuda",
-                 seed: Optional[int] = None, mesh: Optional[DataMesh] = None):
+                 seed: Optional[int] = None,
+                 mesh: Optional[Union[DataMesh, SpatialMesh]] = None):
         self.cfg = cfg
         self.device = resolve_device(device)
         self.mesh = mesh
@@ -120,6 +131,8 @@ class ACLGAN:
 
         self.gen_AB = make()
         self.gen_BA = make()
+        for name in GEN_NAMES:
+            self._set_mesh(f"gen_{name}", self.gen(name))
         # the VGG perceptual loss's network, loaded when vgg_w > 0 as the JAX
         # trainer does; like it (and the reference), the step adds no VGG term
         self.vgg = None
@@ -155,9 +168,7 @@ class ACLGAN:
         for name in DIS_NAMES:
             setattr(self, f"dis_{name}", MsDiscriminator(
                 cfg.dis, dims[name], "gaussian", self.dtype, gen).to(self.device))
-            for m in self.dis(name).modules():
-                if isinstance(m, BatchNorm):
-                    m.mesh = self.mesh  # batch statistics of the global batch
+            self._set_mesh(f"dis_{name}", self.dis(name))
         adam = dict(lr=cfg.lr, betas=(cfg.beta1, cfg.beta2), eps=1e-8,
                     weight_decay=cfg.weight_decay)
         self.gen_params = [p for n in GEN_NAMES for p in self.gen(n).parameters()]
@@ -173,6 +184,16 @@ class ACLGAN:
                         for n in GEN_NAMES}
         self.step = 0
         self.z_gen = torch.Generator(device=self.device).manual_seed(seed)
+
+    def _set_mesh(self, name: str, net: torch.nn.Module) -> None:
+        """Set the mesh on the layers that read one (bn: the global batch's
+        statistics; ConvBlock, the pools and the discriminator: the halo and
+        the spatial group's statistics), each named for the halo's errors."""
+        for path, m in net.named_modules():
+            if hasattr(m, "mesh"):
+                m.mesh = self.mesh
+            if hasattr(m, "layer"):
+                m.layer = f"{name}.{path}" if path else name
 
     def compute_vgg_loss(self, img: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
         """The perceptual loss on relu5_3 features of two NCHW [-1, 1] batches
@@ -311,7 +332,8 @@ class ACLGAN:
                    "loss_gen_adv_2": adv_2}
         if self.use_focus:
             # masks mapped to [0,1], then size + digit terms over H*W*B*3; the
-            # terms' sums run over the global batch
+            # terms' sums run over the global batch (every rank of the grid,
+            # whose world = n_data * n_spatial makes `norm` the global H*W*B*3)
             batch_sum = torch.sum if self.mesh is None else self._global_sum
             world = 1 if self.mesh is None else self.mesh.world
             norm = x_a.shape[2] * x_a.shape[3] * b * world * 3
@@ -331,12 +353,12 @@ class ACLGAN:
         metrics.update(loss_idt_A=idt_A, loss_idt_B=idt_B, loss_gen_total=total)
         return total, metrics
 
-    @staticmethod
-    def _global_sum(t: torch.Tensor) -> torch.Tensor:
-        return all_reduce_sum(torch.sum(t))
+    def _global_sum(self, t: torch.Tensor) -> torch.Tensor:
+        return all_reduce_sum(torch.sum(t), self.mesh.world_group)
 
     def _sync_grads(self, nets: Sequence[torch.nn.Module]) -> None:
-        """Average the gradients over the ranks: one flat all-reduce a network."""
+        """Average the gradients over the mesh's ranks: one flat all-reduce a
+        network."""
         if self.mesh is None:
             return
         for net in nets:
@@ -422,13 +444,18 @@ class ACLGAN:
         metrics as 0-dim tensors under the JAX names, without a host sync.
 
         Under a `mesh`, x_a and x_b are this rank's rows of the global batch
-        and `z` is global: each rank keeps its rows of it, as of its own
-        global draw; the metrics are the global batch's."""
+        (under a `SpatialMesh`, its data index's rows and its H-slice) and `z`
+        is global: each rank keeps its rows of it, as of its own global draw;
+        the metrics are the global batch's."""
         if step_increment != 1:
             self.step += step_increment - 1
         x_a, x_b = self._images(x_a), self._images(x_b)
-        b = x_a.shape[0] * (1 if self.mesh is None else self.mesh.world)
-        rows = batch_sharding(self.mesh, b)
+        if isinstance(self.mesh, SpatialMesh):
+            b = x_a.shape[0] * self.mesh.n_data
+            rows = data_rows(self.mesh, b)
+        else:
+            b = x_a.shape[0] * (1 if self.mesh is None else self.mesh.world)
+            rows = batch_sharding(self.mesh, b)
 
         def noise(kind: str) -> ZTriple:
             if z is not None:
@@ -462,7 +489,8 @@ class ACLGAN:
 
         Returns NHWC (image, mask or None) in the compute dtype. The JAX
         version runs the full encoder and drops the style; the content
-        encoder alone gives the same content code.
+        encoder alone gives the same content code. Under a `SpatialMesh`, x
+        is this rank's H-slice of its images, and so is the result.
         """
         gen = self.gen_AB if a2b else self.gen_BA
         x = self._images(x).to(self.dtype)

@@ -10,9 +10,9 @@ tpu.grad_accum, bf16 moments, a resumed JAX run), evaluation (the test CLIs, IS 
 the classifier fine-tune, the FID curve), the serving stack (buckets,
 the exported artifact, the HTTP front), the JPEG decode core, data
 parallelism (two ranks on the card, the CLI under torchrun), the
-multi-replica Translator and the VGG perceptual loss, through the
-hand-written CUDA kernels, and fails, with a non-zero exit, if any phase
-fails:
+multi-replica Translator, the VGG perceptual loss and spatial (H) sharding
+(two ranks at 512^2), through the hand-written CUDA kernels, and fails,
+with a non-zero exit, if any phase fails:
 
 1. device info (torch/CUDA versions, nvidia-smi name and power limit);
 2. build every kernel under aclgan_tpu_torch/csrc with nvcc;
@@ -112,8 +112,18 @@ fails:
 26. [vgg] `compute_vgg_loss` at 256^2, batch 16, f32: loss and image
    gradients against the plain instance norm (rel 1e-4), ms a loss, (K1, K2)
    a loss (2, 2);
-27. one JSON line listing every kernel;
-28. last line: {"ok": true, "device": {...}}.
+27. [spatial_two_ranks] two processes on the one card over gloo with CUDA
+   tensors, a 1 x 2 (data, spatial) grid, male2female full width at 512^2,
+   global batch 2, f32 with TF32 off: one sharded translate (max |diff| 1e-4)
+   and one D+G iteration (metrics rel 1e-4, params rel-L2 1e-3, the ranks
+   equal) against one process at 512^2, batch 2; each rank's (K1, K2, K1m,
+   K1a, K2m, K2a) (0, 0, 19, 19, 0, 0) a translate and (0, 0, 98, 98, 49, 49)
+   a D+G iteration; each rank's peak memory against the one process, the
+   steps' seconds and all-reduce counts; then K1m, K1a, K2m and K2a against
+   their plain versions at a rank's shapes and timed in bf16 over a rank's
+   iteration, beside their bound and one library call each;
+28. one JSON line listing every kernel;
+29. last line: {"ok": true, "device": {...}}.
 
 Imports nothing of JAX.
 """
@@ -154,27 +164,28 @@ TRAIN_BATCH = 16               # bench.py's training batch
 BIG_BATCH = 64                 # a batch only tpu.remat or tpu.grad_accum fits (phase 20)
 
 
-def _encode_mix(n):
-    """The content encoder's IN layers at batch n (male2female, 256^2)."""
-    return [((n, 64, 256, 256), False, 1), ((n, 128, 128, 128), False, 1),
-            ((n, 256, 64, 64), False, 9)]
+def _encode_mix(n, h=256, w=256):
+    """The content encoder's IN layers at batch n on h x w images (male2female;
+    256^2 unless said)."""
+    return [((n, 64, h, w), False, 1), ((n, 128, h // 2, w // 2), False, 1),
+            ((n, 256, h // 4, w // 4), False, 9)]
 
 
-def _decode_mix(n):
+def _decode_mix(n, h=256, w=256):
     """The decoder's AdaIN layers at batch n."""
-    return [((n, 256, 64, 64), True, 8)]
+    return [((n, 256, h // 4, w // 4), True, 8)]
 
 
-def _g_step_mix(b):
+def _g_step_mix(b, h=256, w=256):
     """Instance-norm layers of one G step at batch b: gen_AB encodes x_a||x_b,
     gen_BA encodes x_a and x_B_fake, gen_AB decodes 2b, gen_BA decodes 3b."""
-    return (_encode_mix(2 * b) + _encode_mix(b) + _encode_mix(b)
-            + _decode_mix(2 * b) + _decode_mix(3 * b))
+    return (_encode_mix(2 * b, h, w) + _encode_mix(b, h, w) + _encode_mix(b, h, w)
+            + _decode_mix(2 * b, h, w) + _decode_mix(3 * b, h, w))
 
 
-def _d_step_mix(b):
+def _d_step_mix(b, h=256, w=256):
     """Instance-norm layers of one D step at batch b (no x_b, no self-recons)."""
-    return _encode_mix(b) * 3 + _decode_mix(b) + _decode_mix(2 * b)
+    return _encode_mix(b, h, w) * 3 + _decode_mix(b, h, w) + _decode_mix(2 * b, h, w)
 
 
 TRAIN_SHAPES = [(32, 64, 256, 256), (32, 128, 128, 128), (32, 256, 64, 64)]
@@ -2314,6 +2325,345 @@ def phase_vgg():
     return launches
 
 
+# ------------------------------------------------------------------ slice 8
+SP_WORLD, SP_BATCH, SP_SIZE = 2, 2, 512  # [spatial_two_ranks]: 1 x 2 grid, global batch, H=W
+SP_ROWS = SP_SIZE // SP_WORLD            # a rank's H
+SPLIT_KERNELS = (  # counter, kernels-line name, the TPU kernel it replaces
+    ("moments_launches", "instance_norm_row_moments", "aclgan_tpu/ops/pallas/instance_norm.py:67"),
+    ("apply_launches", "instance_norm_apply", "aclgan_tpu/ops/pallas/instance_norm.py:67"),
+    ("bwd_sums_launches", "instance_norm_bwd_row_sums",
+     "aclgan_tpu/ops/pallas/instance_norm.py:102"),
+    ("bwd_apply_launches", "instance_norm_bwd_apply",
+     "aclgan_tpu/ops/pallas/instance_norm.py:102"))
+COUNTERS = ("launches", "bwd_launches") + tuple(c for c, _, _ in SPLIT_KERNELS)
+
+
+def _counts():
+    """(K1, K2, K1m, K1a, K2m, K2a) launches since the last `_zero_counts`."""
+    from aclgan_tpu_torch.ops.kernels import instance_norm as K
+
+    return tuple(getattr(K, c) for c in COUNTERS)
+
+
+def _zero_counts():
+    from aclgan_tpu_torch.ops.kernels import instance_norm as K
+
+    for c in COUNTERS:
+        setattr(K, c, 0)
+
+
+def _spatial_rank(rank, world, port, vcfg, x, style, xa, xb, z, out_dir):
+    """One rank of [spatial_two_ranks], in its own process on the one card: a
+    1 x world grid over gloo with CUDA tensors; this rank's H-slice of one
+    `translate` and of one D+G `train_step` (the global z injected), then a
+    second step timed warm. Saves outputs, metrics, params, (K1, K2, K1m, K1a,
+    K2m, K2a), the all-reduces issued and peak memory of each."""
+    import torch.distributed as dist
+
+    from aclgan_tpu_torch.parallel.mesh import shard_state
+    from aclgan_tpu_torch.parallel.spatial import make_mesh_2d, spatial_batch_sharding
+    from aclgan_tpu_torch.trainer import ACLGAN
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+                            world_size=world)
+    all_reduce, calls = dist.all_reduce, [0]
+
+    def counted(*args, **kwargs):  # every collective of the path is an all_reduce
+        calls[0] += 1
+        return all_reduce(*args, **kwargs)
+
+    dist.all_reduce = counted
+    try:
+        mesh = make_mesh_2d(1, world)
+        model = ACLGAN(vcfg, device="cuda", mesh=mesh)
+        model.init_state()
+        shard_state(model, mesh)
+        rows, hs = spatial_batch_sharding(mesh, x.shape[0], x.shape[1])
+        out = {}
+
+        def start():
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            _zero_counts()
+            calls[0] = 0
+            return time.perf_counter()
+
+        def done(t0, **rec):
+            torch.cuda.synchronize()
+            return dict(rec, s=time.perf_counter() - t0, launches=_counts(),
+                        collectives=calls[0], peak=torch.cuda.max_memory_allocated())
+
+        t0 = start()
+        img, mask = model.translate(x[rows, hs], style[rows])
+        out["translate"] = done(t0, img=img.cpu(), mask=mask.cpu())
+        t0 = start()
+        m = model.train_step(xa[rows, hs], xb[rows, hs], True, True, z=z)
+        out["step"] = done(t0, metrics={k: float(v) for k, v in m.items()},
+                           params=_params(model))
+        t0 = start()
+        model.train_step(xa[rows, hs], xb[rows, hs], True, True, z=z)
+        out["warm"] = done(t0)
+        torch.save(out, Path(out_dir) / f"spatial.{rank}.pt")
+        del model
+    finally:
+        dist.all_reduce = all_reduce
+        dist.destroy_process_group()
+
+
+def _split_kernels(step_launches):
+    """K1m, K1a, K2m, K2a against their plain versions on the card at a rank's
+    shapes of phase 27 (f32 and bf16, IN and AdaIN, every fused activation),
+    then timed in bf16 over one D+G iteration's layers on a rank (K1m, K1a) or
+    one G step's (K2m, K2a); returns their kernels-line entries."""
+    from aclgan_tpu_torch.ops.kernels import instance_norm as K
+
+    g = torch.Generator(device="cuda").manual_seed(2)
+    shapes = sorted({shape for shape, _, _ in _encode_mix(SP_BATCH, SP_ROWS, SP_SIZE)})
+    max_err = {name: 0.0 for _, name, _ in SPLIT_KERNELS}
+    for shape in shapes:
+        n, c, h, w = shape
+        base = torch.randn(shape, device="cuda", generator=g) * 2.0 + 0.5
+        dy_base = torch.randn(shape, device="cuda", generator=g)
+        scale = torch.randn(n, c, device="cuda", generator=g)
+        shift = torch.randn(n, c, device="cuda", generator=g)
+        for dtype in (torch.float32, torch.bfloat16):
+            x, dy, tol = base.to(dtype), dy_base.to(dtype), TOL[dtype]
+            for affine in (False, True):
+                s, b = (scale, shift) if affine else (None, None)
+                for activ in ("none", "relu", "lrelu", "tanh"):
+                    moments = K.row_moments_plain(x)
+                    mean, rsig = K._stats(moments, h * w, 1e-5)
+                    y = K.instance_norm_apply(x, mean, rsig, s, b, activ)
+                    sums = K.bwd_row_sums_plain(x, y, dy, mean, rsig, activ)
+                    n_all = h * w * SP_WORLD  # K2a divides by the rows' global length
+                    checks = (
+                        ("instance_norm_row_moments", K.instance_norm_row_moments(x),
+                         moments, "rows"),
+                        ("instance_norm_apply", y,
+                         K.apply_plain(x, mean, rsig, s, b, activ), "elements"),
+                        ("instance_norm_bwd_row_sums",
+                         K.instance_norm_bwd_row_sums(x, y, dy, mean, rsig, activ), sums,
+                         "rows"),
+                        ("instance_norm_bwd_apply",
+                         K.instance_norm_bwd_apply(x, y, dy, mean, rsig, s, sums, n_all,
+                                                   activ),
+                         K.bwd_apply_plain(x, y, dy, mean, rsig, s, sums, n_all, activ),
+                         "elements"))
+                    torch.cuda.synchronize()
+                    for name, got, want, kind in checks:
+                        got, want = got.float(), want.float()
+                        err = (got - want).abs()
+                        max_err[name] = max(max_err[name], err.max().item())
+                        # outputs elementwise as K1; the row sums against their largest
+                        lim = tol + tol * want.abs() if kind == "elements" else \
+                            tol * want.abs().max()
+                        bad = (err > lim).sum().item()
+                        if bad or not torch.isfinite(got).all():
+                            raise AssertionError(
+                                f"{name} {shape} {dtype} affine={affine} {activ}: {bad} "
+                                f"values beyond tolerance, max err {err.max().item()}")
+            del x, dy
+        log(f"[kernel] split instance norm {shape}: K1m, K1a, K2m, K2a x 16 cases within "
+            f"tolerance")
+        del base, dy_base
+    log("[kernel] split instance norm max abs err: "
+        + ", ".join(f"{k} {v:.3g}" for k, v in max_err.items()))
+
+    def make(shape, affine):
+        n, c, h, w = shape
+        x = torch.randn(shape, device="cuda", generator=g).to(torch.bfloat16)
+        scale = torch.randn(n, c, device="cuda", generator=g) if affine else None
+        shift = torch.randn(n, c, device="cuda", generator=g) if affine else None
+        mean, rsig = K._stats(K.row_moments_plain(x), h * w * SP_WORLD, 1e-5)
+        y = K.instance_norm_apply(x, mean, rsig, scale, shift, "relu")
+        dy = torch.randn(shape, device="cuda", generator=g).to(torch.bfloat16)
+        sums = K.bwd_row_sums_plain(x, y, dy, mean, rsig, "relu")
+        # the library calls on the (1, N*C, H, W) view, given the statistics
+        xv, dyv = x.view(1, n * c, h, w), dy.view(1, n * c, h, w)
+        ones = torch.ones(n * c, device="cuda")
+        lib = dict(xv=xv, dyv=dyv, mean=mean.flatten(), rsig=rsig.flatten(),
+                   var=(rsig.flatten() ** -2 - 1e-5), ones=ones,
+                   w=None if scale is None else scale.flatten(),
+                   b=None if shift is None else shift.flatten())
+        return x, y, dy, mean, rsig, scale, shift, sums, h * w * SP_WORLD, lib
+
+    def moments(x, *_):
+        return K.instance_norm_row_moments(x)
+
+    def apply(x, y, dy, mean, rsig, scale, shift, *_):
+        return K.instance_norm_apply(x, mean, rsig, scale, shift, "relu")
+
+    def bwd_sums(x, y, dy, mean, rsig, *_):
+        return K.instance_norm_bwd_row_sums(x, y, dy, mean, rsig, "relu")
+
+    def bwd_apply(x, y, dy, mean, rsig, scale, shift, sums, n, _):
+        return K.instance_norm_bwd_apply(x, y, dy, mean, rsig, scale, sums, n, "relu")
+
+    plain = {
+        "instance_norm_row_moments": lambda x, *_: K.row_moments_plain(x),
+        "instance_norm_apply": lambda x, y, dy, mean, rsig, scale, shift, *_:
+            K.apply_plain(x, mean, rsig, scale, shift, "relu"),
+        "instance_norm_bwd_row_sums": lambda x, y, dy, mean, rsig, *_:
+            K.bwd_row_sums_plain(x, y, dy, mean, rsig, "relu"),
+        "instance_norm_bwd_apply": lambda x, y, dy, mean, rsig, scale, shift, sums, n, _:
+            K.bwd_apply_plain(x, y, dy, mean, rsig, scale, sums, n, "relu")}
+    library = {  # one PyTorch call for the same function (no activation gate)
+        "instance_norm_row_moments": (
+            "torch.var_mean over H, W (correction 0)",
+            lambda x, *a: torch.var_mean(x, dim=(2, 3), correction=0)),
+        "instance_norm_apply": (
+            "F.batch_norm in eval mode on the (1, N*C, H, W) view, the statistics as "
+            "running stats (no activation)",
+            lambda *a: F.batch_norm(a[-1]["xv"], a[-1]["mean"], a[-1]["var"], a[-1]["w"],
+                                    a[-1]["b"], False, 0.0, 1e-5)),
+        "instance_norm_bwd_row_sums": (
+            "aten.native_batch_norm_backward for grad_weight and grad_bias only, given "
+            "the statistics, no activation gate",
+            lambda *a: torch.ops.aten.native_batch_norm_backward(
+                a[-1]["dyv"], a[-1]["xv"], a[-1]["ones"], None, None, a[-1]["mean"],
+                a[-1]["rsig"], True, 1e-5, [False, True, True])),
+        "instance_norm_bwd_apply": (
+            "aten.native_batch_norm_backward for grad_input only (it takes its row sums "
+            "itself), given the statistics, no activation gate",
+            lambda *a: torch.ops.aten.native_batch_norm_backward(
+                a[-1]["dyv"], a[-1]["xv"], a[-1]["ones"], None, None, a[-1]["mean"],
+                a[-1]["rsig"], True, 1e-5, [True, False, False]))}
+    rows = lambda shape: shape[0] * shape[1]  # noqa: E731
+    nbytes = {  # bf16 tensors read once, written once; f32 per-row vectors
+        "instance_norm_row_moments": lambda shape, affine: 2 * math.prod(shape)
+        + 8 * rows(shape),
+        "instance_norm_apply": lambda shape, affine: 4 * math.prod(shape)
+        + (16 if affine else 8) * rows(shape),
+        "instance_norm_bwd_row_sums": lambda shape, affine: 6 * math.prod(shape)
+        + 16 * rows(shape),
+        "instance_norm_bwd_apply": lambda shape, affine: 8 * math.prod(shape)
+        + (20 if affine else 16) * rows(shape)}
+    flops = {"instance_norm_row_moments": 3.0, "instance_norm_apply": 5.0,
+             "instance_norm_bwd_row_sums": 8.0, "instance_norm_bwd_apply": 10.0}
+    runs = {"instance_norm_row_moments": moments, "instance_norm_apply": apply,
+            "instance_norm_bwd_row_sums": bwd_sums, "instance_norm_bwd_apply": bwd_apply}
+    entries = []
+    for (counter, name, replaces), launches in zip(SPLIT_KERNELS, step_launches):
+        fwd = counter in ("moments_launches", "apply_launches")
+        mix = (_d_step_mix(SP_BATCH, SP_ROWS, SP_SIZE) if fwd else []) + \
+            _g_step_mix(SP_BATCH, SP_ROWS, SP_SIZE)
+        work = (f"one rank's {'D+G iteration' if fwd else 'G step'} of phase 27 "
+                f"(male2female {SP_SIZE}^2, batch {SP_BATCH}, 1 x {SP_WORLD} grid: "
+                f"{SP_ROWS} x {SP_SIZE} rows), timed in bf16")
+        tot = _time_mix(name, mix, make, runs[name], plain[name], library[name][1],
+                        nbytes[name], flops[name])
+        _log_total(name, work, tot)
+        entries.append(dict(
+            name=name, route="cuda", source="aclgan_tpu_torch/csrc/instance_norm.cu",
+            replaces=replaces, launches=launches, max_abs_err=max_err[name], ms=tot["ms"],
+            plain_ms=tot["plain_ms"], bound_ms=tot["bound_ms"], bound_by=tot["bound_by"],
+            library_ms=tot["library_ms"], library=library[name][0], work=work))
+    return entries
+
+
+def phase_spatial_two_ranks(cfg, tmp, smi):
+    """[spatial_two_ranks] Two processes on the one card over gloo with CUDA
+    tensors, a 1 x 2 (data, spatial) grid: male2female at full width, 512^2
+    (the scale spatial sharding exists for), global batch 2, f32 with TF32
+    off; one sharded translate and one D+G train_step against one process at
+    512^2, batch 2; the split kernels against their plain versions and timed.
+    Returns (the split kernels' entries, {path: launches} of each kernel)."""
+    import torch.multiprocessing as mp
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    vcfg = _variant_cfg(cfg, SP_SIZE)
+    b, size = SP_BATCH, SP_SIZE
+    rng = np.random.RandomState(11)
+    x = torch.from_numpy(rng.uniform(-1, 1, (b, size, size, 3)).astype(np.float32))
+    style = torch.from_numpy(rng.randn(b, vcfg.gen.style_dim).astype(np.float32))
+    xa, xb = (torch.from_numpy(rng.randint(0, 256, (b, size, size, 3), dtype=np.uint8))
+              for _ in range(2))
+    z = {k: [rng.randn(b, vcfg.gen.style_dim).astype(np.float32) for _ in range(3)]
+         for k in ("dis", "gen")}
+    out_dir = Path(tmp) / "spatial"
+    out_dir.mkdir()
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    mp.start_processes(_spatial_rank, args=(SP_WORLD, _free_port(), vcfg, x, style, xa, xb, z,
+                                            str(out_dir)),
+                       nprocs=SP_WORLD, join=True, start_method="spawn")
+    ranks_s = time.time() - t0
+    ranks = [torch.load(out_dir / f"spatial.{r}.pt", weights_only=True)
+             for r in range(SP_WORLD)]
+
+    model = _train_model(vcfg, "cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    img, mask = model.translate(x, style)
+    torch.cuda.synchronize()
+    single_translate_peak = torch.cuda.max_memory_allocated()
+    gathered = [torch.cat([r["translate"][k] for r in ranks], 1) for k in ("img", "mask")]
+    translate_diff = max(float((got - want.cpu()).abs().max())
+                         for got, want in zip(gathered, (img, mask)))
+    del img, mask
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    want = {k: float(v) for k, v in model.train_step(xa, xb, True, True, z=z).items()}
+    single_s = time.perf_counter() - t0
+    single_step_peak = torch.cuda.max_memory_allocated()
+    want_params = _params(model)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model.train_step(xa, xb, True, True, z=z)
+    torch.cuda.synchronize()
+    single_warm_s = time.perf_counter() - t0
+    del model
+    gc_collect()
+
+    if translate_diff > 1e-4:
+        raise AssertionError(f"spatial translate: max |diff| {translate_diff:.3e} > 1e-4")
+    r0, r1 = (r["step"] for r in ranks)
+    worst = max(abs(r0["metrics"][k] - w) / max(abs(w), 1e-12) for k, w in want.items())
+    if set(r0["metrics"]) != set(want) or worst > 1e-4 or r1["metrics"] != r0["metrics"]:
+        raise AssertionError(f"spatial step: metrics max rel {worst:.2e} > 1e-4, or the ranks' "
+                             f"metrics differ")
+    param_err = {n: _rel(r0["params"][n], w) for n, w in want_params.items()}
+    if max(param_err.values()) > 1e-3:
+        raise AssertionError(f"spatial step: params rel-L2 {param_err} > 1e-3")
+    if not all(torch.equal(r0["params"][n], r1["params"][n]) for n in r0["params"]):
+        raise AssertionError("spatial step: the ranks' parameters differ")
+    gib = 2.0 ** 30
+    log(f"[spatial_two_ranks] male2female full width, {size}^2, global batch {b} on a 1 x "
+        f"{SP_WORLD} (data, spatial) grid, {SP_ROWS} rows a rank, two processes on one card "
+        f"({smi}; gloo, CUDA tensors), f32 TF32 off: translate max |diff| {translate_diff:.3e} "
+        f"vs one process; one D+G iteration: metrics max rel {worst:.2e}, params rel-L2 max "
+        f"{max(param_err.values()):.2e}, ranks equal; (K1, K2, K1m, K1a, K2m, K2a) each rank "
+        f"translate {ranks[0]['translate']['launches']}, step {r0['launches']}")
+    for r, rec in enumerate(ranks):
+        log(f"[spatial_two_ranks] rank {r}: peak memory translate "
+            f"{rec['translate']['peak'] / gib:.3f} GiB, D+G step {rec['step']['peak'] / gib:.3f}"
+            f" GiB (one process: {single_translate_peak / gib:.3f}, "
+            f"{single_step_peak / gib:.3f} GiB); all-reduces translate "
+            f"{rec['translate']['collectives']}, D+G step {rec['step']['collectives']}; D+G "
+            f"step {rec['step']['s']:.3f} s first, {rec['warm']['s']:.3f} s warm (both ranks "
+            f"share the card)")
+    log(f"[spatial_two_ranks] one process: D+G step {single_s:.3f} s first, "
+        f"{single_warm_s:.3f} s warm; the rank processes took {ranks_s:.1f} s (start, build "
+        f"load, translate, two steps)")
+    # (K1, K2, K1m, K1a, K2m, K2a): every IN / AdaIN layer through the split form
+    layers = {"translate": (0, 0, LAUNCHES_PER_BATCH, LAUNCHES_PER_BATCH, 0, 0),
+              "step": (0, 0, 2 * K1_PER_STEP, 2 * K1_PER_STEP, K2_PER_G_STEP, K2_PER_G_STEP)}
+    for r, rec in enumerate(ranks):
+        for key, expect in layers.items():
+            if rec[key]["launches"] != expect:
+                raise AssertionError(f"spatial rank {r} {key}: (K1, K2, K1m, K1a, K2m, K2a) "
+                                     f"{rec[key]['launches']}, expected {expect}")
+    entries = _split_kernels(r0["launches"][2:])
+    paths = {f"sharded translate, 1 x {SP_WORLD} grid at {size}^2, batch {b}, a rank (phase 27)":
+             ranks[0]["translate"]["launches"],
+             f"sharded train_step, one D+G iteration, 1 x {SP_WORLD} grid at {size}^2, batch "
+             f"{b}, a rank (phase 27)": r0["launches"]}
+    return entries, paths
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         log("chip_smoke: no CUDA device available")
@@ -2410,10 +2760,17 @@ def main() -> int:
                 by_path[f"{label} (phase {phase})"] = counts
             log(f"[phase {phase}] {time.time() - t0:.1f} s")
             gc_collect()
+        t0 = time.time()
+        split, sp_paths = phase_spatial_two_ranks(cfg, tmp, smi)
+        by_path.update(sp_paths)
+        log(f"[phase 27] {time.time() - t0:.1f} s")
+        gc_collect()
     for i, k in enumerate((k1, k2)):
         k["launches_by_path"] = {path: counts[i] for path, counts in by_path.items()}
+    for i, k in enumerate(split, start=2):  # (K1, K2, K1m, K1a, K2m, K2a) of phase 27
+        k["launches_by_path"] = {path: counts[i] for path, counts in sp_paths.items()}
 
-    print(json.dumps({"kernels": [k1, k2]}), flush=True)
+    print(json.dumps({"kernels": [k1, k2] + split}), flush=True)
     log(f"[done] {time.time() - t_start:.1f} s")
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}),

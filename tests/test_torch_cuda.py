@@ -588,3 +588,138 @@ def test_nccl_ranks_on_the_cards_match_one_process(cuda, tmp_path, norm):
             for r in ranks[1:]:
                 for k, t in r[kind][n].items():
                     assert torch.equal(t, ranks[0][kind][n][k]), (kind, n, k)
+
+
+# the IN layers' shapes of male2female at 256^2, batch 2
+_M2F_SHAPES = [(2, 64, 256, 256), (2, 128, 128, 128), (2, 256, 64, 64)]
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 0.05)])
+def test_split_kernels_match_plain(cuda, dtype, tol):
+    """K1m, K1a, K2m and K2a against their plain versions at male2female's
+    shapes, IN and AdaIN, every fused activation; one launch a call each."""
+    for shape in _M2F_SHAPES:
+        n, c, h, w = shape
+        x = (torch.randn(shape, device="cuda", generator=cuda) * 2 + 0.5).to(dtype)
+        dy = torch.randn(shape, device="cuda", generator=cuda).to(dtype)
+        vec = torch.randn(2, n, c, device="cuda", generator=cuda)
+        for s, b in ((None, None), (vec[0], vec[1])):
+            for activ in ("none", "relu", "lrelu", "tanh"):
+                counts = (K.moments_launches, K.apply_launches, K.bwd_sums_launches,
+                          K.bwd_apply_launches)
+                moments = K.instance_norm_row_moments(x)
+                want = K.row_moments_plain(x)
+                torch.testing.assert_close(moments, want, rtol=tol,
+                                           atol=tol * want.abs().max().item())
+                mean, rsig = K._stats(want, 2 * h * w, 1e-5)  # rows of two shards
+                y = K.instance_norm_apply(x, mean, rsig, s, b, activ)
+                want_y = K.apply_plain(x, mean, rsig, s, b, activ)
+                assert y.dtype == dtype
+                torch.testing.assert_close(y.float(), want_y.float(), rtol=tol, atol=tol)
+                sums = K.instance_norm_bwd_row_sums(x, y, dy, mean, rsig, activ)
+                want_s = K.bwd_row_sums_plain(x, y, dy, mean, rsig, activ)
+                torch.testing.assert_close(sums, want_s, rtol=tol,
+                                           atol=tol * want_s.abs().max().item())
+                dx = K.instance_norm_bwd_apply(x, y, dy, mean, rsig, s, want_s, 2 * h * w,
+                                               activ)
+                want_dx = K.bwd_apply_plain(x, y, dy, mean, rsig, s, want_s, 2 * h * w, activ)
+                torch.cuda.synchronize()
+                assert dx.dtype == dtype
+                size = want_dx.float().abs().max().item()
+                torch.testing.assert_close(dx.float(), want_dx.float(), rtol=tol,
+                                           atol=tol * size)
+                assert (K.moments_launches, K.apply_launches, K.bwd_sums_launches,
+                        K.bwd_apply_launches) == tuple(k + 1 for k in counts)
+
+
+def test_split_kernels_reject_what_they_cannot_take(cuda):
+    x = torch.randn(2, 3, 8, 8, device="cuda", generator=cuda)
+    mean = rsig = torch.zeros(2, 3, device="cuda")
+    with pytest.raises(ValueError, match="contiguous"):
+        K.instance_norm_row_moments(x.to(memory_format=torch.channels_last))
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        K.instance_norm_apply(x.half(), mean, rsig, None, None)
+    with pytest.raises(ValueError, match="y and dy must be"):
+        K.instance_norm_bwd_row_sums(x, x.bfloat16(), x, mean, rsig)
+    with pytest.raises(ValueError, match="CUDA or CPU"):
+        K.instance_norm_bwd_apply(x.to("meta"), x.to("meta"), x.to("meta"), mean, rsig,
+                                  None, torch.zeros(2, 3, 2), 64)
+
+
+def test_sharded_fused_instance_norm_on_one_rank_matches_fused(cuda):
+    """`_ShardedFusedInstanceNorm` over a group of one rank (K1m, K1a forward,
+    K2m, K2a backward) against `_FusedInstanceNorm` (K1, K2): y, dx, dscale,
+    dshift."""
+    import torch.distributed as dist
+
+    from tests.torch_dp_worker import free_port
+
+    x = (torch.randn(2, 32, 40, 24, device="cuda", generator=cuda) * 2 + 0.5)
+    vec = torch.randn(2, 2, 32, device="cuda", generator=cuda)
+    w = torch.randn(2, 32, 40, 24, device="cuda", generator=cuda)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{free_port()}", rank=0,
+                            world_size=1)
+    try:
+        grads = []
+        for split in (False, True):
+            xs, s, b = (t.clone().requires_grad_() for t in (x, vec[0], vec[1]))
+            before = (K.launches, K.moments_launches)
+            if split:
+                y = K._ShardedFusedInstanceNorm.apply(xs, s, b, 1e-5, "lrelu", None, 1)
+            else:
+                y = K._FusedInstanceNorm.apply(xs, s, b, 1e-5, "lrelu")
+            (y * w).sum().backward()
+            torch.cuda.synchronize()
+            assert (K.launches - before[0], K.moments_launches - before[1]) == \
+                ((0, 1) if split else (1, 0))
+            grads.append((y.detach(), xs.grad, s.grad, b.grad))
+    finally:
+        dist.destroy_process_group()
+    for got, want in zip(grads[1], grads[0]):
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4 * want.abs().max().item())
+
+
+def test_spatial_grid_on_four_cards_matches_one_process(cuda, tmp_path):
+    """One D+G iteration on a 2 x 2 (data, spatial) grid over NCCL, one rank a
+    card, at 64^2 and global batch 4, against the single-process step on the
+    first card, f32 with TF32 off: metrics rel 1e-4, each network's state
+    rel-L2 1e-3, equal state on every rank. Needs four cards."""
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs four CUDA devices")
+    from tests import torch_dp_worker
+
+    raw = {k: dict(v) if isinstance(v, dict) else v for k, v in _TRAIN_RAW.items()}
+    raw.update(crop_image_height=64, crop_image_width=64)
+    cfg = from_dict(raw)
+    b = 4
+    rng = np.random.RandomState(4)
+    x_a, x_b = (rng.randint(0, 256, (b, 64, 64, 3), dtype=np.uint8) for _ in range(2))
+    z = {k: [rng.randn(b, cfg.gen.style_dim).astype(np.float32) for _ in range(3)]
+         for k in ("dis", "gen")}
+    single = ACLGAN(cfg, device="cuda", seed=1)
+    single.init_state()
+    snap_path = tmp_path / "start.pt"
+    torch.save(single.snapshot(), snap_path)
+    case = ("grid", "step", 2, 2, cfg.to_dict(), str(snap_path), torch.from_numpy(x_a),
+            torch.from_numpy(x_b), z)
+    torch_dp_worker.spawn(torch_dp_worker.spatial_cases, 4, ([case], str(tmp_path), "cuda"),
+                          timeout=300)
+    ranks = [torch.load(tmp_path / f"grid.{r}.pt", map_location="cpu", weights_only=True)
+             for r in range(4)]
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        want = {k: float(v) for k, v in single.train_step(x_a, x_b, True, True, z=z).items()}
+    finally:
+        torch.backends.cudnn.allow_tf32 = True
+    assert set(ranks[0]["metrics"]) == set(want)
+    for k, w in want.items():
+        assert abs(float(ranks[0]["metrics"][k]) - w) <= 1e-4 * abs(w) + 1e-6, k
+    snap = single.snapshot()
+    for kind in ("gen", "dis"):
+        for n, sd in snap[kind].items():
+            ref = torch.cat([v.double().flatten().cpu() for v in sd.values()])
+            got = torch.cat([v.double().flatten() for v in ranks[0][kind][n].values()])
+            assert float((got - ref).norm() / ref.norm()) < 1e-3, (kind, n)
+            for r in ranks[1:]:
+                for k, t in r[kind][n].items():
+                    assert torch.equal(t, ranks[0][kind][n][k]), (kind, n, k)
