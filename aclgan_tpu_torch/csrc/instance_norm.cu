@@ -39,11 +39,34 @@
 // GSPMD split the statistics. Bound: bytes. K1m reads x once and K1a reads x
 // and writes y once, so the split forward reads x twice where the bound
 // reads it once; K2m reads x, y, dy and K2a reads them again and writes dx.
-// One 256-thread block a row, as K1 and K2.
+// K1a and K2a are one 256-thread block a row with 2- or 4-byte loads, as K1
+// and K2.
+//
+// K1m and K2m read each byte once and reuse none, so their bound is bytes
+// and their design is bytes in flight. On a rank's layers (128-1,536 rows of
+// 8,192-131,072 elements) one block a row with scalar loads kept 1-2 blocks
+// and ~2 KB of loads on an SM for the long rows. Here each thread issues
+// several 16-byte loads (uint4 through the read-only path; a narrower word,
+// down to one element, where the launch plan finds a base or a row length
+// off 16 bytes) before it adds any, and a long row is split over a thread
+// block cluster of 2-8 CTAs whose partial sums meet in distributed shared
+// memory, so that rows x CTAs fills the 132 SMs. TMA and wgmma have nothing
+// to do here: there is no tile to reuse and no product to take. The plan
+// (CTAs a row, elements a load) is computed by the wrapper
+// (`ops/kernels/instance_norm.py::_split_plan`) and passed in; on the short
+// rows of a rank's 64x128 layers each launch's device time is a few
+// microseconds, below the host's cost of issuing it, and the wrapper's host
+// path is what sets their time.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <stdint.h>
+
+#include <initializer_list>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -202,26 +225,124 @@ instance_norm_bwd_kernel(const T* __restrict__ x, const float* __restrict__ scal
 // var = max(sum(x^2) / n - mean^2, 0), rsig = rsqrt(var + eps), with n the
 // row's global length; the caller computes them from the all-reduced sums.
 //
+// K1m and K2m stream their rows once and reuse nothing, so what bounds them
+// is bytes in flight: 16-byte loads (vec elements a load, from the launch
+// plan), kLoads of them issued by each thread before it sums any, and a long
+// row split over a cluster of ctas CTAs, so that a layer's 128-1,536 rows
+// fill the 132 SMs. Each CTA reduces a contiguous chunk of whole vectors
+// (chunk_bounds; the last CTA also takes the row_len % vec elements past the
+// last vector, one at a time) to two f32 sums; after cluster.sync(), rank 0
+// adds the CTAs' sums in rank order through distributed shared memory and
+// writes the row. No float atomics: the same bits every run.
+constexpr int kLoads = 8;     // K1m: 8 x 16 bytes in flight a thread
+constexpr int kSumLoads = 4;  // K2m: 4 x 3 x 16 bytes (x, y, dy)
+
+// vec elements of T as one 2-, 4-, 8- or 16-byte word
+template <int BYTES> struct Word;
+template <> struct Word<2> { using type = unsigned short; };
+template <> struct Word<4> { using type = unsigned int; };
+template <> struct Word<8> { using type = uint2; };
+template <> struct Word<16> { using type = uint4; };
+
+template <typename T, int VEC>
+struct Pack {
+  using W = typename Word<VEC * sizeof(T)>::type;
+  W w;
+  __device__ __forceinline__ float operator[](int i) const {
+    return load_f32(reinterpret_cast<const T*>(&w) + i);
+  }
+};
+
+// One load through the read-only path; p is aligned to VEC elements.
+template <typename T, int VEC>
+__device__ __forceinline__ Pack<T, VEC> load_pack(const T* p) {
+  using W = typename Pack<T, VEC>::W;
+  return Pack<T, VEC>{__ldg(reinterpret_cast<const W*>(p))};
+}
+
+// CTA `rank` of `ctas` takes the vectors [lo, hi) of a row of n_vec whole
+// vectors: runs of ceil(n_vec / ctas), the last ones possibly short or
+// empty (`ops/kernels/instance_norm.py::_chunk_bounds` is the same split).
+__device__ __forceinline__ void chunk_bounds(int64_t n_vec, int rank, int ctas,
+                                             int64_t* lo, int64_t* hi) {
+  const int64_t per = (n_vec + ctas - 1) / ctas;
+  const int64_t start = rank * per;
+  *lo = start < n_vec ? start : n_vec;
+  *hi = *lo + per < n_vec ? *lo + per : n_vec;
+}
+
+// Writes the row's two sums from each CTA's (a, b), held by its thread 0.
+// Over a cluster, rank 0 adds them in rank order; the last cluster.sync()
+// keeps every CTA's shared memory alive until rank 0 has read it.
+__device__ __forceinline__ void write_row_sums(float* out, float a, float b, int rank,
+                                               int ctas, float2* partial) {
+  if (ctas == 1) {
+    if (threadIdx.x == 0) {
+      out[0] = a;
+      out[1] = b;
+    }
+    return;
+  }
+  cg::cluster_group cluster = cg::this_cluster();
+  if (threadIdx.x == 0) *partial = make_float2(a, b);
+  cluster.sync();
+  if (rank == 0 && threadIdx.x == 0) {
+    float2 t = *partial;
+    for (int r = 1; r < ctas; ++r) {
+      const float2 p = *cluster.map_shared_rank(partial, r);
+      t.x += p.x;
+      t.y += p.y;
+    }
+    out[0] = t.x;
+    out[1] = t.y;
+  }
+  cluster.sync();
+}
+
 // K1m: per row, the f32 (sum x, sum x^2) of this rank's part, into out[2 row].
-template <typename T>
+// The grid is rows * ctas CTAs, in clusters of ctas along x when ctas > 1, so
+// CTA blockIdx.x is rank blockIdx.x % ctas of row blockIdx.x / ctas.
+template <typename T, int VEC>
 __global__ void __launch_bounds__(kThreads)
-row_moments_kernel(const T* __restrict__ x, float* __restrict__ out, int64_t row_len) {
+row_moments_kernel(const T* __restrict__ x, float* __restrict__ out, int64_t row_len,
+                   int ctas) {
   __shared__ float smem[kWarps];
-  const int64_t row = blockIdx.x;
+  __shared__ float2 partial;
+  const int rank = static_cast<int>(blockIdx.x % ctas);
+  const int64_t row = blockIdx.x / ctas;
   const T* xr = x + row * row_len;
+  const int64_t n_vec = row_len / VEC;
+  int64_t lo, hi;
+  chunk_bounds(n_vec, rank, ctas, &lo, &hi);
   float s = 0.f, ss = 0.f;
-#pragma unroll 4
-  for (int64_t i = threadIdx.x; i < row_len; i += kThreads) {
-    const float v = load_f32(xr + i);
-    s += v;
-    ss += v * v;
+  for (int64_t i0 = lo + threadIdx.x; i0 < hi; i0 += kThreads * kLoads) {
+    Pack<T, VEC> p[kLoads];
+#pragma unroll
+    for (int u = 0; u < kLoads; ++u) {
+      if (i0 + u * kThreads < hi) p[u] = load_pack<T, VEC>(xr + (i0 + u * kThreads) * VEC);
+    }
+#pragma unroll
+    for (int u = 0; u < kLoads; ++u) {
+      if (i0 + u * kThreads < hi) {
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) {
+          const float v = p[u][e];
+          s += v;
+          ss += v * v;
+        }
+      }
+    }
+  }
+  if (rank == ctas - 1) {
+    for (int64_t i = n_vec * VEC + threadIdx.x; i < row_len; i += kThreads) {
+      const float v = load_f32(xr + i);
+      s += v;
+      ss += v * v;
+    }
   }
   s = block_sum(s, smem);
   ss = block_sum(ss, smem);
-  if (threadIdx.x == 0) {
-    out[2 * row] = s;
-    out[2 * row + 1] = ss;
-  }
+  write_row_sums(out + 2 * row, s, ss, rank, ctas, &partial);
 }
 
 // K1a: y = act((x - mean[row]) * rsig[row] * s + b), cast to x's dtype.
@@ -249,31 +370,61 @@ apply_kernel(const T* __restrict__ x, const float* __restrict__ mean,
 
 // K2m: per row of this rank's part, dyp = dy gated through the activation
 // from y (as K2), xhat = (x - mean[row]) * rsig[row]; writes the f32
-// (sum dyp, sum dyp * xhat) into out[2 row].
-template <typename T>
+// (sum dyp, sum dyp * xhat) into out[2 row]. Grid, chunks and clusters as
+// K1m.
+template <typename T, int VEC>
 __global__ void __launch_bounds__(kThreads)
 bwd_row_sums_kernel(const T* __restrict__ x, const T* __restrict__ y,
                     const T* __restrict__ dy, const float* __restrict__ mean,
                     const float* __restrict__ rsig, float* __restrict__ out,
-                    int64_t row_len, int act) {
+                    int64_t row_len, int act, int ctas) {
   __shared__ float smem[kWarps];
-  const int64_t row = blockIdx.x;
+  __shared__ float2 partial;
+  const int rank = static_cast<int>(blockIdx.x % ctas);
+  const int64_t row = blockIdx.x / ctas;
   const int64_t off = row * row_len;
+  const T* xr = x + off;
+  const T* yr = y + off;
+  const T* dyr = dy + off;
   const float m = mean[row];
   const float r = rsig[row];
+  const int64_t n_vec = row_len / VEC;
+  int64_t lo, hi;
+  chunk_bounds(n_vec, rank, ctas, &lo, &hi);
   float s_dy = 0.f, s_dyx = 0.f;
-#pragma unroll 4
-  for (int64_t i = threadIdx.x; i < row_len; i += kThreads) {
-    const float g = gate(load_f32(dy + off + i), load_f32(y + off + i), act);
-    s_dy += g;
-    s_dyx += g * ((load_f32(x + off + i) - m) * r);
+  for (int64_t i0 = lo + threadIdx.x; i0 < hi; i0 += kThreads * kSumLoads) {
+    Pack<T, VEC> px[kSumLoads], py[kSumLoads], pd[kSumLoads];
+#pragma unroll
+    for (int u = 0; u < kSumLoads; ++u) {
+      const int64_t i = i0 + u * kThreads;
+      if (i < hi) {
+        px[u] = load_pack<T, VEC>(xr + i * VEC);
+        py[u] = load_pack<T, VEC>(yr + i * VEC);
+        pd[u] = load_pack<T, VEC>(dyr + i * VEC);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kSumLoads; ++u) {
+      if (i0 + u * kThreads < hi) {
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) {
+          const float g = gate(pd[u][e], py[u][e], act);
+          s_dy += g;
+          s_dyx += g * ((px[u][e] - m) * r);
+        }
+      }
+    }
+  }
+  if (rank == ctas - 1) {
+    for (int64_t i = n_vec * VEC + threadIdx.x; i < row_len; i += kThreads) {
+      const float g = gate(load_f32(dyr + i), load_f32(yr + i), act);
+      s_dy += g;
+      s_dyx += g * ((load_f32(xr + i) - m) * r);
+    }
   }
   s_dy = block_sum(s_dy, smem);
   s_dyx = block_sum(s_dyx, smem);
-  if (threadIdx.x == 0) {
-    out[2 * row] = s_dy;
-    out[2 * row + 1] = s_dyx;
-  }
+  write_row_sums(out + 2 * row, s_dy, s_dyx, rank, ctas, &partial);
 }
 
 // K2a: dx = rsig * s * (dyp - sums[2 row] / n - xhat * sums[2 row + 1] / n)
@@ -298,6 +449,84 @@ bwd_apply_kernel(const T* __restrict__ x, const T* __restrict__ y,
     const float xhat = (load_f32(x + off + i) - m) * r;
     store_f32(dx + off + i, k * (g - m_dy - xhat * m_dyx));
   }
+}
+
+// K1m's and K2m's launch: the plan (ctas_per_row, vec) comes from
+// `ops/kernels/instance_norm.py::_split_plan`. A plan the kernels cannot run
+// (ctas not 1, 2, 4 or 8; vec not a power of two within 16 bytes; a row
+// start off vec elements; more than 2^31 - 1 CTAs) returns
+// cudaErrorInvalidValue and launches nothing.
+template <typename T>
+bool plan_ok(std::initializer_list<const void*> bases, long long rows, long long row_len,
+             int ctas, int vec) {
+  if (ctas != 1 && ctas != 2 && ctas != 4 && ctas != 8) return false;
+  if (vec < 1 || (vec & (vec - 1)) || vec * sizeof(T) > 16 || row_len % vec) return false;
+  if (rows * ctas > INT_MAX) return false;
+  for (const void* p : bases)
+    if (reinterpret_cast<uintptr_t>(p) % (vec * sizeof(T))) return false;
+  return true;
+}
+
+// rows * ctas CTAs of kThreads threads on `st`, in clusters of ctas along x
+// when ctas > 1; returns the launch's error or cudaGetLastError().
+template <typename... Params, typename... Args>
+int launch_split(void (*kernel)(Params...), long long rows, int ctas, cudaStream_t st,
+                 Args... args) {
+  cudaLaunchAttribute cluster;
+  cluster.id = cudaLaunchAttributeClusterDimension;
+  cluster.val.clusterDim.x = static_cast<unsigned>(ctas);
+  cluster.val.clusterDim.y = 1;
+  cluster.val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(rows * ctas));
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = st;
+  cfg.attrs = &cluster;
+  cfg.numAttrs = ctas > 1 ? 1 : 0;
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, args...);
+  return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
+}
+
+template <typename T>
+int row_moments(const void* x, float* out, long long rows, long long row_len, int ctas,
+                int vec, cudaStream_t st) {
+  if (!plan_ok<T>({x}, rows, row_len, ctas, vec)) return static_cast<int>(cudaErrorInvalidValue);
+  const T* xp = static_cast<const T*>(x);
+  const int64_t n = row_len;
+  switch (vec) {
+    case 1: return launch_split(row_moments_kernel<T, 1>, rows, ctas, st, xp, out, n, ctas);
+    case 2: return launch_split(row_moments_kernel<T, 2>, rows, ctas, st, xp, out, n, ctas);
+    case 4: return launch_split(row_moments_kernel<T, 4>, rows, ctas, st, xp, out, n, ctas);
+    default:
+      if constexpr (sizeof(T) == 2)
+        return launch_split(row_moments_kernel<T, 8>, rows, ctas, st, xp, out, n, ctas);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+template <typename T>
+int bwd_row_sums(const void* x, const void* y, const void* dy, const float* mean,
+                 const float* rsig, float* out, long long rows, long long row_len, int act,
+                 int ctas, int vec, cudaStream_t st) {
+  if (!plan_ok<T>({x, y, dy}, rows, row_len, ctas, vec))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const T* xp = static_cast<const T*>(x);
+  const T* yp = static_cast<const T*>(y);
+  const T* dyp = static_cast<const T*>(dy);
+  const int64_t n = row_len;
+#define ACLGAN_SUMS(V)                                                                  \
+  launch_split(bwd_row_sums_kernel<T, V>, rows, ctas, st, xp, yp, dyp, mean, rsig, out, \
+               n, act, ctas)
+  switch (vec) {
+    case 1: return ACLGAN_SUMS(1);
+    case 2: return ACLGAN_SUMS(2);
+    case 4: return ACLGAN_SUMS(4);
+    default:
+      if constexpr (sizeof(T) == 2) return ACLGAN_SUMS(8);
+  }
+#undef ACLGAN_SUMS
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
@@ -352,8 +581,8 @@ extern "C" int aclgan_instance_norm_bwd(const void* x, const float* scale,
 
 // The split form's four entry points. dtype, act and the layout as above;
 // mean, rsig (rows,) f32; out and sums (rows, 2) f32; scale/shift null or
-// (rows,) f32. K1m and K2m write every row of `out`; K2a takes inv_n =
-// 1 / (the row's global length).
+// (rows,) f32. K1m and K2m write every row of `out` and take the launch plan
+// (ctas_per_row, vec); K2a takes inv_n = 1 / (the row's global length).
 #define ACLGAN_DISPATCH(KERNEL, ...)                                          \
   do {                                                                        \
     const dim3 grid(static_cast<unsigned>(rows));                             \
@@ -372,8 +601,13 @@ extern "C" int aclgan_instance_norm_bwd(const void* x, const float* scale,
 
 extern "C" int aclgan_instance_norm_row_moments(const void* x, float* out, long long rows,
                                                 long long row_len, int dtype,
-                                                void* stream) {
-  ACLGAN_DISPATCH(row_moments_kernel, static_cast<const T*>(x), out, row_len);
+                                                int ctas_per_row, int vec, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return row_moments<float>(x, out, rows, row_len, ctas_per_row, vec, st);
+  if (dtype == 1)
+    return row_moments<__nv_bfloat16>(x, out, rows, row_len, ctas_per_row, vec, st);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 extern "C" int aclgan_instance_norm_apply(const void* x, const float* mean,
@@ -389,9 +623,16 @@ extern "C" int aclgan_instance_norm_bwd_row_sums(const void* x, const void* y,
                                                  const void* dy, const float* mean,
                                                  const float* rsig, float* out,
                                                  long long rows, long long row_len,
-                                                 int dtype, int act, void* stream) {
-  ACLGAN_DISPATCH(bwd_row_sums_kernel, static_cast<const T*>(x), static_cast<const T*>(y),
-                  static_cast<const T*>(dy), mean, rsig, out, row_len, act);
+                                                 int dtype, int act, int ctas_per_row,
+                                                 int vec, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return bwd_row_sums<float>(x, y, dy, mean, rsig, out, rows, row_len, act,
+                               ctas_per_row, vec, st);
+  if (dtype == 1)
+    return bwd_row_sums<__nv_bfloat16>(x, y, dy, mean, rsig, out, rows, row_len, act,
+                                       ctas_per_row, vec, st);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 extern "C" int aclgan_instance_norm_bwd_apply(const void* x, const void* y, const void* dy,

@@ -43,12 +43,17 @@ row's sums of the gated dy and of it times xhat) -> one all-reduce -> K2a (dx)
 in the backward. The four kernels sit in the same `.cu` file, each with its
 plain version here; their wrappers take the plain version for a tensor on
 the CPU (the gloo ranks of the tests) and launch the kernel for a CUDA one.
+K1m and K2m take a launch plan from `_split_plan` (the CTAs of a cluster a
+row, the elements of a load); a rank's short rows take a few microseconds
+of the card each, so their wrappers keep the host's work to the checks, one
+`torch.empty` and the ctypes call (signatures set once in `_library`).
 """
 
 from __future__ import annotations
 
 import contextlib
 import ctypes
+import functools
 from typing import Optional
 
 import torch
@@ -146,6 +151,17 @@ def _rows(x: torch.Tensor):
 def _vec(t: Optional[torch.Tensor], x: torch.Tensor) -> Optional[torch.Tensor]:
     """An (N, C) scale or shift as the contiguous f32 rows the kernels read."""
     return None if t is None else t.to(device=x.device, dtype=torch.float32).contiguous()
+
+
+def _rows_f32(t: torch.Tensor, x: torch.Tensor, rows: int) -> torch.Tensor:
+    """An (N, C) mean or rsig as the `rows` contiguous f32 values K2m reads:
+    as given when it already is that (the sharded path's case), else
+    converted as `_vec` does."""
+    if t.dtype is not torch.float32 or not t.is_contiguous() or t.get_device() != x.get_device():
+        t = _vec(t, x)
+    if t.numel() != rows:
+        raise ValueError(f"K2m: mean and rsig must hold {rows} rows, got {tuple(t.shape)}")
+    return t
 
 
 def _ptr(t: Optional[torch.Tensor]):
@@ -294,8 +310,8 @@ def bwd_apply_plain(x: torch.Tensor, y: torch.Tensor, dy: torch.Tensor,
 
 
 def _split_args(x: torch.Tensor, what: str, *tensors: torch.Tensor):
-    """Rows, row length and stream of a split kernel's launch on CUDA
-    tensors; raises on any other device."""
+    """Rows and row length of a split kernel's launch on CUDA tensors;
+    raises on any other device."""
     if x.device.type != "cuda":
         raise ValueError(f"{what} runs on a CUDA or CPU tensor, got {x.device}")
     rows, row_len = _rows(x)
@@ -303,22 +319,87 @@ def _split_args(x: torch.Tensor, what: str, *tensors: torch.Tensor):
         if t.shape != x.shape or t.dtype != x.dtype or not t.is_contiguous():
             raise ValueError(f"{what}: y and dy must be NCHW-contiguous {tuple(x.shape)} "
                              f"{x.dtype}, got {tuple(t.shape)} {t.dtype}")
-    return rows, row_len, torch.cuda.current_stream(x.device).cuda_stream
+    return rows, row_len
+
+
+# K1m's and K2m's launch plan (`csrc/instance_norm.cu`, above the kernels)
+SPLIT_THREADS = 256      # a CTA's threads
+SPLIT_SMS = 132          # an H100 SXM's SMs
+SPLIT_WAVES = 4          # CTAs to aim for: this many times the SMs
+SPLIT_MIN_LOADS = 4      # vector loads a thread gets at least, once a row is split
+SPLIT_MAX_CLUSTER = 8    # the portable cluster size
+
+
+@functools.lru_cache(maxsize=None)
+def _split_plan(rows: int, row_len: int, elem_bytes: int, ptr_align: int):
+    """(ctas_per_row, vec) for K1m / K2m over `rows` rows of `row_len`
+    elements of `elem_bytes` bytes, at base pointers aligned to `ptr_align`
+    bytes. vec, the elements a load, is the widest power of two within 16
+    bytes that divides both the base alignment and the row length, so that
+    every row starts on a whole load (1 where neither allows 2). ctas_per_row
+    doubles from 1 up to 8 while rows x CTAs stays below SPLIT_WAVES x the
+    SMs and the halved chunk still gives each thread SPLIT_MIN_LOADS loads."""
+    vec = 16 // elem_bytes
+    while vec > 1 and (ptr_align % (vec * elem_bytes) or row_len % vec):
+        vec //= 2
+    ctas = 1
+    while (ctas < SPLIT_MAX_CLUSTER and rows * ctas < SPLIT_WAVES * SPLIT_SMS
+           and row_len // (2 * ctas) >= SPLIT_THREADS * vec * SPLIT_MIN_LOADS):
+        ctas *= 2
+    return ctas, vec
+
+
+def _chunk_bounds(row_len: int, ctas: int, vec: int):
+    """The [lo, hi) element ranges of a row that the CTAs of a cluster reduce,
+    in rank order: runs of ceil(n_vec / ctas) whole vectors, the last CTA also
+    taking the row_len % vec elements past the last vector (`chunk_bounds` in
+    `csrc/instance_norm.cu`)."""
+    n_vec = row_len // vec
+    per = -(-n_vec // ctas)
+    bounds = []
+    for rank in range(ctas):
+        lo = min(rank * per, n_vec)
+        hi = min(lo + per, n_vec)
+        bounds.append((lo * vec, row_len if rank == ctas - 1 else hi * vec))
+    return bounds
+
+
+def _align(*ptrs: int) -> int:
+    """The largest power of two, at most 16, dividing every address."""
+    addr = 16
+    for p in ptrs:
+        addr |= p
+    return addr & -addr
+
+
+# the raw handle of the current stream without a `torch.cuda.Stream` object,
+# where this build of PyTorch has it
+_raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+
+
+def _stream(x: torch.Tensor) -> int:
+    """The current stream of x's device, as the kernels take it."""
+    if _raw_stream is not None:
+        return _raw_stream(x.get_device())
+    return torch.cuda.current_stream(x.device).cuda_stream
 
 
 def instance_norm_row_moments(x: torch.Tensor) -> torch.Tensor:
     """K1m on a CUDA tensor (the plain version on a CPU one): (N, C, 2) f32."""
     global moments_launches
-    if x.device.type == "cpu":
+    if x.is_cpu:
         return row_moments_plain(x)
-    rows, row_len, stream = _split_args(x, "K1m")
-    out = torch.zeros(x.shape[:2] + (2,), device=x.device, dtype=torch.float32)
-    if rows == 0 or row_len == 0:
-        return out
+    rows, row_len = _split_args(x, "K1m")
+    n, c = x.shape[:2]
+    if rows == 0 or row_len == 0:  # the sums of nothing
+        return torch.zeros((n, c, 2), device=x.device, dtype=torch.float32)
+    out = torch.empty((n, c, 2), device=x.device, dtype=torch.float32)
+    px = x.data_ptr()
+    ctas, vec = _split_plan(rows, row_len, x.element_size(), _align(px))
     lib = _library()
     with _launch_device(x):
-        err = lib.aclgan_instance_norm_row_moments(x.data_ptr(), out.data_ptr(), rows,
-                                                   row_len, _DTYPES[x.dtype], stream)
+        err = lib.aclgan_instance_norm_row_moments(
+            px, out.data_ptr(), rows, row_len, _DTYPES[x.dtype], ctas, vec, _stream(x))
     _raise_on(lib, err, "instance_norm row moments")
     moments_launches += 1
     return out
@@ -332,7 +413,7 @@ def instance_norm_apply(x: torch.Tensor, mean: torch.Tensor, rsig: torch.Tensor,
     global apply_launches
     if x.device.type == "cpu":
         return apply_plain(x, mean, rsig, scale, shift, activ)
-    rows, row_len, stream = _split_args(x, "K1a")
+    rows, row_len = _split_args(x, "K1a")
     y = torch.empty_like(x)
     if rows == 0 or row_len == 0:
         return y
@@ -341,7 +422,8 @@ def instance_norm_apply(x: torch.Tensor, mean: torch.Tensor, rsig: torch.Tensor,
     with _launch_device(x):
         err = lib.aclgan_instance_norm_apply(
             x.data_ptr(), mean.data_ptr(), rsig.data_ptr(), _ptr(scale), _ptr(shift),
-            y.data_ptr(), rows, row_len, _DTYPES[x.dtype], _FUSED_ACTS[activ], stream)
+            y.data_ptr(), rows, row_len, _DTYPES[x.dtype], _FUSED_ACTS[activ],
+            torch.cuda.current_stream(x.device).cuda_stream)
     _raise_on(lib, err, "instance_norm apply")
     apply_launches += 1
     return y
@@ -352,18 +434,21 @@ def instance_norm_bwd_row_sums(x: torch.Tensor, y: torch.Tensor, dy: torch.Tenso
                                activ: str = "none") -> torch.Tensor:
     """K2m on CUDA tensors (the plain version on CPU ones): (N, C, 2) f32."""
     global bwd_sums_launches
-    if x.device.type == "cpu":
+    if x.is_cpu:
         return bwd_row_sums_plain(x, y, dy, mean, rsig, activ)
-    rows, row_len, stream = _split_args(x, "K2m", y, dy)
-    out = torch.zeros(x.shape[:2] + (2,), device=x.device, dtype=torch.float32)
-    if rows == 0 or row_len == 0:
-        return out
-    mean, rsig = _vec(mean, x), _vec(rsig, x)
+    rows, row_len = _split_args(x, "K2m", y, dy)
+    n, c = x.shape[:2]
+    if rows == 0 or row_len == 0:  # the sums of nothing
+        return torch.zeros((n, c, 2), device=x.device, dtype=torch.float32)
+    out = torch.empty((n, c, 2), device=x.device, dtype=torch.float32)
+    mean, rsig = _rows_f32(mean, x, rows), _rows_f32(rsig, x, rows)
+    px, py, pdy = x.data_ptr(), y.data_ptr(), dy.data_ptr()
+    ctas, vec = _split_plan(rows, row_len, x.element_size(), _align(px, py, pdy))
     lib = _library()
     with _launch_device(x):
         err = lib.aclgan_instance_norm_bwd_row_sums(
-            x.data_ptr(), y.data_ptr(), dy.data_ptr(), mean.data_ptr(), rsig.data_ptr(),
-            out.data_ptr(), rows, row_len, _DTYPES[x.dtype], _FUSED_ACTS[activ], stream)
+            px, py, pdy, mean.data_ptr(), rsig.data_ptr(), out.data_ptr(), rows, row_len,
+            _DTYPES[x.dtype], _FUSED_ACTS[activ], ctas, vec, _stream(x))
     _raise_on(lib, err, "instance_norm backward row sums")
     bwd_sums_launches += 1
     return out
@@ -378,7 +463,7 @@ def instance_norm_bwd_apply(x: torch.Tensor, y: torch.Tensor, dy: torch.Tensor,
     global bwd_apply_launches
     if x.device.type == "cpu":
         return bwd_apply_plain(x, y, dy, mean, rsig, scale, sums, n, activ)
-    rows, row_len, stream = _split_args(x, "K2a", y, dy)
+    rows, row_len = _split_args(x, "K2a", y, dy)
     dx = torch.empty_like(x)
     if rows == 0 or row_len == 0:
         return dx
@@ -388,7 +473,8 @@ def instance_norm_bwd_apply(x: torch.Tensor, y: torch.Tensor, dy: torch.Tensor,
         err = lib.aclgan_instance_norm_bwd_apply(
             x.data_ptr(), y.data_ptr(), dy.data_ptr(), mean.data_ptr(), rsig.data_ptr(),
             _ptr(scale), sums.data_ptr(), dx.data_ptr(), rows, row_len, 1.0 / n,
-            _DTYPES[x.dtype], _FUSED_ACTS[activ], stream)
+            _DTYPES[x.dtype], _FUSED_ACTS[activ],
+            torch.cuda.current_stream(x.device).cuda_stream)
     _raise_on(lib, err, "instance_norm backward apply")
     bwd_apply_launches += 1
     return dx
@@ -439,10 +525,21 @@ class _ShardedFusedInstanceNorm(torch.autograd.Function):
                 None, None, None, None)
 
 
-def _library() -> ctypes.CDLL:
-    from aclgan_tpu_torch.ops.kernels.build import load
+_cdll: Optional[ctypes.CDLL] = None
 
-    lib = load(SOURCE)
+
+def _library() -> ctypes.CDLL:
+    """The kernels' library, its functions' ctypes signatures set once, when
+    `build.load` first returns it."""
+    global _cdll
+    if _cdll is None:
+        from aclgan_tpu_torch.ops.kernels import build
+
+        _cdll = _configure(build.load(SOURCE))
+    return _cdll
+
+
+def _configure(lib: ctypes.CDLL) -> ctypes.CDLL:
     fn = lib.aclgan_instance_norm_fwd
     fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_longlong, ctypes.c_longlong,
                                            ctypes.c_int, ctypes.c_int,
@@ -455,10 +552,11 @@ def _library() -> ctypes.CDLL:
     fn.restype = ctypes.c_int
     rows = [ctypes.c_longlong, ctypes.c_longlong]
     for name, argtypes in (
-            ("row_moments", [ctypes.c_void_p] * 2 + rows + [ctypes.c_int, ctypes.c_void_p]),
+            ("row_moments", [ctypes.c_void_p] * 2 + rows + [ctypes.c_int] * 3
+             + [ctypes.c_void_p]),
             ("apply", [ctypes.c_void_p] * 6 + rows + [ctypes.c_int] * 2 + [ctypes.c_void_p]),
             ("bwd_row_sums",
-             [ctypes.c_void_p] * 6 + rows + [ctypes.c_int] * 2 + [ctypes.c_void_p]),
+             [ctypes.c_void_p] * 6 + rows + [ctypes.c_int] * 4 + [ctypes.c_void_p]),
             ("bwd_apply", [ctypes.c_void_p] * 8 + rows
              + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])):
         fn = getattr(lib, f"aclgan_instance_norm_{name}")

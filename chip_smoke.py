@@ -120,8 +120,12 @@ with a non-zero exit, if any phase fails:
    K1a, K2m, K2a) (0, 0, 19, 19, 0, 0) a translate and (0, 0, 98, 98, 49, 49)
    a D+G iteration; each rank's peak memory against the one process, the
    steps' seconds and all-reduce counts; then K1m, K1a, K2m and K2a against
-   their plain versions at a rank's shapes and timed in bf16 over a rank's
-   iteration, beside their bound and one library call each;
+   their plain versions at a rank's shapes (two launches bit-equal), K1m and
+   K2m also on a ragged row, bases off 16 bytes and 262,144-element rows;
+   K1m's and K2m's host microseconds a call against their library calls';
+   all four timed in bf16 over a rank's iteration (CUDA events, and device
+   time a launch from torch.profiler), beside their bound and one library
+   call each;
 28. one JSON line listing every kernel;
 29. last line: {"ok": true, "device": {...}}.
 
@@ -246,6 +250,91 @@ def _time_mix(tag, mix, make, run, plain, library, nbytes, flops_per_element):
     tot["bound_ms"] = max(bytes_ms, ops_ms)
     tot["bound_by"] = "bytes" if bytes_ms >= ops_ms else "operations"
     return tot
+
+
+def _profiled_us(mix, make, run, library, kernel, iters=20):
+    """[(kernel us, library us)] a call for each layer of `mix`, from the
+    kernel durations of one torch.profiler session, or None if the session
+    lost kernels three times. Each layer's `iters` calls of run (one launch
+    of the kernel whose name holds `kernel`) and of library (every kernel and
+    copy it launches) run inside a record_function window; a kernel counts
+    for the window its start falls in."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for i, (shape, affine, _) in enumerate(mix):
+                args = make(shape, affine)
+                for tag, fn in (("kernel", run), ("library", library)):
+                    fn(*args)
+                    torch.cuda.synchronize()
+                    with record_function(f"mix{i}.{tag}"):
+                        for _ in range(iters):
+                            fn(*args)
+                        torch.cuda.synchronize()
+                del args
+        events = prof.events()
+        windows = {e.name: e.time_range for e in events
+                   if e.device_type == DeviceType.CPU and e.name.startswith("mix")}
+        work = [e for e in events if e.device_type == DeviceType.CUDA
+                and not e.name.startswith("mix") and not getattr(e, "is_user_annotation", False)]
+        out = []
+        for i in range(len(mix)):
+            k_win, l_win = windows[f"mix{i}.kernel"], windows[f"mix{i}.library"]
+            k = [e.time_range.elapsed_us() for e in work
+                 if k_win.start <= e.time_range.start <= k_win.end and kernel in e.name]
+            lib = [e.time_range.elapsed_us() for e in work
+                   if l_win.start <= e.time_range.start <= l_win.end]
+            if len(k) != iters or not lib:
+                log(f"[kernel] torch.profiler: {len(work)} device events in the session, "
+                    f"{len(k)} of {iters} {kernel} launches in window {i}")
+                break
+            out.append((sum(k) / iters, sum(lib) / iters))
+        else:
+            return out
+    return None
+
+
+def _queued_us(fn, iters=20):
+    """Device microseconds a call of fn() by CUDA events, its `iters` calls
+    queued behind a busy kernel of ~10 ms so that the card runs them back to
+    back: the host's gaps between launches do not count, the card's own gap
+    between two kernels does."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    torch.cuda._sleep(20_000_000)  # ~10 ms of cycles at the H100's 1.98 GHz boost clock
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    queued = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    if queued > 0.005:  # the card may have caught up with the host
+        raise AssertionError(f"queuing {iters} calls took {queued * 1e3:.2f} ms of host")
+    return start.elapsed_time(end) * 1e3 / iters
+
+
+def _device_us(mix, make, run, library, kernel):
+    """([(kernel us, library us)] a call for each layer of `mix`, the source):
+    torch.profiler's kernel durations or, where its sessions lose the kernels
+    (on the H100 after the earlier phases' sessions in the same process),
+    CUDA events over calls queued behind a busy kernel."""
+    # keep CUPTI set up between sessions (its teardown and lazy re-init after
+    # each session is what PyTorch itself turns off where it loses events)
+    os.environ["TEARDOWN_CUPTI"] = "0"
+    out = _profiled_us(mix, make, run, library, kernel)
+    if out is not None:
+        return out, "torch.profiler"
+    out = []
+    for shape, affine, _ in mix:
+        args = make(shape, affine)
+        out.append((_queued_us(lambda: run(*args)), _queued_us(lambda: library(*args))))
+        del args
+    return out, "CUDA events behind a queued busy kernel; torch.profiler lost the kernels"
 
 
 def _log_total(tag, work, tot):
@@ -2336,6 +2425,15 @@ SPLIT_KERNELS = (  # counter, kernels-line name, the TPU kernel it replaces
     ("bwd_apply_launches", "instance_norm_bwd_apply",
      "aclgan_tpu/ops/pallas/instance_norm.py:102"))
 COUNTERS = ("launches", "bwd_launches") + tuple(c for c, _, _ in SPLIT_KERNELS)
+# a substring of each split kernel's name in a torch.profiler table
+SPLIT_KERNEL_NAMES = {"instance_norm_row_moments": "row_moments_kernel",
+                      "instance_norm_apply": "apply_kernel",
+                      "instance_norm_bwd_row_sums": "bwd_row_sums_kernel",
+                      "instance_norm_bwd_apply": "bwd_apply_kernel"}
+# K1m's and K2m's layouts off the main path: (label, shape, storage offset)
+SPLIT_EDGE_CASES = (("a ragged 7 x 9 row", (2, 3, 7, 9), 0),
+                    ("bases off 16 bytes (storage offset 1)", (2, 4, 16, 16), 1),
+                    ("262,144-element rows", (1, 4, 512, 512), 0))
 
 
 def _counts():
@@ -2414,9 +2512,13 @@ def _spatial_rank(rank, world, port, vcfg, x, style, xa, xb, z, out_dir):
 
 def _split_kernels(step_launches):
     """K1m, K1a, K2m, K2a against their plain versions on the card at a rank's
-    shapes of phase 27 (f32 and bf16, IN and AdaIN, every fused activation),
-    then timed in bf16 over one D+G iteration's layers on a rank (K1m, K1a) or
-    one G step's (K2m, K2a); returns their kernels-line entries."""
+    shapes of phase 27 (f32 and bf16, IN and AdaIN, every fused activation,
+    two launches of each bit-equal), K1m and K2m also on a ragged row, bases
+    off 16 bytes and 262,144-element rows; K1m's and K2m's host microseconds
+    a call against their library calls'; then each timed in bf16 over one
+    D+G iteration's layers on a rank (K1m, K1a) or one G step's (K2m, K2a),
+    by CUDA events and by torch.profiler's device time a launch; returns
+    their kernels-line entries."""
     from aclgan_tpu_torch.ops.kernels import instance_norm as K
 
     g = torch.Generator(device="cuda").manual_seed(2)
@@ -2451,7 +2553,16 @@ def _split_kernels(step_launches):
                                                    activ),
                          K.bwd_apply_plain(x, y, dy, mean, rsig, s, sums, n_all, activ),
                          "elements"))
+                    again = (K.instance_norm_row_moments(x),
+                             K.instance_norm_apply(x, mean, rsig, s, b, activ),
+                             K.instance_norm_bwd_row_sums(x, y, dy, mean, rsig, activ),
+                             K.instance_norm_bwd_apply(x, y, dy, mean, rsig, s, sums, n_all,
+                                                       activ))
                     torch.cuda.synchronize()
+                    for (name, got, _, _), got2 in zip(checks, again):
+                        if not torch.equal(got, got2):
+                            raise AssertionError(f"{name} {shape} {dtype} affine={affine} "
+                                                 f"{activ}: two launches differ")
                     for name, got, want, kind in checks:
                         got, want = got.float(), want.float()
                         err = (got - want).abs()
@@ -2466,10 +2577,12 @@ def _split_kernels(step_launches):
                                 f"values beyond tolerance, max err {err.max().item()}")
             del x, dy
         log(f"[kernel] split instance norm {shape}: K1m, K1a, K2m, K2a x 16 cases within "
-            f"tolerance")
+            f"tolerance, two launches of each bit-equal")
         del base, dy_base
+    _split_edge_checks(g, max_err)
     log("[kernel] split instance norm max abs err: "
         + ", ".join(f"{k} {v:.3g}" for k, v in max_err.items()))
+    host = _split_host_cost()
 
     def make(shape, affine):
         n, c, h, w = shape
@@ -2544,23 +2657,131 @@ def _split_kernels(step_launches):
              "instance_norm_bwd_row_sums": 8.0, "instance_norm_bwd_apply": 10.0}
     runs = {"instance_norm_row_moments": moments, "instance_norm_apply": apply,
             "instance_norm_bwd_row_sums": bwd_sums, "instance_norm_bwd_apply": bwd_apply}
+    mixes, tots, works = {}, {}, {}
+    for counter, name, _ in SPLIT_KERNELS:  # CUDA events first, before any profiler session
+        fwd = counter in ("moments_launches", "apply_launches")
+        mixes[name] = (_d_step_mix(SP_BATCH, SP_ROWS, SP_SIZE) if fwd else []) + \
+            _g_step_mix(SP_BATCH, SP_ROWS, SP_SIZE)
+        works[name] = (f"one rank's {'D+G iteration' if fwd else 'G step'} of phase 27 "
+                       f"(male2female {SP_SIZE}^2, batch {SP_BATCH}, 1 x {SP_WORLD} grid: "
+                       f"{SP_ROWS} x {SP_SIZE} rows), timed in bf16")
+        tots[name] = _time_mix(name, mixes[name], make, runs[name], plain[name],
+                               library[name][1], nbytes[name], flops[name])
+        _log_total(name, works[name], tots[name])
     entries = []
     for (counter, name, replaces), launches in zip(SPLIT_KERNELS, step_launches):
-        fwd = counter in ("moments_launches", "apply_launches")
-        mix = (_d_step_mix(SP_BATCH, SP_ROWS, SP_SIZE) if fwd else []) + \
-            _g_step_mix(SP_BATCH, SP_ROWS, SP_SIZE)
-        work = (f"one rank's {'D+G iteration' if fwd else 'G step'} of phase 27 "
-                f"(male2female {SP_SIZE}^2, batch {SP_BATCH}, 1 x {SP_WORLD} grid: "
-                f"{SP_ROWS} x {SP_SIZE} rows), timed in bf16")
-        tot = _time_mix(name, mix, make, runs[name], plain[name], library[name][1],
-                        nbytes[name], flops[name])
-        _log_total(name, work, tot)
-        entries.append(dict(
+        mix, tot = mixes[name], tots[name]
+        device, source = _device_us(mix, make, runs[name], library[name][1],
+                                    SPLIT_KERNEL_NAMES[name])
+        device_ms = library_device_ms = 0.0
+        for (shape, affine, count), (dev_us, lib_us) in zip(mix, device):
+            device_ms += count * dev_us / 1e3
+            library_device_ms += count * lib_us / 1e3
+            log(f"[kernel] {name} bf16 {shape} affine={affine} x{count}: device a launch "
+                f"kernel {dev_us:.2f} us, library {lib_us:.2f} us, "
+                f"{nbytes[name](shape, affine) / dev_us / 1e3:.0f} GB/s")
+        log(f"[kernel] {name} device time per {works[name]} ({source}): kernel "
+            f"{device_ms:.4f} ms (bound / device {100 * tot['bound_ms'] / device_ms:.1f}%), "
+            f"library {library_device_ms:.4f} ms")
+        entry = dict(
             name=name, route="cuda", source="aclgan_tpu_torch/csrc/instance_norm.cu",
             replaces=replaces, launches=launches, max_abs_err=max_err[name], ms=tot["ms"],
             plain_ms=tot["plain_ms"], bound_ms=tot["bound_ms"], bound_by=tot["bound_by"],
-            library_ms=tot["library_ms"], library=library[name][0], work=work))
+            library_ms=tot["library_ms"], library=library[name][0], work=works[name],
+            device_ms=device_ms, library_device_ms=library_device_ms, device_source=source)
+        if name in host:
+            kernel_us, library_us = (sum(u) / len(u) for u in host[name])
+            entry.update(host_us=kernel_us, library_host_us=library_us)
+            n_launch = sum(count for _, _, count in mix)
+            log(f"[kernel] {name} over the mix: {n_launch} launches x {kernel_us:.2f} us of "
+                f"host a call = {n_launch * kernel_us / 1e3:.4f} ms host floor, device "
+                f"{device_ms:.4f} ms, events {tot['ms']:.4f} ms; library {n_launch} x "
+                f"{library_us:.2f} us = {n_launch * library_us / 1e3:.4f} ms, device "
+                f"{library_device_ms:.4f} ms, events {tot['library_ms']:.4f} ms")
+        entries.append(entry)
     return entries
+
+
+def _split_edge_checks(g, max_err):
+    """K1m and K2m against their plain versions where the plan leaves the
+    phase-27 shapes' 16-byte loads and clusters: a ragged row, bases off 16
+    bytes, 262,144-element rows; f32 and bf16, every activation for K2m, two
+    launches of each bit-equal. Raises on a miss; folds the errors into
+    `max_err`."""
+    from aclgan_tpu_torch.ops.kernels import instance_norm as K
+
+    def at_offset(t, offset):  # t's values in a contiguous slice `offset` elements in
+        buf = torch.empty(t.numel() + offset, device=t.device, dtype=t.dtype)
+        buf[offset:].copy_(t.flatten())
+        return buf[offset:].view(t.shape)
+
+    for label, shape, offset in SPLIT_EDGE_CASES:
+        n, c, h, w = shape
+        base = torch.randn(shape, device="cuda", generator=g) * 2.0 + 0.5
+        dy_base = torch.randn(shape, device="cuda", generator=g)
+        for dtype in (torch.float32, torch.bfloat16):
+            x, dy = at_offset(base.to(dtype), offset), at_offset(dy_base.to(dtype), 2 * offset)
+            tol = TOL[dtype]
+            moments = K.row_moments_plain(x)
+            mean, rsig = K._stats(moments, h * w, 1e-5)
+            cases = [("instance_norm_row_moments", "none",
+                      lambda a: K.instance_norm_row_moments(x), moments)]
+            for activ in ("none", "relu", "lrelu", "tanh"):
+                y = K.apply_plain(x, mean, rsig, None, None, activ)
+                cases.append(("instance_norm_bwd_row_sums", activ,
+                              lambda a, y=y: K.instance_norm_bwd_row_sums(x, y, dy, mean,
+                                                                          rsig, a),
+                              K.bwd_row_sums_plain(x, y, dy, mean, rsig, activ)))
+            for name, activ, run, want in cases:
+                got, again = run(activ), run(activ)
+                torch.cuda.synchronize()
+                if not torch.equal(got, again):
+                    raise AssertionError(f"{name} {label} {dtype} {activ}: two launches differ")
+                err = (got - want).abs()
+                max_err[name] = max(max_err[name], err.max().item())
+                bad = (err > tol * want.abs().max()).sum().item()
+                if bad or not torch.isfinite(got).all():
+                    raise AssertionError(f"{name} {label} {shape} {dtype} {activ}: {bad} "
+                                         f"sums beyond tolerance, max err {err.max().item()}")
+        log(f"[kernel] split instance norm, {label} {shape}: K1m and K2m (every activation) "
+            f"within tolerance in f32 and bf16, two launches of each bit-equal")
+        del base, dy_base
+
+
+def _split_host_cost():
+    """Host microseconds a call of K1m and K2m and of their library calls
+    (`torch.var_mean`; `native_batch_norm_backward`'s weight and bias
+    gradients) cost at a shape whose kernels are trivial (1x1x8x8 bf16), in
+    turns, 5000 calls each, as `_op_overhead` for K1. Returns {kernel name:
+    (its us, the library call's us)}."""
+    from aclgan_tpu_torch.ops.kernels import instance_norm as K
+
+    x = torch.randn(1, 1, 8, 8, device="cuda").to(torch.bfloat16)
+    y, dy = torch.relu(x), torch.randn_like(x)
+    mean, rsig = torch.zeros(1, 1, device="cuda"), torch.ones(1, 1, device="cuda")
+    ones, mean1, rsig1 = torch.ones(1, device="cuda"), mean.flatten(), rsig.flatten()
+    calls = {
+        "K1m": lambda: K.instance_norm_row_moments(x),
+        "torch.var_mean": lambda: torch.var_mean(x, dim=(2, 3), correction=0),
+        "K2m": lambda: K.instance_norm_bwd_row_sums(x, y, dy, mean, rsig, "relu"),
+        "native_batch_norm_backward": lambda: torch.ops.aten.native_batch_norm_backward(
+            dy, x, ones, None, None, mean1, rsig1, True, 1e-5, [False, True, True])}
+    us = {k: [] for k in calls}
+    for turn in ("K1m", "torch.var_mean", "K2m", "native_batch_norm_backward",
+                 "native_batch_norm_backward", "K2m", "torch.var_mean", "K1m"):
+        for _ in range(200):
+            calls[turn]()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(5000):
+            calls[turn]()
+        torch.cuda.synchronize()
+        us[turn].append((time.perf_counter() - t0) / 5000 * 1e6)
+    log("[kernel] split instance norm host cost a call (1x1x8x8 bf16, 5000 calls, in "
+        "turns): " + "; ".join(f"{k} {', '.join(f'{u:.2f}' for u in v)} us"
+                               for k, v in us.items()))
+    return {"instance_norm_row_moments": (us["K1m"], us["torch.var_mean"]),
+            "instance_norm_bwd_row_sums": (us["K2m"], us["native_batch_norm_backward"])}
 
 
 def phase_spatial_two_ranks(cfg, tmp, smi):

@@ -632,6 +632,74 @@ def test_split_kernels_match_plain(cuda, dtype, tol):
                         K.bwd_apply_launches) == tuple(k + 1 for k in counts)
 
 
+# K1m's and K2m's layouts off the main path: (shape, storage offset, the CTAs
+# a row the launch plan gives it)
+_SPLIT_EDGE = [((2, 3, 7, 9), 0, 1),        # a ragged row: one element a load
+               ((2, 4, 16, 16), 1, 1),      # bases off 16 bytes
+               ((1, 4, 512, 512), 0, 8),    # 262,144-element rows
+               ((1, 8, 64, 64), 0, 1),      # 8 rows for 132 SMs, too short to split
+               ((1, 16, 512, 512), 0, 8)]   # 16 rows, each over a cluster of 8
+
+
+def _at_offset(t, offset):
+    """t's values in a contiguous view `offset` elements into a flat buffer."""
+    buf = torch.empty(t.numel() + offset, device=t.device, dtype=t.dtype)
+    buf[offset:].copy_(t.flatten())
+    return buf[offset:].view(t.shape)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 0.05)])
+@pytest.mark.parametrize("shape,offset,ctas", _SPLIT_EDGE)
+def test_split_sums_match_plain_off_the_main_path(cuda, shape, offset, ctas, dtype, tol):
+    """K1m and K2m (every activation) against their plain versions on a
+    ragged row, bases off 16 bytes, 262,144-element rows and fewer rows than
+    SMs at cluster sizes 1 and 8: two launches bit-equal, one launch a call."""
+    n, c, h, w = shape
+    x = _at_offset((torch.randn(shape, device="cuda", generator=cuda) * 2 + 0.5).to(dtype),
+                   offset)
+    dy = _at_offset(torch.randn(shape, device="cuda", generator=cuda).to(dtype), 2 * offset)
+    align = K._align(x.data_ptr(), dy.data_ptr())
+    assert K._split_plan(n * c, h * w, x.element_size(), align)[0] == ctas
+    want = K.row_moments_plain(x)
+    before = K.moments_launches
+    got, again = K.instance_norm_row_moments(x), K.instance_norm_row_moments(x)
+    torch.cuda.synchronize()
+    assert K.moments_launches == before + 2
+    assert torch.equal(got, again)
+    torch.testing.assert_close(got, want, rtol=tol, atol=tol * want.abs().max().item())
+    mean, rsig = K._stats(want, h * w, 1e-5)
+    for activ in ("none", "relu", "lrelu", "tanh"):
+        y = K.apply_plain(x, mean, rsig, None, None, activ)
+        want_s = K.bwd_row_sums_plain(x, y, dy, mean, rsig, activ)
+        before = K.bwd_sums_launches
+        got = K.instance_norm_bwd_row_sums(x, y, dy, mean, rsig, activ)
+        again = K.instance_norm_bwd_row_sums(x, y, dy, mean, rsig, activ)
+        torch.cuda.synchronize()
+        assert K.bwd_sums_launches == before + 2
+        assert torch.equal(got, again)
+        torch.testing.assert_close(got, want_s, rtol=tol,
+                                   atol=tol * want_s.abs().max().item())
+
+
+def test_split_sums_refuse_a_plan_they_cannot_run(cuda):
+    """The C entry points of K1m and K2m return an error and launch nothing
+    for CTAs a row outside {1, 2, 4, 8}, a load wider than 16 bytes or a base
+    off the load's width."""
+    x = torch.randn(2, 3, 16, 16, device="cuda", generator=cuda).bfloat16()
+    out = torch.empty(2, 3, 2, device="cuda")
+    lib, stream = K._library(), torch.cuda.current_stream().cuda_stream
+    assert lib.aclgan_instance_norm_row_moments(x.data_ptr(), out.data_ptr(), 6, 256, 1, 1,
+                                                8, stream) == 0
+    for ptr, ctas, vec in ((x.data_ptr(), 3, 8), (x.data_ptr(), 16, 8),
+                           (x.data_ptr(), 1, 16), (x.data_ptr() + 2, 1, 8)):
+        assert lib.aclgan_instance_norm_row_moments(ptr, out.data_ptr(), 6, 256, 1, ctas,
+                                                    vec, stream) != 0
+        assert lib.aclgan_instance_norm_bwd_row_sums(
+            ptr, x.data_ptr(), x.data_ptr(), out.data_ptr(), out.data_ptr(), out.data_ptr(),
+            6, 256, 1, 0, ctas, vec, stream) != 0
+    torch.cuda.synchronize()
+
+
 def test_split_kernels_reject_what_they_cannot_take(cuda):
     x = torch.randn(2, 3, 8, 8, device="cuda", generator=cuda)
     mean = rsig = torch.zeros(2, 3, device="cuda")

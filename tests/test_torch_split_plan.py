@@ -1,0 +1,229 @@
+"""K1m's and K2m's launch plan (`_split_plan`: CTAs a row and elements a load),
+the chunks it gives each CTA of a cluster, the reduction order it implies
+against the plain versions, and the kernels' ctypes signatures set once. All
+on the CPU; the kernels themselves run in `tests/test_torch_cuda.py`, and the
+plain versions are held to the JAX package in `tests/test_torch_halo.py`."""
+
+import ctypes
+
+import numpy as np
+import pytest
+import torch
+
+from aclgan_tpu_torch.ops.kernels import build
+from aclgan_tpu_torch.ops.kernels import instance_norm as K
+
+# The IN / AdaIN layers of one rank of chip_smoke.py phase 27 (male2female at
+# 512^2, global batch 2 on a 1 x 2 grid, 256 x 512 rows a rank): the content
+# encoder at batch 2 and 4, the decoder's AdaIN at batch 2, 4 and 6.
+PHASE27_SHAPES = [(n, 64, 256, 512) for n in (2, 4)] + \
+    [(n, 128, 128, 256) for n in (2, 4)] + [(n, 256, 64, 128) for n in (2, 4, 6)]
+ELEM_BYTES = {"float32": 4, "bfloat16": 2}
+ACTIVS = ("none", "relu", "lrelu", "tanh")
+
+
+@pytest.mark.parametrize("dtype", sorted(ELEM_BYTES))
+@pytest.mark.parametrize("shape", PHASE27_SHAPES)
+def test_plan_on_phase27_shapes(shape, dtype):
+    """16-byte loads on every aligned layer; a row split over 2-8 CTAs only
+    while the card is short of CTAs and each thread keeps its loads."""
+    n, c, h, w = shape
+    rows, row_len, elem = n * c, h * w, ELEM_BYTES[dtype]
+    ctas, vec = K._split_plan(rows, row_len, elem, 16)
+    assert vec * elem == 16
+    assert ctas in (1, 2, 4, 8)
+    target = K.SPLIT_WAVES * K.SPLIT_SMS
+    if ctas > 1:  # split only as far as it pays
+        assert rows * ctas // 2 < target
+        assert row_len // ctas >= K.SPLIT_THREADS * vec * K.SPLIT_MIN_LOADS
+    if ctas < 8:  # and no further than that
+        assert (rows * ctas >= target
+                or row_len // (2 * ctas) < K.SPLIT_THREADS * vec * K.SPLIT_MIN_LOADS)
+
+
+@pytest.mark.parametrize("rows,row_len,elem,want", [
+    (128, 131072, 2, 8),   # a rank's 64 x 256 x 512 layer at batch 2
+    (256, 131072, 2, 4),   # at batch 4
+    (256, 32768, 2, 4),
+    (512, 32768, 2, 2),
+    (512, 8192, 2, 1),     # the 64 x 128 rows: one CTA a row
+    (1536, 8192, 2, 1),
+    (128, 131072, 4, 8),
+    (4, 262144, 2, 8),     # the long-row check's (1, 4, 512, 512)
+    (16, 262144, 4, 8),
+    (8, 4096, 2, 1),       # few rows, too short to split
+])
+def test_plan_picks_these_clusters(rows, row_len, elem, want):
+    assert K._split_plan(rows, row_len, elem, 16)[0] == want
+
+
+@pytest.mark.parametrize("row_len,elem,align,want_vec", [
+    (63, 2, 16, 1),        # a ragged 7 x 9 row: odd, so one element a load
+    (63, 4, 16, 1),
+    (62, 2, 16, 2),
+    (60, 2, 16, 4),
+    (60, 4, 16, 4),
+    (256, 2, 2, 1),        # a bf16 base at storage offset 1
+    (256, 4, 4, 1),        # an f32 base at storage offset 1
+    (256, 2, 4, 2),
+    (256, 2, 8, 4),
+    (256, 4, 8, 2),
+    (256, 2, 16, 8),
+    (256, 4, 16, 4),
+])
+def test_plan_narrows_the_load(row_len, elem, align, want_vec):
+    """The widest load within 16 bytes that divides the base alignment and
+    the row length, so every row starts on a whole load."""
+    ctas, vec = K._split_plan(6, row_len, elem, align)
+    assert vec == want_vec
+    assert vec * elem <= 16 and align % (vec * elem) == 0 and row_len % vec == 0
+    assert ctas in (1, 2, 4, 8)
+
+
+@pytest.mark.parametrize("offset,want", [(0, 16), (1, 2), (2, 4), (4, 8), (8, 16)])
+def test_align_of_a_slice(offset, want):
+    base = torch.empty(64, dtype=torch.bfloat16)
+    assert base.data_ptr() % 16 == 0
+    x = base[offset:offset + 32].view(2, 16)
+    assert K._align(x.data_ptr()) == want
+    assert K._align(x.data_ptr(), base.data_ptr()) == want
+
+
+@pytest.mark.parametrize("ctas", [1, 2, 4, 8])
+@pytest.mark.parametrize("row_len,vec", [(131072, 8), (8192, 8), (63, 1), (62, 2), (7, 4),
+                                         (5, 1), (1, 1), (12, 8), (1000, 4)])
+def test_chunk_bounds_partition_the_row(row_len, vec, ctas):
+    """The CTAs' chunks cover [0, row_len) in rank order with no gap and no
+    overlap, each starting on a whole vector."""
+    bounds = K._chunk_bounds(row_len, ctas, vec)
+    assert len(bounds) == ctas
+    assert bounds[0][0] == 0 and bounds[-1][1] == row_len
+    for (lo, hi), (nxt, _) in zip(bounds, bounds[1:]):
+        assert lo <= hi == nxt
+    for lo, hi in bounds:
+        assert lo % vec == 0 and lo <= hi
+
+
+def _planned(fn, x, *tensors):
+    """Each row's sums in the order the planned launch takes them: every CTA
+    reduces its chunk in f32, and the chunks' sums are added in rank order
+    starting from rank 0's. fn maps the chunks' slices to their (N, C, 2)
+    sums."""
+    n, c, h, w = x.shape
+    rows, row_len = n * c, h * w
+    ctas, vec = K._split_plan(rows, row_len, x.element_size(), 16)
+    flat = [t.reshape(n, c, 1, row_len) for t in (x,) + tensors]
+    total = None
+    for lo, hi in K._chunk_bounds(row_len, ctas, vec):
+        part = fn(*(t[..., lo:hi] for t in flat))
+        total = part if total is None else total + part
+    return total, ctas
+
+
+# the phase-27 row lengths with few rows (so a row is split), a ragged row
+_ORDER_SHAPES = [(1, 2, 256, 512), (1, 4, 128, 256), (2, 3, 64, 128), (2, 3, 7, 9),
+                 (1, 2, 512, 512)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", _ORDER_SHAPES)
+def test_planned_order_matches_row_moments_plain(shape, dtype):
+    """K1m's chunked, rank-ordered sums against `row_moments_plain`, within
+    f32 rounding: 1e-5 of each row's sum of |terms| (131,072-262,144 terms
+    summed in two orders; f32's unit round-off is 6e-8)."""
+    rng = np.random.RandomState(0)
+    x = torch.from_numpy(rng.randn(*shape).astype(np.float32) * 2 + 0.5).to(dtype)
+    got, ctas = _planned(K.row_moments_plain, x)
+    want = K.row_moments_plain(x)
+    x32 = x.float()
+    scale = torch.stack([x32.abs().sum((2, 3)), (x32 * x32).sum((2, 3))], -1)
+    assert torch.all((got - want).abs() <= 1e-5 * scale + 1e-30)
+    if shape[2] * shape[3] >= 32768:
+        assert ctas > 1  # the order under test is a cluster's
+
+
+@pytest.mark.parametrize("activ", ACTIVS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", _ORDER_SHAPES)
+def test_planned_order_matches_bwd_row_sums_plain(shape, dtype, activ):
+    """K2m's chunked, rank-ordered sums against `bwd_row_sums_plain`, with
+    the tolerance of the K1m case on each row's sum of |terms|."""
+    rng = np.random.RandomState(1)
+    n, c, h, w = shape
+    x = torch.from_numpy(rng.randn(*shape).astype(np.float32) * 2 + 0.5).to(dtype)
+    dy = torch.from_numpy(rng.randn(*shape).astype(np.float32)).to(dtype)
+    mean, rsig = K._stats(K.row_moments_plain(x), h * w, 1e-5)
+    y = K.apply_plain(x, mean, rsig, None, None, activ)
+    got, _ = _planned(lambda a, b, d: K.bwd_row_sums_plain(a, b, d, mean, rsig, activ),
+                      x, y, dy)
+    want = K.bwd_row_sums_plain(x, y, dy, mean, rsig, activ)
+    dyp = K._gate(dy.float(), y.float(), activ).abs()
+    xhat = ((x.float() - mean[..., None, None]) * rsig[..., None, None]).abs()
+    scale = torch.stack([dyp.sum((2, 3)), (dyp * xhat).sum((2, 3))], -1)
+    assert torch.all((got - want).abs() <= 1e-5 * scale + 1e-30)
+
+
+class _StubFn:
+    """A ctypes function that counts the assignments of its signature."""
+
+    def __init__(self):
+        self.sets = 0
+        self._argtypes = None
+
+    @property
+    def argtypes(self):
+        return self._argtypes
+
+    @argtypes.setter
+    def argtypes(self, value):
+        self.sets += 1
+        self._argtypes = value
+
+
+class _StubLib:
+    def __init__(self):
+        self.fns = {}
+
+    def __getattr__(self, name):
+        if name.startswith("aclgan_"):
+            return self.fns.setdefault(name, _StubFn())
+        raise AttributeError(name)
+
+
+def test_library_sets_ctypes_signatures_once(monkeypatch):
+    loads = []
+
+    def load(source):
+        loads.append(source)
+        return _StubLib()
+
+    monkeypatch.setattr(build, "load", load)
+    monkeypatch.setattr(K, "_cdll", None)
+    libs = {id(K._library()) for _ in range(100)}
+    assert len(libs) == 1 and loads == [K.SOURCE]
+    fns = K._library().fns
+    assert set(fns) == {"aclgan_instance_norm_fwd", "aclgan_instance_norm_bwd",
+                        "aclgan_instance_norm_row_moments", "aclgan_instance_norm_apply",
+                        "aclgan_instance_norm_bwd_row_sums", "aclgan_instance_norm_bwd_apply",
+                        "aclgan_cuda_error_string"}
+    assert all(f.sets == 1 for f in fns.values())
+    # K1m and K2m take the plan: (ctas_per_row, vec) before the stream
+    assert fns["aclgan_instance_norm_row_moments"].argtypes[-4:] == \
+        [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    assert fns["aclgan_instance_norm_bwd_row_sums"].argtypes[-5:] == \
+        [ctypes.c_int] * 4 + [ctypes.c_void_p]
+
+
+def test_split_wrappers_take_the_plain_version_on_the_cpu():
+    """On a CPU tensor K1m and K2m are their plain versions, launch nothing and
+    load no library."""
+    x = torch.randn(2, 3, 7, 9)
+    dy = torch.randn(2, 3, 7, 9)
+    mean, rsig = K._stats(K.row_moments_plain(x), 63, 1e-5)
+    before = (K.moments_launches, K.bwd_sums_launches)
+    torch.testing.assert_close(K.instance_norm_row_moments(x), K.row_moments_plain(x),
+                               rtol=0, atol=0)
+    torch.testing.assert_close(K.instance_norm_bwd_row_sums(x, x, dy, mean, rsig, "relu"),
+                               K.bwd_row_sums_plain(x, x, dy, mean, rsig, "relu"),
+                               rtol=0, atol=0)
+    assert (K.moments_launches, K.bwd_sums_launches) == before
