@@ -39,8 +39,11 @@
 // GSPMD split the statistics. Bound: bytes. K1m reads x once and K1a reads x
 // and writes y once, so the split forward reads x twice where the bound
 // reads it once; K2m reads x, y, dy and K2a reads them again and writes dx.
-// K1a and K2a are one 256-thread block a row with 2- or 4-byte loads, as K1
-// and K2.
+// K1a and K2a read and write each byte once, so their design is bytes in
+// flight too: 16-byte loads and stores, and a long row cut into chunks on
+// separate CTAs (below). K1a also takes the all-reduced sums and computes the
+// statistics itself, so a sharded layer's forward is K1m, the all-reduce and
+// K1a, with nothing between.
 //
 // K1m and K2m read each byte once and reuse none, so their bound is bytes
 // and their design is bytes in flight. On a rank's layers (128-1,536 rows of
@@ -223,7 +226,7 @@ instance_norm_bwd_kernel(const T* __restrict__ x, const float* __restrict__ scal
 // applies the result. Statistics follow the JAX sharded form
 // (aclgan_tpu/parallel/halo.py:146-157): mean = sum(x) / n,
 // var = max(sum(x^2) / n - mean^2, 0), rsig = rsqrt(var + eps), with n the
-// row's global length; the caller computes them from the all-reduced sums.
+// row's global length; K1a computes them from the all-reduced sums.
 //
 // K1m and K2m stream their rows once and reuse nothing, so what bounds them
 // is bytes in flight: 16-byte loads (vec elements a load, from the launch
@@ -345,26 +348,82 @@ row_moments_kernel(const T* __restrict__ x, float* __restrict__ out, int64_t row
   write_row_sums(out + 2 * row, s, ss, rank, ctas, &partial);
 }
 
-// K1a: y = act((x - mean[row]) * rsig[row] * s + b), cast to x's dtype.
-template <typename T>
+// Stores VEC floats as one word of VEC elements of T at p (aligned to VEC
+// elements), each rounded as store_f32 does.
+template <typename T, int VEC>
+__device__ __forceinline__ void store_pack(T* p, const float (&v)[VEC]) {
+  Pack<T, VEC> o;
+#pragma unroll
+  for (int e = 0; e < VEC; ++e) store_f32(reinterpret_cast<T*>(&o.w) + e, v[e]);
+  *reinterpret_cast<typename Pack<T, VEC>::W*>(p) = o.w;
+}
+
+// K1a and K2a read each byte once and reduce nothing, so they are bound by
+// bytes in flight as K1m and K2m are, and need no cluster: the grid is rows x
+// chunks CTAs (CTA blockIdx.x is chunk blockIdx.x % chunks of row
+// blockIdx.x / chunks, the chunks as chunk_bounds splits a row, the last one
+// also taking the row_len % vec tail), so that a rank's 128-256 long rows
+// fill the 132 SMs. Each CTA reads its row's scalars once; each thread
+// issues all its loads (uint4, or a narrower word where the plan says) before
+// any arithmetic, and stores uint4 too. Elementwise, so two launches give the
+// same bits.
+constexpr int kApplyLoads = 8;     // K1a: 8 x 16 bytes of x in flight a thread
+constexpr int kBwdApplyLoads = 4;  // K2a: 4 x 3 x 16 bytes (x, y, dy)
+
+// K1a: from the row's all-reduced (sum x, sum x^2) over n elements, mean =
+// s / n, var = max(ss / n - mean^2, 0), rsig = rsqrt(var + eps) in f32, in
+// `_stats`'s order (no multiply-add contraction); then y = act((x - mean) *
+// rsig * scale + shift), cast to x's dtype. Chunk 0 of each row writes its
+// mean and rsig, (rows,) f32, for the backward.
+template <typename T, int VEC>
 __global__ void __launch_bounds__(kThreads)
-apply_kernel(const T* __restrict__ x, const float* __restrict__ mean,
-             const float* __restrict__ rsig, const float* __restrict__ scale,
-             const float* __restrict__ shift, T* __restrict__ y, int64_t row_len,
-             int act) {
-  const int64_t row = blockIdx.x;
-  const T* xr = x + row * row_len;
-  T* yr = y + row * row_len;
-  const float m = mean[row];
-  const float r = rsig[row];
+apply_kernel(const T* __restrict__ x, const float* __restrict__ moments,
+             const float* __restrict__ scale, const float* __restrict__ shift,
+             T* __restrict__ y, float* __restrict__ mean_out, float* __restrict__ rsig_out,
+             int64_t row_len, float n, float eps, int act, int chunks) {
+  const int chunk = static_cast<int>(blockIdx.x % chunks);
+  const int64_t row = blockIdx.x / chunks;
+  const float m = __fdiv_rn(moments[2 * row], n);
+  const float var = __fsub_rn(__fdiv_rn(moments[2 * row + 1], n), __fmul_rn(m, m));
+  const float r = rsqrtf(__fadd_rn(var < 0.f ? 0.f : var, eps));  // NaN stays NaN
+  if (chunk == 0 && threadIdx.x == 0) {
+    mean_out[row] = m;
+    rsig_out[row] = r;
+  }
   const bool affine = scale != nullptr;
   const float s = affine ? scale[row] : 1.f;
   const float b = affine ? shift[row] : 0.f;
-#pragma unroll 4
-  for (int64_t i = threadIdx.x; i < row_len; i += kThreads) {
-    float v = (load_f32(xr + i) - m) * r;
-    if (affine) v = v * s + b;
-    store_f32(yr + i, activate(v, act));
+  const T* xr = x + row * row_len;
+  T* yr = y + row * row_len;
+  const int64_t n_vec = row_len / VEC;
+  int64_t lo, hi;
+  chunk_bounds(n_vec, chunk, chunks, &lo, &hi);
+  for (int64_t i0 = lo + threadIdx.x; i0 < hi; i0 += kThreads * kApplyLoads) {
+    Pack<T, VEC> p[kApplyLoads];
+#pragma unroll
+    for (int u = 0; u < kApplyLoads; ++u) {
+      if (i0 + u * kThreads < hi) p[u] = load_pack<T, VEC>(xr + (i0 + u * kThreads) * VEC);
+    }
+#pragma unroll
+    for (int u = 0; u < kApplyLoads; ++u) {
+      if (i0 + u * kThreads < hi) {
+        float v[VEC];
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) {
+          v[e] = (p[u][e] - m) * r;
+          if (affine) v[e] = v[e] * s + b;
+          v[e] = activate(v[e], act);
+        }
+        store_pack<T, VEC>(yr + (i0 + u * kThreads) * VEC, v);
+      }
+    }
+  }
+  if (chunk == chunks - 1) {
+    for (int64_t i = n_vec * VEC + threadIdx.x; i < row_len; i += kThreads) {
+      float v = (load_f32(xr + i) - m) * r;
+      if (affine) v = v * s + b;
+      store_f32(yr + i, activate(v, act));
+    }
   }
 }
 
@@ -428,43 +487,93 @@ bwd_row_sums_kernel(const T* __restrict__ x, const T* __restrict__ y,
 }
 
 // K2a: dx = rsig * s * (dyp - sums[2 row] / n - xhat * sums[2 row + 1] / n)
-// from the all-reduced sums and the row's global length n.
-template <typename T>
+// from the all-reduced sums and the row's global length n (inv_n = 1 / n).
+// Grid and chunks as K1a.
+template <typename T, int VEC>
 __global__ void __launch_bounds__(kThreads)
 bwd_apply_kernel(const T* __restrict__ x, const T* __restrict__ y,
                  const T* __restrict__ dy, const float* __restrict__ mean,
                  const float* __restrict__ rsig, const float* __restrict__ scale,
                  const float* __restrict__ sums, T* __restrict__ dx, int64_t row_len,
-                 float inv_n, int act) {
-  const int64_t row = blockIdx.x;
+                 float inv_n, int act, int chunks) {
+  const int chunk = static_cast<int>(blockIdx.x % chunks);
+  const int64_t row = blockIdx.x / chunks;
   const int64_t off = row * row_len;
+  const T* xr = x + off;
+  const T* yr = y + off;
+  const T* dyr = dy + off;
+  T* dxr = dx + off;
   const float m = mean[row];
   const float r = rsig[row];
   const float k = r * (scale != nullptr ? scale[row] : 1.f);
   const float m_dy = sums[2 * row] * inv_n;
   const float m_dyx = sums[2 * row + 1] * inv_n;
-#pragma unroll 4
-  for (int64_t i = threadIdx.x; i < row_len; i += kThreads) {
-    const float g = gate(load_f32(dy + off + i), load_f32(y + off + i), act);
-    const float xhat = (load_f32(x + off + i) - m) * r;
-    store_f32(dx + off + i, k * (g - m_dy - xhat * m_dyx));
+  const int64_t n_vec = row_len / VEC;
+  int64_t lo, hi;
+  chunk_bounds(n_vec, chunk, chunks, &lo, &hi);
+  for (int64_t i0 = lo + threadIdx.x; i0 < hi; i0 += kThreads * kBwdApplyLoads) {
+    Pack<T, VEC> px[kBwdApplyLoads], py[kBwdApplyLoads], pd[kBwdApplyLoads];
+#pragma unroll
+    for (int u = 0; u < kBwdApplyLoads; ++u) {
+      const int64_t i = i0 + u * kThreads;
+      if (i < hi) {
+        px[u] = load_pack<T, VEC>(xr + i * VEC);
+        py[u] = load_pack<T, VEC>(yr + i * VEC);
+        pd[u] = load_pack<T, VEC>(dyr + i * VEC);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kBwdApplyLoads; ++u) {
+      if (i0 + u * kThreads < hi) {
+        float v[VEC];
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) {
+          const float g = gate(pd[u][e], py[u][e], act);
+          const float xhat = (px[u][e] - m) * r;
+          v[e] = k * (g - m_dy - xhat * m_dyx);
+        }
+        store_pack<T, VEC>(dxr + (i0 + u * kThreads) * VEC, v);
+      }
+    }
   }
+  if (chunk == chunks - 1) {
+    for (int64_t i = n_vec * VEC + threadIdx.x; i < row_len; i += kThreads) {
+      const float g = gate(load_f32(dyr + i), load_f32(yr + i), act);
+      const float xhat = (load_f32(xr + i) - m) * r;
+      store_f32(dxr + i, k * (g - m_dy - xhat * m_dyx));
+    }
+  }
+}
+
+// A load of vec elements of T: vec a power of two within 16 bytes that
+// divides the row length, every base aligned to it.
+template <typename T>
+bool load_ok(std::initializer_list<const void*> bases, long long row_len, int vec) {
+  if (vec < 1 || (vec & (vec - 1)) || vec * sizeof(T) > 16 || row_len % vec) return false;
+  for (const void* p : bases)
+    if (reinterpret_cast<uintptr_t>(p) % (vec * sizeof(T))) return false;
+  return true;
 }
 
 // K1m's and K2m's launch: the plan (ctas_per_row, vec) comes from
 // `ops/kernels/instance_norm.py::_split_plan`. A plan the kernels cannot run
-// (ctas not 1, 2, 4 or 8; vec not a power of two within 16 bytes; a row
-// start off vec elements; more than 2^31 - 1 CTAs) returns
-// cudaErrorInvalidValue and launches nothing.
+// (ctas not 1, 2, 4 or 8; a load load_ok refuses; more than 2^31 - 1 CTAs)
+// returns cudaErrorInvalidValue and launches nothing.
 template <typename T>
 bool plan_ok(std::initializer_list<const void*> bases, long long rows, long long row_len,
              int ctas, int vec) {
   if (ctas != 1 && ctas != 2 && ctas != 4 && ctas != 8) return false;
-  if (vec < 1 || (vec & (vec - 1)) || vec * sizeof(T) > 16 || row_len % vec) return false;
-  if (rows * ctas > INT_MAX) return false;
-  for (const void* p : bases)
-    if (reinterpret_cast<uintptr_t>(p) % (vec * sizeof(T))) return false;
-  return true;
+  return rows * ctas <= INT_MAX && load_ok<T>(bases, row_len, vec);
+}
+
+// K1a's and K2a's launch: the plan (chunks_per_row, vec) comes from
+// `_apply_plan`. A plan they cannot run (fewer than 1 chunk; a load load_ok
+// refuses; more than 2^31 - 1 CTAs) returns cudaErrorInvalidValue and
+// launches nothing.
+template <typename T>
+bool apply_plan_ok(std::initializer_list<const void*> bases, long long rows,
+                   long long row_len, int chunks, int vec) {
+  return chunks >= 1 && rows * chunks <= INT_MAX && load_ok<T>(bases, row_len, vec);
 }
 
 // rows * ctas CTAs of kThreads threads on `st`, in clusters of ctas along x
@@ -529,6 +638,63 @@ int bwd_row_sums(const void* x, const void* y, const void* dy, const float* mean
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
+// rows * chunks CTAs of kThreads threads on `st`; returns cudaGetLastError().
+template <typename... Params, typename... Args>
+int launch_apply(void (*kernel)(Params...), long long rows, int chunks, cudaStream_t st,
+                 Args... args) {
+  kernel<<<static_cast<unsigned>(rows * chunks), kThreads, 0, st>>>(args...);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int run_apply(const void* x, const float* moments, const float* scale, const float* shift,
+          void* y, float* mean, float* rsig, long long rows, long long row_len, float n,
+          float eps, int act, int chunks, int vec, cudaStream_t st) {
+  if (!apply_plan_ok<T>({x, y}, rows, row_len, chunks, vec))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const T* xp = static_cast<const T*>(x);
+  T* yp = static_cast<T*>(y);
+  const int64_t len = row_len;
+#define ACLGAN_APPLY(V)                                                                  \
+  launch_apply(apply_kernel<T, V>, rows, chunks, st, xp, moments, scale, shift, yp, mean, \
+               rsig, len, n, eps, act, chunks)
+  switch (vec) {
+    case 1: return ACLGAN_APPLY(1);
+    case 2: return ACLGAN_APPLY(2);
+    case 4: return ACLGAN_APPLY(4);
+    default:
+      if constexpr (sizeof(T) == 2) return ACLGAN_APPLY(8);
+  }
+#undef ACLGAN_APPLY
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+template <typename T>
+int run_bwd_apply(const void* x, const void* y, const void* dy, const float* mean,
+              const float* rsig, const float* scale, const float* sums, void* dx,
+              long long rows, long long row_len, float inv_n, int act, int chunks, int vec,
+              cudaStream_t st) {
+  if (!apply_plan_ok<T>({x, y, dy, dx}, rows, row_len, chunks, vec))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const T* xp = static_cast<const T*>(x);
+  const T* yp = static_cast<const T*>(y);
+  const T* dyp = static_cast<const T*>(dy);
+  T* dxp = static_cast<T*>(dx);
+  const int64_t len = row_len;
+#define ACLGAN_BWD_APPLY(V)                                                             \
+  launch_apply(bwd_apply_kernel<T, V>, rows, chunks, st, xp, yp, dyp, mean, rsig, scale, \
+               sums, dxp, len, inv_n, act, chunks)
+  switch (vec) {
+    case 1: return ACLGAN_BWD_APPLY(1);
+    case 2: return ACLGAN_BWD_APPLY(2);
+    case 4: return ACLGAN_BWD_APPLY(4);
+    default:
+      if constexpr (sizeof(T) == 2) return ACLGAN_BWD_APPLY(8);
+  }
+#undef ACLGAN_BWD_APPLY
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. scale/shift: both null (IN) or both
@@ -580,25 +746,11 @@ extern "C" int aclgan_instance_norm_bwd(const void* x, const float* scale,
 }
 
 // The split form's four entry points. dtype, act and the layout as above;
-// mean, rsig (rows,) f32; out and sums (rows, 2) f32; scale/shift null or
-// (rows,) f32. K1m and K2m write every row of `out` and take the launch plan
-// (ctas_per_row, vec); K2a takes inv_n = 1 / (the row's global length).
-#define ACLGAN_DISPATCH(KERNEL, ...)                                          \
-  do {                                                                        \
-    const dim3 grid(static_cast<unsigned>(rows));                             \
-    cudaStream_t st = static_cast<cudaStream_t>(stream);                      \
-    if (dtype == 0) {                                                         \
-      using T = float;                                                        \
-      KERNEL<T><<<grid, kThreads, 0, st>>>(__VA_ARGS__);                      \
-    } else if (dtype == 1) {                                                  \
-      using T = __nv_bfloat16;                                                \
-      KERNEL<T><<<grid, kThreads, 0, st>>>(__VA_ARGS__);                      \
-    } else {                                                                  \
-      return static_cast<int>(cudaErrorInvalidValue);                         \
-    }                                                                         \
-    return static_cast<int>(cudaGetLastError());                              \
-  } while (0)
-
+// mean, rsig (rows,) f32; moments, out and sums (rows, 2) f32; scale/shift
+// null or (rows,) f32. K1m and K2m write every row of `out` and take the
+// launch plan (ctas_per_row, vec); K1a and K2a take theirs as
+// (chunks_per_row, vec). K1a takes n = the row's global length and writes y,
+// mean and rsig; K2a takes inv_n = 1 / n.
 extern "C" int aclgan_instance_norm_row_moments(const void* x, float* out, long long rows,
                                                 long long row_len, int dtype,
                                                 int ctas_per_row, int vec, void* stream) {
@@ -610,13 +762,21 @@ extern "C" int aclgan_instance_norm_row_moments(const void* x, float* out, long 
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-extern "C" int aclgan_instance_norm_apply(const void* x, const float* mean,
-                                          const float* rsig, const float* scale,
-                                          const float* shift, void* y, long long rows,
-                                          long long row_len, int dtype, int act,
+extern "C" int aclgan_instance_norm_apply(const void* x, const float* moments,
+                                          const float* scale, const float* shift, void* y,
+                                          float* mean, float* rsig, long long rows,
+                                          long long row_len, long long n, float eps,
+                                          int dtype, int act, int chunks_per_row, int vec,
                                           void* stream) {
-  ACLGAN_DISPATCH(apply_kernel, static_cast<const T*>(x), mean, rsig, scale, shift,
-                  static_cast<T*>(y), row_len, act);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float nf = static_cast<float>(n);  // as torch divides an f32 tensor by an int
+  if (dtype == 0)
+    return run_apply<float>(x, moments, scale, shift, y, mean, rsig, rows, row_len, nf, eps,
+                            act, chunks_per_row, vec, st);
+  if (dtype == 1)
+    return run_apply<__nv_bfloat16>(x, moments, scale, shift, y, mean, rsig, rows, row_len,
+                                    nf, eps, act, chunks_per_row, vec, st);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 extern "C" int aclgan_instance_norm_bwd_row_sums(const void* x, const void* y,
@@ -640,13 +800,16 @@ extern "C" int aclgan_instance_norm_bwd_apply(const void* x, const void* y, cons
                                               const float* scale, const float* sums,
                                               void* dx, long long rows, long long row_len,
                                               float inv_n, int dtype, int act,
-                                              void* stream) {
-  ACLGAN_DISPATCH(bwd_apply_kernel, static_cast<const T*>(x), static_cast<const T*>(y),
-                  static_cast<const T*>(dy), mean, rsig, scale, sums, static_cast<T*>(dx),
-                  row_len, inv_n, act);
+                                              int chunks_per_row, int vec, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return run_bwd_apply<float>(x, y, dy, mean, rsig, scale, sums, dx, rows, row_len, inv_n,
+                                act, chunks_per_row, vec, st);
+  if (dtype == 1)
+    return run_bwd_apply<__nv_bfloat16>(x, y, dy, mean, rsig, scale, sums, dx, rows,
+                                        row_len, inv_n, act, chunks_per_row, vec, st);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
-
-#undef ACLGAN_DISPATCH
 
 extern "C" const char* aclgan_cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

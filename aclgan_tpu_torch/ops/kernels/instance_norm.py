@@ -37,16 +37,22 @@ from a kernel.
 Under a mesh that splits H over ranks (`parallel/spatial.py`), a row's
 elements lie on several ranks, and `fused_instance_norm` takes the split
 form, `_ShardedFusedInstanceNorm`: K1m (each row's f32 sum and sum of
-squares on this rank) -> one all-reduce over the spatial group -> the
-statistics -> K1a (normalize, affine, activation) in the forward; K2m (each
-row's sums of the gated dy and of it times xhat) -> one all-reduce -> K2a (dx)
-in the backward. The four kernels sit in the same `.cu` file, each with its
-plain version here; their wrappers take the plain version for a tensor on
-the CPU (the gloo ranks of the tests) and launch the kernel for a CUDA one.
-K1m and K2m take a launch plan from `_split_plan` (the CTAs of a cluster a
-row, the elements of a load); a rank's short rows take a few microseconds
-of the card each, so their wrappers keep the host's work to the checks, one
-`torch.empty` and the ctypes call (signatures set once in `_library`).
+squares on this rank) -> one all-reduce over the spatial group -> K1a (the
+statistics from the summed moments, then normalize, affine, activation; it
+also writes the (N, C) mean and rsig the backward saves) in the forward, with
+no torch op between the all-reduce and K1a; K2m (each row's sums of the gated
+dy and of it times xhat) -> one all-reduce -> K2a (dx) in the backward. The
+four kernels sit in the same `.cu` file, each with its plain version here
+(`_stats` holds the statistics' formula for K1a's); their wrappers take the
+plain version for a tensor on the CPU (the gloo ranks of the tests) and
+launch the kernel for a CUDA one. Each takes a launch plan computed here and
+cached: K1m and K2m from `_split_plan` (the CTAs of a cluster a row, the
+elements of a load), K1a and K2a from `_apply_plan` (the chunks of a row,
+each on its own CTA, and the elements of a load). A rank's short rows take a
+few microseconds of the card each, so every split wrapper keeps the host's
+work to the checks, `torch.empty` outputs, per-row vectors passed through
+when they already are contiguous f32 on the device, and the ctypes call
+(signatures set once in `_configure`) on the raw current stream.
 """
 
 from __future__ import annotations
@@ -153,14 +159,16 @@ def _vec(t: Optional[torch.Tensor], x: torch.Tensor) -> Optional[torch.Tensor]:
     return None if t is None else t.to(device=x.device, dtype=torch.float32).contiguous()
 
 
-def _rows_f32(t: torch.Tensor, x: torch.Tensor, rows: int) -> torch.Tensor:
-    """An (N, C) mean or rsig as the `rows` contiguous f32 values K2m reads:
-    as given when it already is that (the sharded path's case), else
-    converted as `_vec` does."""
+def _rows_f32(t: torch.Tensor, x: torch.Tensor, count: int, what: str) -> torch.Tensor:
+    """A per-row vector ((N, C) statistics, scale or shift; (N, C, 2) sums) as
+    the `count` contiguous f32 values a split kernel reads: as given when it
+    already is that (the sharded path's case), else converted as `_vec` does
+    (a bf16 AdaIN slice, a strided view, another device)."""
     if t.dtype is not torch.float32 or not t.is_contiguous() or t.get_device() != x.get_device():
         t = _vec(t, x)
-    if t.numel() != rows:
-        raise ValueError(f"K2m: mean and rsig must hold {rows} rows, got {tuple(t.shape)}")
+    if t.numel() != count:
+        raise ValueError(f"{what}: a per-row input must hold {count} values, "
+                         f"got {tuple(t.shape)}")
     return t
 
 
@@ -273,16 +281,27 @@ def _col(t: torch.Tensor) -> torch.Tensor:
     return t.float()[:, :, None, None]
 
 
-def apply_plain(x: torch.Tensor, mean: torch.Tensor, rsig: torch.Tensor,
+def _stats(moments: torch.Tensor, n: int, eps: float):
+    """(mean, rsig) from the rows' (sum, sum of squares) over n elements, the
+    variance clamped at 0 (`aclgan_tpu/parallel/halo.py:146-157`): K1a's
+    prologue, here for its plain version."""
+    mean = moments[..., 0] / n
+    var = torch.clamp(moments[..., 1] / n - mean * mean, min=0.0)
+    return mean, torch.rsqrt(var + eps)
+
+
+def apply_plain(x: torch.Tensor, moments: torch.Tensor, n: int, eps: float,
                 scale: Optional[torch.Tensor], shift: Optional[torch.Tensor],
-                activ: str = "none") -> torch.Tensor:
-    """K1a's function: act((x - mean) * rsig * scale + shift), the (N, C)
-    statistics given; cast to x's dtype before the activation, as
-    `instance_norm_plain`."""
+                activ: str = "none"):
+    """K1a's function: (mean, rsig) from the rows' (N, C, 2) sums over their
+    global length n (`_stats`), then y = act((x - mean) * rsig * scale +
+    shift), cast to x's dtype before the activation, as
+    `instance_norm_plain`. Returns (y, mean, rsig), the last two (N, C) f32."""
+    mean, rsig = _stats(moments.float(), n, eps)
     y = (x.float() - _col(mean)) * _col(rsig)
     if scale is not None:
         y = y * _col(scale) + _col(shift)
-    return apply_activation(y.to(x.dtype), activ)
+    return apply_activation(y.to(x.dtype), activ), mean, rsig
 
 
 def bwd_row_sums_plain(x: torch.Tensor, y: torch.Tensor, dy: torch.Tensor,
@@ -322,7 +341,7 @@ def _split_args(x: torch.Tensor, what: str, *tensors: torch.Tensor):
     return rows, row_len
 
 
-# K1m's and K2m's launch plan (`csrc/instance_norm.cu`, above the kernels)
+# The split kernels' launch plans (`csrc/instance_norm.cu`, above the kernels)
 SPLIT_THREADS = 256      # a CTA's threads
 SPLIT_SMS = 132          # an H100 SXM's SMs
 SPLIT_WAVES = 4          # CTAs to aim for: this many times the SMs
@@ -330,18 +349,24 @@ SPLIT_MIN_LOADS = 4      # vector loads a thread gets at least, once a row is sp
 SPLIT_MAX_CLUSTER = 8    # the portable cluster size
 
 
+def _load_width(row_len: int, elem_bytes: int, ptr_align: int) -> int:
+    """vec, the elements a load: the widest power of two within 16 bytes
+    that divides both the base alignment `ptr_align` and the row length, so
+    that every row starts on a whole load (1 where neither allows 2)."""
+    vec = 16 // elem_bytes
+    while vec > 1 and (ptr_align % (vec * elem_bytes) or row_len % vec):
+        vec //= 2
+    return vec
+
+
 @functools.lru_cache(maxsize=None)
 def _split_plan(rows: int, row_len: int, elem_bytes: int, ptr_align: int):
     """(ctas_per_row, vec) for K1m / K2m over `rows` rows of `row_len`
     elements of `elem_bytes` bytes, at base pointers aligned to `ptr_align`
-    bytes. vec, the elements a load, is the widest power of two within 16
-    bytes that divides both the base alignment and the row length, so that
-    every row starts on a whole load (1 where neither allows 2). ctas_per_row
-    doubles from 1 up to 8 while rows x CTAs stays below SPLIT_WAVES x the
-    SMs and the halved chunk still gives each thread SPLIT_MIN_LOADS loads."""
-    vec = 16 // elem_bytes
-    while vec > 1 and (ptr_align % (vec * elem_bytes) or row_len % vec):
-        vec //= 2
+    bytes; vec from `_load_width`. ctas_per_row doubles from 1 up to 8 while
+    rows x CTAs stays below SPLIT_WAVES x the SMs and the halved chunk still
+    gives each thread SPLIT_MIN_LOADS loads."""
+    vec = _load_width(row_len, elem_bytes, ptr_align)
     ctas = 1
     while (ctas < SPLIT_MAX_CLUSTER and rows * ctas < SPLIT_WAVES * SPLIT_SMS
            and row_len // (2 * ctas) >= SPLIT_THREADS * vec * SPLIT_MIN_LOADS):
@@ -349,10 +374,24 @@ def _split_plan(rows: int, row_len: int, elem_bytes: int, ptr_align: int):
     return ctas, vec
 
 
+@functools.lru_cache(maxsize=None)
+def _apply_plan(rows: int, row_len: int, elem_bytes: int, ptr_align: int):
+    """(chunks_per_row, vec) for K1a / K2a, vec as `_split_plan`'s. Their
+    CTAs reduce nothing together, so a row takes any number of chunks (no
+    cluster): as many as bring rows x chunks up to SPLIT_WAVES x the SMs
+    (rounded down), as long as each thread keeps SPLIT_MIN_LOADS loads, and
+    at least 1. A rank's (2, 64, 256, 512) layer gets 4 chunks a row, its
+    rows of 8,192 elements 1."""
+    vec = _load_width(row_len, elem_bytes, ptr_align)
+    most = row_len // vec // (SPLIT_THREADS * SPLIT_MIN_LOADS)
+    return max(1, min(SPLIT_WAVES * SPLIT_SMS // rows, most)), vec
+
+
 def _chunk_bounds(row_len: int, ctas: int, vec: int):
-    """The [lo, hi) element ranges of a row that the CTAs of a cluster reduce,
-    in rank order: runs of ceil(n_vec / ctas) whole vectors, the last CTA also
-    taking the row_len % vec elements past the last vector (`chunk_bounds` in
+    """The [lo, hi) element ranges of a row that its `ctas` CTAs take (a
+    cluster's for K1m / K2m, the chunks for K1a / K2a), in order: runs of
+    ceil(n_vec / ctas) whole vectors, the last CTA also taking the
+    row_len % vec elements past the last vector (`chunk_bounds` in
     `csrc/instance_norm.cu`)."""
     n_vec = row_len // vec
     per = -(-n_vec // ctas)
@@ -405,28 +444,36 @@ def instance_norm_row_moments(x: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def instance_norm_apply(x: torch.Tensor, mean: torch.Tensor, rsig: torch.Tensor,
+def instance_norm_apply(x: torch.Tensor, moments: torch.Tensor, n: int, eps: float,
                         scale: Optional[torch.Tensor], shift: Optional[torch.Tensor],
-                        activ: str = "none") -> torch.Tensor:
-    """K1a on a CUDA tensor (the plain version on a CPU one); mean, rsig,
-    scale and shift (N, C)."""
+                        activ: str = "none"):
+    """K1a on a CUDA tensor (the plain version on a CPU one): (y, mean, rsig)
+    from x, the rows' all-reduced (N, C, 2) sums `moments` over their global
+    length n, and scale and shift (N, C) or None; mean and rsig (N, C) f32."""
     global apply_launches
-    if x.device.type == "cpu":
-        return apply_plain(x, mean, rsig, scale, shift, activ)
+    if x.is_cpu:
+        return apply_plain(x, moments, n, eps, scale, shift, activ)
     rows, row_len = _split_args(x, "K1a")
+    n_, c = x.shape[0], x.shape[1]  # ints: a torch.Size costs torch.empty more host time
     y = torch.empty_like(x)
-    if rows == 0 or row_len == 0:
-        return y
-    mean, rsig, scale, shift = (_vec(t, x) for t in (mean, rsig, scale, shift))
+    mean = torch.empty(n_, c, dtype=torch.float32, device=x.device)
+    rsig = torch.empty(n_, c, dtype=torch.float32, device=x.device)
+    if rows == 0:
+        return y, mean, rsig
+    moments = _rows_f32(moments, x, 2 * rows, "K1a")
+    if scale is not None:
+        scale, shift = _rows_f32(scale, x, rows, "K1a"), _rows_f32(shift, x, rows, "K1a")
+    px, py = x.data_ptr(), y.data_ptr()
+    chunks, vec = _apply_plan(rows, row_len, x.element_size(), _align(px, py))
     lib = _library()
     with _launch_device(x):
         err = lib.aclgan_instance_norm_apply(
-            x.data_ptr(), mean.data_ptr(), rsig.data_ptr(), _ptr(scale), _ptr(shift),
-            y.data_ptr(), rows, row_len, _DTYPES[x.dtype], _FUSED_ACTS[activ],
-            torch.cuda.current_stream(x.device).cuda_stream)
+            px, moments.data_ptr(), _ptr(scale), _ptr(shift), py, mean.data_ptr(),
+            rsig.data_ptr(), rows, row_len, n, eps, _DTYPES[x.dtype], _FUSED_ACTS[activ],
+            chunks, vec, _stream(x))
     _raise_on(lib, err, "instance_norm apply")
     apply_launches += 1
-    return y
+    return y, mean, rsig
 
 
 def instance_norm_bwd_row_sums(x: torch.Tensor, y: torch.Tensor, dy: torch.Tensor,
@@ -441,7 +488,7 @@ def instance_norm_bwd_row_sums(x: torch.Tensor, y: torch.Tensor, dy: torch.Tenso
     if rows == 0 or row_len == 0:  # the sums of nothing
         return torch.zeros((n, c, 2), device=x.device, dtype=torch.float32)
     out = torch.empty((n, c, 2), device=x.device, dtype=torch.float32)
-    mean, rsig = _rows_f32(mean, x, rows), _rows_f32(rsig, x, rows)
+    mean, rsig = _rows_f32(mean, x, rows, "K2m"), _rows_f32(rsig, x, rows, "K2m")
     px, py, pdy = x.data_ptr(), y.data_ptr(), dy.data_ptr()
     ctas, vec = _split_plan(rows, row_len, x.element_size(), _align(px, py, pdy))
     lib = _library()
@@ -461,50 +508,46 @@ def instance_norm_bwd_apply(x: torch.Tensor, y: torch.Tensor, dy: torch.Tensor,
     """K2a on CUDA tensors (the plain version on CPU ones): dx in x's dtype;
     sums (N, C, 2) over every rank, n the rows' global length."""
     global bwd_apply_launches
-    if x.device.type == "cpu":
+    if x.is_cpu:
         return bwd_apply_plain(x, y, dy, mean, rsig, scale, sums, n, activ)
     rows, row_len = _split_args(x, "K2a", y, dy)
     dx = torch.empty_like(x)
     if rows == 0 or row_len == 0:
         return dx
-    mean, rsig, scale, sums = (_vec(t, x) for t in (mean, rsig, scale, sums))
+    mean, rsig = _rows_f32(mean, x, rows, "K2a"), _rows_f32(rsig, x, rows, "K2a")
+    sums = _rows_f32(sums, x, 2 * rows, "K2a")
+    if scale is not None:
+        scale = _rows_f32(scale, x, rows, "K2a")
+    px, py, pdy, pdx = x.data_ptr(), y.data_ptr(), dy.data_ptr(), dx.data_ptr()
+    chunks, vec = _apply_plan(rows, row_len, x.element_size(), _align(px, py, pdy, pdx))
     lib = _library()
     with _launch_device(x):
         err = lib.aclgan_instance_norm_bwd_apply(
-            x.data_ptr(), y.data_ptr(), dy.data_ptr(), mean.data_ptr(), rsig.data_ptr(),
-            _ptr(scale), sums.data_ptr(), dx.data_ptr(), rows, row_len, 1.0 / n,
-            _DTYPES[x.dtype], _FUSED_ACTS[activ],
-            torch.cuda.current_stream(x.device).cuda_stream)
+            px, py, pdy, mean.data_ptr(), rsig.data_ptr(), _ptr(scale), sums.data_ptr(), pdx,
+            rows, row_len, 1.0 / n, _DTYPES[x.dtype], _FUSED_ACTS[activ], chunks, vec,
+            _stream(x))
     _raise_on(lib, err, "instance_norm backward apply")
     bwd_apply_launches += 1
     return dx
 
 
-def _stats(moments: torch.Tensor, n: int, eps: float):
-    """(mean, rsig) from the rows' (sum, sum of squares) over n elements, the
-    variance clamped at 0 (`aclgan_tpu/parallel/halo.py:146-157`)."""
-    mean = moments[..., 0] / n
-    var = torch.clamp(moments[..., 1] / n - mean * mean, min=0.0)
-    return mean, torch.rsqrt(var + eps)
-
-
 class _ShardedFusedInstanceNorm(torch.autograd.Function):
     """IN / AdaIN + activation over rows split across the ranks of `group`
     (each rank holding row_len of the n_spatial * row_len elements of every
-    row): K1m -> all-reduce -> K1a forward, K2m -> all-reduce -> K2a
-    backward. dscale and dshift are this rank's partial sums: the AdaIN
-    vector is replicated over the group, and its producer's gradients are
-    summed over the ranks afterwards, so all-reduced values here would count
-    them n_spatial times."""
+    row): K1m -> all-reduce -> K1a forward (no torch op between the last two:
+    K1a computes the statistics and hands them to the backward), K2m ->
+    all-reduce -> K2a backward. dscale and dshift are this rank's partial
+    sums: the AdaIN vector is replicated over the group, and its producer's
+    gradients are summed over the ranks afterwards, so all-reduced values
+    here would count them n_spatial times."""
 
     @staticmethod
     def forward(ctx, x, scale, shift, eps, activ, group, n_spatial):
         s32, b32 = _vec(scale, x), _vec(shift, x)
+        n = x.shape[2] * x.shape[3] * n_spatial
         moments = instance_norm_row_moments(x)
         dist.all_reduce(moments, group=group)
-        n = x.shape[2] * x.shape[3] * n_spatial
-        mean, rsig = _stats(moments, n, eps)
-        y = instance_norm_apply(x, mean, rsig, s32, b32, activ)
+        y, mean, rsig = instance_norm_apply(x, moments, n, eps, s32, b32, activ)
         ctx.save_for_backward(x, s32, mean, rsig, y)
         ctx.activ, ctx.group, ctx.n = activ, group, n
         ctx.dtypes = (None if scale is None else scale.dtype,
@@ -554,11 +597,12 @@ def _configure(lib: ctypes.CDLL) -> ctypes.CDLL:
     for name, argtypes in (
             ("row_moments", [ctypes.c_void_p] * 2 + rows + [ctypes.c_int] * 3
              + [ctypes.c_void_p]),
-            ("apply", [ctypes.c_void_p] * 6 + rows + [ctypes.c_int] * 2 + [ctypes.c_void_p]),
+            ("apply", [ctypes.c_void_p] * 7 + rows + [ctypes.c_longlong, ctypes.c_float]
+             + [ctypes.c_int] * 4 + [ctypes.c_void_p]),
             ("bwd_row_sums",
              [ctypes.c_void_p] * 6 + rows + [ctypes.c_int] * 4 + [ctypes.c_void_p]),
-            ("bwd_apply", [ctypes.c_void_p] * 8 + rows
-             + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])):
+            ("bwd_apply", [ctypes.c_void_p] * 8 + rows + [ctypes.c_float]
+             + [ctypes.c_int] * 4 + [ctypes.c_void_p])):
         fn = getattr(lib, f"aclgan_instance_norm_{name}")
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int

@@ -2430,7 +2430,7 @@ SPLIT_KERNEL_NAMES = {"instance_norm_row_moments": "row_moments_kernel",
                       "instance_norm_apply": "apply_kernel",
                       "instance_norm_bwd_row_sums": "bwd_row_sums_kernel",
                       "instance_norm_bwd_apply": "bwd_apply_kernel"}
-# K1m's and K2m's layouts off the main path: (label, shape, storage offset)
+# the split kernels' layouts off the main path: (label, shape, storage offset)
 SPLIT_EDGE_CASES = (("a ragged 7 x 9 row", (2, 3, 7, 9), 0),
                     ("bases off 16 bytes (storage offset 1)", (2, 4, 16, 16), 1),
                     ("262,144-element rows", (1, 4, 512, 512), 0))
@@ -2510,20 +2510,37 @@ def _spatial_rank(rank, world, port, vcfg, x, style, xa, xb, z, out_dir):
         dist.destroy_process_group()
 
 
+def _stats_rel(what, got, want):
+    """The largest relative difference of K1a's (mean, rsig) from `_stats`'s
+    on the card; raises above 1e-6 (`rsqrtf` against `torch.rsqrt`, and
+    torch's division by a scalar as a product with its reciprocal)."""
+    rel = 0.0
+    for a, b in zip(got, want):
+        err = (a - b).abs()
+        if not torch.all(err <= 1e-6 * b.abs()):
+            raise AssertionError(f"instance_norm_apply {what}: mean / rsig off `_stats` by "
+                                 f"{(err / b.abs()).max().item():.3g} relative (1e-6)")
+        rel = max(rel, (err / b.abs().clamp_min(1e-30)).max().item())
+    return rel
+
+
 def _split_kernels(step_launches):
     """K1m, K1a, K2m, K2a against their plain versions on the card at a rank's
     shapes of phase 27 (f32 and bf16, IN and AdaIN, every fused activation,
-    two launches of each bit-equal), K1m and K2m also on a ragged row, bases
-    off 16 bytes and 262,144-element rows; K1m's and K2m's host microseconds
-    a call against their library calls'; then each timed in bf16 over one
-    D+G iteration's layers on a rank (K1m, K1a) or one G step's (K2m, K2a),
-    by CUDA events and by torch.profiler's device time a launch; returns
-    their kernels-line entries."""
+    two launches of each bit-equal; K1a's mean and rsig against `_stats`),
+    and on a ragged row, bases off 16 bytes and 262,144-element rows; each
+    kernel's host microseconds a call against its library call's; the
+    sharded forward's chain without the collective (K1m then K1a) and
+    `_stats` alone; then each timed in bf16 over one D+G iteration's layers
+    on a rank (K1m, K1a) or one G step's (K2m, K2a), by CUDA events and by
+    torch.profiler's device time a launch; returns their kernels-line
+    entries."""
     from aclgan_tpu_torch.ops.kernels import instance_norm as K
 
     g = torch.Generator(device="cuda").manual_seed(2)
     shapes = sorted({shape for shape, _, _ in _encode_mix(SP_BATCH, SP_ROWS, SP_SIZE)})
     max_err = {name: 0.0 for _, name, _ in SPLIT_KERNELS}
+    stats_rel = 0.0
     for shape in shapes:
         n, c, h, w = shape
         base = torch.randn(shape, device="cuda", generator=g) * 2.0 + 0.5
@@ -2536,15 +2553,18 @@ def _split_kernels(step_launches):
                 s, b = (scale, shift) if affine else (None, None)
                 for activ in ("none", "relu", "lrelu", "tanh"):
                     moments = K.row_moments_plain(x)
-                    mean, rsig = K._stats(moments, h * w, 1e-5)
-                    y = K.instance_norm_apply(x, mean, rsig, s, b, activ)
+                    y, mean, rsig = K.instance_norm_apply(x, moments, h * w, 1e-5, s, b, activ)
+                    y2, mean2, rsig2 = K.instance_norm_apply(x, moments, h * w, 1e-5, s, b,
+                                                             activ)
+                    stats_rel = max(stats_rel, _stats_rel(f"{shape} {dtype}", (mean, rsig),
+                                                          K._stats(moments, h * w, 1e-5)))
                     sums = K.bwd_row_sums_plain(x, y, dy, mean, rsig, activ)
                     n_all = h * w * SP_WORLD  # K2a divides by the rows' global length
                     checks = (
                         ("instance_norm_row_moments", K.instance_norm_row_moments(x),
                          moments, "rows"),
                         ("instance_norm_apply", y,
-                         K.apply_plain(x, mean, rsig, s, b, activ), "elements"),
+                         K.apply_plain(x, moments, h * w, 1e-5, s, b, activ)[0], "elements"),
                         ("instance_norm_bwd_row_sums",
                          K.instance_norm_bwd_row_sums(x, y, dy, mean, rsig, activ), sums,
                          "rows"),
@@ -2553,12 +2573,15 @@ def _split_kernels(step_launches):
                                                    activ),
                          K.bwd_apply_plain(x, y, dy, mean, rsig, s, sums, n_all, activ),
                          "elements"))
-                    again = (K.instance_norm_row_moments(x),
-                             K.instance_norm_apply(x, mean, rsig, s, b, activ),
+                    again = (K.instance_norm_row_moments(x), y2,
                              K.instance_norm_bwd_row_sums(x, y, dy, mean, rsig, activ),
                              K.instance_norm_bwd_apply(x, y, dy, mean, rsig, s, sums, n_all,
                                                        activ))
                     torch.cuda.synchronize()
+                    if not (torch.equal(mean, mean2) and torch.equal(rsig, rsig2)):
+                        raise AssertionError(f"instance_norm_apply {shape} {dtype} "
+                                             f"affine={affine} {activ}: two launches' "
+                                             f"statistics differ")
                     for (name, got, _, _), got2 in zip(checks, again):
                         if not torch.equal(got, got2):
                             raise AssertionError(f"{name} {shape} {dtype} affine={affine} "
@@ -2579,9 +2602,10 @@ def _split_kernels(step_launches):
         log(f"[kernel] split instance norm {shape}: K1m, K1a, K2m, K2a x 16 cases within "
             f"tolerance, two launches of each bit-equal")
         del base, dy_base
-    _split_edge_checks(g, max_err)
+    stats_rel = max(stats_rel, _split_edge_checks(g, max_err))
     log("[kernel] split instance norm max abs err: "
-        + ", ".join(f"{k} {v:.3g}" for k, v in max_err.items()))
+        + ", ".join(f"{k} {v:.3g}" for k, v in max_err.items())
+        + f"; K1a's mean / rsig against `_stats` max rel {stats_rel:.3g} (1e-6)")
     host = _split_host_cost()
 
     def make(shape, affine):
@@ -2589,8 +2613,9 @@ def _split_kernels(step_launches):
         x = torch.randn(shape, device="cuda", generator=g).to(torch.bfloat16)
         scale = torch.randn(n, c, device="cuda", generator=g) if affine else None
         shift = torch.randn(n, c, device="cuda", generator=g) if affine else None
-        mean, rsig = K._stats(K.row_moments_plain(x), h * w * SP_WORLD, 1e-5)
-        y = K.instance_norm_apply(x, mean, rsig, scale, shift, "relu")
+        moments = K.row_moments_plain(x) * SP_WORLD  # the other rank's rows alike
+        y, mean, rsig = K.instance_norm_apply(x, moments, h * w * SP_WORLD, 1e-5, scale, shift,
+                                              "relu")
         dy = torch.randn(shape, device="cuda", generator=g).to(torch.bfloat16)
         sums = K.bwd_row_sums_plain(x, y, dy, mean, rsig, "relu")
         # the library calls on the (1, N*C, H, W) view, given the statistics
@@ -2600,27 +2625,27 @@ def _split_kernels(step_launches):
                    var=(rsig.flatten() ** -2 - 1e-5), ones=ones,
                    w=None if scale is None else scale.flatten(),
                    b=None if shift is None else shift.flatten())
-        return x, y, dy, mean, rsig, scale, shift, sums, h * w * SP_WORLD, lib
+        return x, y, dy, mean, rsig, scale, shift, sums, h * w * SP_WORLD, moments, lib
 
     def moments(x, *_):
         return K.instance_norm_row_moments(x)
 
-    def apply(x, y, dy, mean, rsig, scale, shift, *_):
-        return K.instance_norm_apply(x, mean, rsig, scale, shift, "relu")
+    def apply(x, y, dy, mean, rsig, scale, shift, sums, n, moments, _):
+        return K.instance_norm_apply(x, moments, n, 1e-5, scale, shift, "relu")
 
     def bwd_sums(x, y, dy, mean, rsig, *_):
         return K.instance_norm_bwd_row_sums(x, y, dy, mean, rsig, "relu")
 
-    def bwd_apply(x, y, dy, mean, rsig, scale, shift, sums, n, _):
+    def bwd_apply(x, y, dy, mean, rsig, scale, shift, sums, n, *_):
         return K.instance_norm_bwd_apply(x, y, dy, mean, rsig, scale, sums, n, "relu")
 
     plain = {
         "instance_norm_row_moments": lambda x, *_: K.row_moments_plain(x),
-        "instance_norm_apply": lambda x, y, dy, mean, rsig, scale, shift, *_:
-            K.apply_plain(x, mean, rsig, scale, shift, "relu"),
+        "instance_norm_apply": lambda x, y, dy, mean, rsig, scale, shift, sums, n, moments, _:
+            K.apply_plain(x, moments, n, 1e-5, scale, shift, "relu"),
         "instance_norm_bwd_row_sums": lambda x, y, dy, mean, rsig, *_:
             K.bwd_row_sums_plain(x, y, dy, mean, rsig, "relu"),
-        "instance_norm_bwd_apply": lambda x, y, dy, mean, rsig, scale, shift, sums, n, _:
+        "instance_norm_bwd_apply": lambda x, y, dy, mean, rsig, scale, shift, sums, n, *_:
             K.bwd_apply_plain(x, y, dy, mean, rsig, scale, sums, n, "relu")}
     library = {  # one PyTorch call for the same function (no activation gate)
         "instance_norm_row_moments": (
@@ -2628,7 +2653,8 @@ def _split_kernels(step_launches):
             lambda x, *a: torch.var_mean(x, dim=(2, 3), correction=0)),
         "instance_norm_apply": (
             "F.batch_norm in eval mode on the (1, N*C, H, W) view, the statistics as "
-            "running stats (no activation)",
+            "running stats (no activation; K1a also computes them from the moments and "
+            "writes them)",
             lambda *a: F.batch_norm(a[-1]["xv"], a[-1]["mean"], a[-1]["var"], a[-1]["w"],
                                     a[-1]["b"], False, 0.0, 1e-5)),
         "instance_norm_bwd_row_sums": (
@@ -2647,8 +2673,9 @@ def _split_kernels(step_launches):
     nbytes = {  # bf16 tensors read once, written once; f32 per-row vectors
         "instance_norm_row_moments": lambda shape, affine: 2 * math.prod(shape)
         + 8 * rows(shape),
+        # x in, y out; the moments in, mean and rsig out, scale and shift in
         "instance_norm_apply": lambda shape, affine: 4 * math.prod(shape)
-        + (16 if affine else 8) * rows(shape),
+        + (24 if affine else 16) * rows(shape),
         "instance_norm_bwd_row_sums": lambda shape, affine: 6 * math.prod(shape)
         + 16 * rows(shape),
         "instance_norm_bwd_apply": lambda shape, affine: 8 * math.prod(shape)
@@ -2657,6 +2684,7 @@ def _split_kernels(step_launches):
              "instance_norm_bwd_row_sums": 8.0, "instance_norm_bwd_apply": 10.0}
     runs = {"instance_norm_row_moments": moments, "instance_norm_apply": apply,
             "instance_norm_bwd_row_sums": bwd_sums, "instance_norm_bwd_apply": bwd_apply}
+    _split_chain(make, moments, apply)
     mixes, tots, works = {}, {}, {}
     for counter, name, _ in SPLIT_KERNELS:  # CUDA events first, before any profiler session
         fwd = counter in ("moments_launches", "apply_launches")
@@ -2703,11 +2731,13 @@ def _split_kernels(step_launches):
 
 
 def _split_edge_checks(g, max_err):
-    """K1m and K2m against their plain versions where the plan leaves the
-    phase-27 shapes' 16-byte loads and clusters: a ragged row, bases off 16
-    bytes, 262,144-element rows; f32 and bf16, every activation for K2m, two
-    launches of each bit-equal. Raises on a miss; folds the errors into
-    `max_err`."""
+    """The split kernels against their plain versions where the plans leave
+    the phase-27 shapes' 16-byte loads, clusters and chunks: a ragged row,
+    bases off 16 bytes, 262,144-element rows; f32 and bf16, every activation
+    for K1a, K2m and K2a, K1a and K2a for IN and AdaIN (from a bf16 strided
+    slice), two launches of each bit-equal. Raises on a miss; folds the errors
+    into `max_err`; returns the largest relative difference of K1a's mean and
+    rsig from `_stats`."""
     from aclgan_tpu_torch.ops.kernels import instance_norm as K
 
     def at_offset(t, offset):  # t's values in a contiguous slice `offset` elements in
@@ -2715,60 +2745,96 @@ def _split_edge_checks(g, max_err):
         buf[offset:].copy_(t.flatten())
         return buf[offset:].view(t.shape)
 
+    stats_rel = 0.0
     for label, shape, offset in SPLIT_EDGE_CASES:
         n, c, h, w = shape
         base = torch.randn(shape, device="cuda", generator=g) * 2.0 + 0.5
         dy_base = torch.randn(shape, device="cuda", generator=g)
+        packed = torch.randn(n, 3 * c, device="cuda", generator=g).to(torch.bfloat16)
         for dtype in (torch.float32, torch.bfloat16):
             x, dy = at_offset(base.to(dtype), offset), at_offset(dy_base.to(dtype), 2 * offset)
             tol = TOL[dtype]
             moments = K.row_moments_plain(x)
             mean, rsig = K._stats(moments, h * w, 1e-5)
+            # (name, case, run, want, kind): "rows" sums against their largest,
+            # "elements" outputs elementwise as K1
             cases = [("instance_norm_row_moments", "none",
-                      lambda a: K.instance_norm_row_moments(x), moments)]
+                      lambda: K.instance_norm_row_moments(x), moments, "rows")]
             for activ in ("none", "relu", "lrelu", "tanh"):
-                y = K.apply_plain(x, mean, rsig, None, None, activ)
+                y = K.apply_plain(x, moments, h * w, 1e-5, None, None, activ)[0]
                 cases.append(("instance_norm_bwd_row_sums", activ,
-                              lambda a, y=y: K.instance_norm_bwd_row_sums(x, y, dy, mean,
-                                                                          rsig, a),
-                              K.bwd_row_sums_plain(x, y, dy, mean, rsig, activ)))
-            for name, activ, run, want in cases:
-                got, again = run(activ), run(activ)
+                              lambda a=activ, y=y: K.instance_norm_bwd_row_sums(x, y, dy, mean,
+                                                                                rsig, a),
+                              K.bwd_row_sums_plain(x, y, dy, mean, rsig, activ), "rows"))
+                for s, b in ((None, None), (packed[:, c:2 * c], packed[:, :c])):
+                    case = f"{activ} affine={s is not None}"
+                    got = K.instance_norm_apply(x, moments, h * w, 1e-5, s, b, activ)
+                    stats_rel = max(stats_rel, _stats_rel(f"{label} {dtype}", got[1:],
+                                                          (mean, rsig)))
+                    cases.append(("instance_norm_apply", case,
+                                  lambda a=activ, s=s, b=b: torch.cat(
+                                      [t.flatten().float() for t in K.instance_norm_apply(
+                                          x, moments, h * w, 1e-5, s, b, a)]),
+                                  K.apply_plain(x, moments, h * w, 1e-5, s, b, activ)[0],
+                                  "elements"))
+                    y_s = got[0]
+                    sums = K.bwd_row_sums_plain(x, y_s, dy, mean, rsig, activ)
+                    cases.append(("instance_norm_bwd_apply", case,
+                                  lambda a=activ, s=s, y=y_s, sums=sums:
+                                  K.instance_norm_bwd_apply(x, y, dy, mean, rsig, s, sums,
+                                                            h * w, a),
+                                  K.bwd_apply_plain(x, y_s, dy, mean, rsig, s, sums, h * w,
+                                                    activ), "elements"))
+            for name, case, run, want, kind in cases:
+                got, again = run(), run()
                 torch.cuda.synchronize()
                 if not torch.equal(got, again):
-                    raise AssertionError(f"{name} {label} {dtype} {activ}: two launches differ")
+                    raise AssertionError(f"{name} {label} {dtype} {case}: two launches differ")
+                if name == "instance_norm_apply":  # y, then mean and rsig (checked above)
+                    got = got[:want.numel()].view(want.shape)
+                got, want = got.float(), want.float()
                 err = (got - want).abs()
                 max_err[name] = max(max_err[name], err.max().item())
-                bad = (err > tol * want.abs().max()).sum().item()
+                lim = tol + tol * want.abs() if kind == "elements" else tol * want.abs().max()
+                bad = (err > lim).sum().item()
                 if bad or not torch.isfinite(got).all():
-                    raise AssertionError(f"{name} {label} {shape} {dtype} {activ}: {bad} "
-                                         f"sums beyond tolerance, max err {err.max().item()}")
-        log(f"[kernel] split instance norm, {label} {shape}: K1m and K2m (every activation) "
-            f"within tolerance in f32 and bf16, two launches of each bit-equal")
+                    raise AssertionError(f"{name} {label} {shape} {dtype} {case}: {bad} "
+                                         f"values beyond tolerance, max err {err.max().item()}")
+        log(f"[kernel] split instance norm, {label} {shape}: K1m, K1a, K2m, K2a (every "
+            f"activation; K1a, K2a IN and AdaIN) within tolerance in f32 and bf16, two "
+            f"launches of each bit-equal")
         del base, dy_base
+    return stats_rel
 
 
 def _split_host_cost():
-    """Host microseconds a call of K1m and K2m and of their library calls
+    """Host microseconds a call of each split kernel and of its library call
     (`torch.var_mean`; `native_batch_norm_backward`'s weight and bias
-    gradients) cost at a shape whose kernels are trivial (1x1x8x8 bf16), in
-    turns, 5000 calls each, as `_op_overhead` for K1. Returns {kernel name:
-    (its us, the library call's us)}."""
+    gradients; eval-mode `F.batch_norm`, the statistics given;
+    `native_batch_norm_backward`'s input gradient) at a shape whose kernels
+    are trivial (1x1x8x8 bf16), in turns, 5000 calls each, as `_op_overhead`
+    for K1. Returns {kernel name: (its us, the library call's us)}."""
     from aclgan_tpu_torch.ops.kernels import instance_norm as K
 
     x = torch.randn(1, 1, 8, 8, device="cuda").to(torch.bfloat16)
     y, dy = torch.relu(x), torch.randn_like(x)
     mean, rsig = torch.zeros(1, 1, device="cuda"), torch.ones(1, 1, device="cuda")
+    moments = torch.stack([mean, rsig], -1) * 64
     ones, mean1, rsig1 = torch.ones(1, device="cuda"), mean.flatten(), rsig.flatten()
     calls = {
         "K1m": lambda: K.instance_norm_row_moments(x),
         "torch.var_mean": lambda: torch.var_mean(x, dim=(2, 3), correction=0),
         "K2m": lambda: K.instance_norm_bwd_row_sums(x, y, dy, mean, rsig, "relu"),
         "native_batch_norm_backward": lambda: torch.ops.aten.native_batch_norm_backward(
-            dy, x, ones, None, None, mean1, rsig1, True, 1e-5, [False, True, True])}
+            dy, x, ones, None, None, mean1, rsig1, True, 1e-5, [False, True, True]),
+        "K1a": lambda: K.instance_norm_apply(x, moments, 64, 1e-5, None, None, "relu"),
+        "F.batch_norm": lambda: F.batch_norm(x, mean1, rsig1, None, None, False, 0.0, 1e-5),
+        "K2a": lambda: K.instance_norm_bwd_apply(x, y, dy, mean, rsig, None, moments, 64,
+                                                 "relu"),
+        "native_batch_norm_backward dx": lambda: torch.ops.aten.native_batch_norm_backward(
+            dy, x, ones, None, None, mean1, rsig1, True, 1e-5, [True, False, False])}
     us = {k: [] for k in calls}
-    for turn in ("K1m", "torch.var_mean", "K2m", "native_batch_norm_backward",
-                 "native_batch_norm_backward", "K2m", "torch.var_mean", "K1m"):
+    for turn in list(calls) + list(calls)[::-1]:
         for _ in range(200):
             calls[turn]()
         torch.cuda.synchronize()
@@ -2781,7 +2847,37 @@ def _split_host_cost():
         "turns): " + "; ".join(f"{k} {', '.join(f'{u:.2f}' for u in v)} us"
                                for k, v in us.items()))
     return {"instance_norm_row_moments": (us["K1m"], us["torch.var_mean"]),
-            "instance_norm_bwd_row_sums": (us["K2m"], us["native_batch_norm_backward"])}
+            "instance_norm_bwd_row_sums": (us["K2m"], us["native_batch_norm_backward"]),
+            "instance_norm_apply": (us["K1a"], us["F.batch_norm"]),
+            "instance_norm_bwd_apply": (us["K2a"], us["native_batch_norm_backward dx"])}
+
+
+def _split_chain(make, moments, apply):
+    """The sharded forward's chain without its collective, K1m then K1a
+    (`_ShardedFusedInstanceNorm.forward` less the all-reduce), and `_stats`
+    alone (the torch ops that ran between the all-reduce and K1a before K1a
+    took the moments), each by CUDA events over one rank's D+G iteration of
+    phase 27 in bf16; logs both."""
+    from aclgan_tpu_torch.ops.kernels import instance_norm as K
+
+    mix = _d_step_mix(SP_BATCH, SP_ROWS, SP_SIZE) + _g_step_mix(SP_BATCH, SP_ROWS, SP_SIZE)
+    chain_ms = stats_ms = 0.0
+    for shape, affine, count in mix:
+        args = list(make(shape, affine))
+        m, n = args[-2], args[-3]
+
+        def chain():
+            args[-2] = moments(args[0])
+            return apply(*args)
+
+        chain_ms += count * time_ms(chain)
+        stats_ms += count * time_ms(lambda: K._stats(m, n, 1e-5))
+        del args
+    n_layers = sum(count for _, _, count in mix)
+    log(f"[kernel] split forward chain without the all-reduce, K1m then K1a, over one rank's "
+        f"D+G iteration of phase 27 ({n_layers} layers, bf16, CUDA events): {chain_ms:.4f} ms; "
+        f"`_stats` alone (what K1a's fold removed): {stats_ms:.4f} ms")
+    return chain_ms, stats_ms
 
 
 def phase_spatial_two_ranks(cfg, tmp, smi):

@@ -597,7 +597,9 @@ _M2F_SHAPES = [(2, 64, 256, 256), (2, 128, 128, 128), (2, 256, 64, 64)]
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 0.05)])
 def test_split_kernels_match_plain(cuda, dtype, tol):
     """K1m, K1a, K2m and K2a against their plain versions at male2female's
-    shapes, IN and AdaIN, every fused activation; one launch a call each."""
+    shapes, IN and AdaIN, every fused activation; K1a's mean and rsig against
+    `_stats` within 1e-6 relative (`rsqrtf` on the card); one launch a call
+    each."""
     for shape in _M2F_SHAPES:
         n, c, h, w = shape
         x = (torch.randn(shape, device="cuda", generator=cuda) * 2 + 0.5).to(dtype)
@@ -611,11 +613,17 @@ def test_split_kernels_match_plain(cuda, dtype, tol):
                 want = K.row_moments_plain(x)
                 torch.testing.assert_close(moments, want, rtol=tol,
                                            atol=tol * want.abs().max().item())
-                mean, rsig = K._stats(want, 2 * h * w, 1e-5)  # rows of two shards
-                y = K.instance_norm_apply(x, mean, rsig, s, b, activ)
-                want_y = K.apply_plain(x, mean, rsig, s, b, activ)
+                # rows of two shards: the sums over 2 * h * w elements
+                y, mean, rsig = K.instance_norm_apply(x, want, 2 * h * w, 1e-5, s, b, activ)
+                want_y, want_mean, want_rsig = K.apply_plain(x, want, 2 * h * w, 1e-5, s, b,
+                                                             activ)
                 assert y.dtype == dtype
                 torch.testing.assert_close(y.float(), want_y.float(), rtol=tol, atol=tol)
+                stats = K._stats(want, 2 * h * w, 1e-5)
+                for got, ref, other in zip((mean, rsig), stats, (want_mean, want_rsig)):
+                    assert got.shape == (n, c) and got.dtype == torch.float32
+                    torch.testing.assert_close(got, ref, rtol=1e-6, atol=0)
+                    assert torch.equal(other, ref)
                 sums = K.instance_norm_bwd_row_sums(x, y, dy, mean, rsig, activ)
                 want_s = K.bwd_row_sums_plain(x, y, dy, mean, rsig, activ)
                 torch.testing.assert_close(sums, want_s, rtol=tol,
@@ -669,7 +677,7 @@ def test_split_sums_match_plain_off_the_main_path(cuda, shape, offset, ctas, dty
     torch.testing.assert_close(got, want, rtol=tol, atol=tol * want.abs().max().item())
     mean, rsig = K._stats(want, h * w, 1e-5)
     for activ in ("none", "relu", "lrelu", "tanh"):
-        y = K.apply_plain(x, mean, rsig, None, None, activ)
+        y = K.apply_plain(x, want, h * w, 1e-5, None, None, activ)[0]
         want_s = K.bwd_row_sums_plain(x, y, dy, mean, rsig, activ)
         before = K.bwd_sums_launches
         got = K.instance_norm_bwd_row_sums(x, y, dy, mean, rsig, activ)
@@ -700,13 +708,100 @@ def test_split_sums_refuse_a_plan_they_cannot_run(cuda):
     torch.cuda.synchronize()
 
 
+# K1a's and K2a's layouts off the main path: (shape, storage offset)
+_APPLY_EDGE = [((2, 3, 7, 9), 0),        # a ragged row: one element a load, one chunk
+               ((2, 4, 16, 16), 1),      # bases off 16 bytes
+               ((1, 4, 512, 512), 0),    # 262,144-element rows over 32-64 chunks
+               ((2, 3, 1, 1), 0)]        # rows of one element
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 0.05)])
+@pytest.mark.parametrize("shape,offset", _APPLY_EDGE)
+def test_split_apply_match_plain_off_the_main_path(cuda, shape, offset, dtype, tol):
+    """K1a (IN and AdaIN from a bf16 strided slice, every activation) and K2a
+    against their plain versions on a ragged row, bases off 16 bytes,
+    262,144-element rows and rows of one element: two launches bit-equal,
+    one launch a call, the plan's chunks as `_apply_plan` gives them."""
+    n, c, h, w = shape
+    x = _at_offset((torch.randn(shape, device="cuda", generator=cuda) * 2 + 0.5).to(dtype),
+                   offset)
+    dy = _at_offset(torch.randn(shape, device="cuda", generator=cuda).to(dtype), 2 * offset)
+    chunks, vec = K._apply_plan(n * c, h * w, x.element_size(), K._align(x.data_ptr()))
+    assert (chunks > 1) == (h * w == 262144) and (vec == 1) == (offset == 1 or h * w % 2 == 1)
+    moments = K.row_moments_plain(x) * 2  # rows of two shards, the other one alike
+    packed = torch.randn(n, 3 * c, device="cuda", generator=cuda).bfloat16()
+    for s, b in ((None, None), (packed[:, c:2 * c], packed[:, :c])):
+        for activ in ("none", "relu", "lrelu", "tanh"):
+            before = (K.apply_launches, K.bwd_apply_launches)
+            y, mean, rsig = K.instance_norm_apply(x, moments, 2 * h * w, 1e-5, s, b, activ)
+            again = K.instance_norm_apply(x, moments, 2 * h * w, 1e-5, s, b, activ)
+            want_y, want_mean, want_rsig = K.apply_plain(x, moments, 2 * h * w, 1e-5, s, b,
+                                                         activ)
+            torch.cuda.synchronize()
+            assert all(torch.equal(a, b) for a, b in zip((y, mean, rsig), again))
+            torch.testing.assert_close(y.float(), want_y.float(), rtol=tol, atol=tol)
+            torch.testing.assert_close(mean, want_mean, rtol=1e-6, atol=0)
+            torch.testing.assert_close(rsig, want_rsig, rtol=1e-6, atol=0)
+            sums = K.bwd_row_sums_plain(x, y, dy, mean, rsig, activ) * 2
+            dx = K.instance_norm_bwd_apply(x, y, dy, mean, rsig, s, sums, 2 * h * w, activ)
+            dx2 = K.instance_norm_bwd_apply(x, y, dy, mean, rsig, s, sums, 2 * h * w, activ)
+            want_dx = K.bwd_apply_plain(x, y, dy, mean, rsig, s, sums, 2 * h * w, activ)
+            torch.cuda.synchronize()
+            assert (K.apply_launches, K.bwd_apply_launches) == (before[0] + 2, before[1] + 2)
+            assert torch.equal(dx, dx2) and dx.dtype == dtype
+            # dx = k * (dyp - mean(dyp) - xhat * mean(dyp * xhat)): its rounding
+            # scales with the terms k * dyp, which cancel to 0 on rows of one element
+            k = rsig * (1.0 if s is None else s.float())
+            terms = k[..., None, None] * K._gate(dy.float(), y.float(), activ)
+            size = max(want_dx.float().abs().max().item(), terms.abs().max().item())
+            torch.testing.assert_close(dx.float(), want_dx.float(), rtol=tol, atol=tol * size)
+
+
+def test_split_apply_refuses_a_plan_it_cannot_run(cuda):
+    """The C entry points of K1a and K2a return an error and launch nothing
+    (their outputs keep their bytes) for no chunk, a load wider than 16 bytes
+    or not a power of two, a row length the load does not divide, a base off
+    the load's width, or more than 2^31 - 1 CTAs."""
+    x = torch.randn(2, 3, 16, 16, device="cuda", generator=cuda).bfloat16()
+    moments = K.row_moments_plain(x)
+    stats = torch.full((2, 6), 7.0, device="cuda")
+    out = torch.full_like(x, 3.0)
+    lib, stream = K._library(), torch.cuda.current_stream().cuda_stream
+
+    def k1a(ptr, rows, row_len, chunks, vec):
+        return lib.aclgan_instance_norm_apply(
+            ptr, moments.data_ptr(), None, None, out.data_ptr(), stats[0].data_ptr(),
+            stats[1].data_ptr(), rows, row_len, 256, 1e-5, 1, 1, chunks, vec, stream)
+
+    def k2a(ptr, rows, row_len, chunks, vec):
+        return lib.aclgan_instance_norm_bwd_apply(
+            ptr, x.data_ptr(), x.data_ptr(), stats[0].data_ptr(), stats[1].data_ptr(), None,
+            moments.data_ptr(), out.data_ptr(), rows, row_len, 1 / 256, 1, 1, chunks, vec,
+            stream)
+
+    for fn in (k1a, k2a):
+        for ptr, rows, row_len, chunks, vec in (
+                (x.data_ptr(), 6, 256, 0, 8), (x.data_ptr(), 6, 256, 1, 16),
+                (x.data_ptr(), 6, 256, 1, 3), (x.data_ptr(), 6, 252, 1, 8),
+                (x.data_ptr() + 2, 6, 256, 1, 8), (x.data_ptr(), 2**30, 256, 4, 8)):
+            assert fn(ptr, rows, row_len, chunks, vec) != 0, (fn.__name__, rows, chunks, vec)
+        torch.cuda.synchronize()
+        assert torch.all(out == 3.0) and torch.all(stats == 7.0)
+    assert k1a(x.data_ptr(), 6, 256, 2, 8) == 0  # a plan it can run, to compare
+    torch.cuda.synchronize()
+    assert not torch.all(out == 3.0)
+
+
 def test_split_kernels_reject_what_they_cannot_take(cuda):
     x = torch.randn(2, 3, 8, 8, device="cuda", generator=cuda)
     mean = rsig = torch.zeros(2, 3, device="cuda")
+    moments = torch.zeros(2, 3, 2, device="cuda")
     with pytest.raises(ValueError, match="contiguous"):
         K.instance_norm_row_moments(x.to(memory_format=torch.channels_last))
     with pytest.raises(TypeError, match="float32 or bfloat16"):
-        K.instance_norm_apply(x.half(), mean, rsig, None, None)
+        K.instance_norm_apply(x.half(), moments, 64, 1e-5, None, None)
+    with pytest.raises(ValueError, match="must hold 12 values"):
+        K.instance_norm_apply(x, moments[:, :2], 64, 1e-5, None, None)
     with pytest.raises(ValueError, match="y and dy must be"):
         K.instance_norm_bwd_row_sums(x, x.bfloat16(), x, mean, rsig)
     with pytest.raises(ValueError, match="CUDA or CPU"):

@@ -10,9 +10,13 @@ import pytest
 import torch
 import torch.nn.functional as F
 
+import jax
 import jax.numpy as jnp
+from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
+from aclgan_tpu.ops.activations import apply_activation as jax_apply_activation
 from aclgan_tpu.ops.norms import instance_norm as jax_instance_norm
+from aclgan_tpu.parallel.halo import sharded_instance_norm as jax_sharded_instance_norm
 from aclgan_tpu_torch.config import from_dict
 from aclgan_tpu_torch.ops import norms, pool
 from aclgan_tpu_torch.ops.kernels import instance_norm as K
@@ -173,8 +177,9 @@ def test_split_plain_path_with_summed_slices(affine, activ):
     shift = torch.from_numpy(rng.randn(2, 6).astype(np.float32)) if affine else None
     parts = x.chunk(4, 2)
     n = x.shape[2] * x.shape[3]
-    mean, rsig = K._stats(sum(K.row_moments_plain(p) for p in parts), n, 1e-5)
-    ys = [K.apply_plain(p, mean, rsig, scale, shift, activ) for p in parts]
+    moments = sum(K.row_moments_plain(p) for p in parts)
+    ys = [K.apply_plain(p, moments, n, 1e-5, scale, shift, activ)[0] for p in parts]
+    mean, rsig = K._stats(moments, n, 1e-5)
     y = K.instance_norm_plain(x, scale, shift, activ=activ)
     torch.testing.assert_close(torch.cat(ys, 2), y, rtol=1e-5, atol=1e-5)
     dys = dy.chunk(4, 2)
@@ -187,6 +192,43 @@ def test_split_plain_path_with_summed_slices(affine, activ):
     if affine:
         torch.testing.assert_close(sums[..., 1], want_ds, rtol=1e-4, atol=1e-5)
         torch.testing.assert_close(sums[..., 0], want_db, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("activ", ["none", "relu", "lrelu", "tanh"])
+@pytest.mark.parametrize("affine", [False, True], ids=["in", "adain"])
+def test_apply_plain_from_summed_slices_matches_jax(affine, activ):
+    """K1a's plain version fed the moments of four H slices summed, against
+    the JAX package: for IN its sharded op (`sharded_instance_norm` on the
+    4-device CPU mesh of `tests/test_halo.py`), for AdaIN `instance_norm`
+    then the affine; then `apply_activation`. f32, `tests/test_halo.py`'s bar.
+    Its mean and rsig against the halo body's formula (`halo.py:146-157`) in
+    numpy from the same sums."""
+    rng = np.random.RandomState(5)
+    x_nhwc = (rng.randn(2, 16, 12, 6) * 2 + 0.5).astype(np.float32)
+    scale = rng.randn(2, 6).astype(np.float32)
+    shift = rng.randn(2, 6).astype(np.float32)
+    x = torch.from_numpy(np.ascontiguousarray(x_nhwc.transpose(0, 3, 1, 2)))
+    n = x.shape[2] * x.shape[3]
+    moments = sum(K.row_moments_plain(p) for p in x.chunk(WORLD, 2))
+    s, b = (torch.from_numpy(scale), torch.from_numpy(shift)) if affine else (None, None)
+    outs = [K.apply_plain(p, moments, n, 1e-5, s, b, activ) for p in x.chunk(WORLD, 2)]
+    got = torch.cat([y for y, _, _ in outs], 2).numpy().transpose(0, 2, 3, 1)
+    if affine:
+        want = jax_instance_norm(jnp.asarray(x_nhwc)) * scale[:, None, None, :] \
+            + shift[:, None, None, :]
+    else:
+        mesh = Mesh(np.asarray(jax.devices()[:WORLD]), ("spatial",))
+        x_sh = jax.device_put(jnp.asarray(x_nhwc), NamedSharding(mesh, P(None, "spatial")))
+        want = jax_sharded_instance_norm(x_sh, mesh)
+    want = np.asarray(jax_apply_activation(want, activ))
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5)
+    sums = moments.numpy()
+    want_mean = sums[..., 0] / np.float32(n)
+    var = np.maximum(sums[..., 1] / np.float32(n) - want_mean * want_mean, np.float32(0))
+    want_rsig = np.float32(1) / np.sqrt(var + np.float32(1e-5))
+    for _, mean, rsig in outs:  # every slice's call gives the same statistics
+        np.testing.assert_array_equal(mean.numpy(), want_mean)
+        np.testing.assert_allclose(rsig.numpy(), want_rsig, rtol=1e-6, atol=0)
 
 
 def _fake_mesh(n_spatial, rank=0):

@@ -1,10 +1,14 @@
-"""K1m's and K2m's launch plan (`_split_plan`: CTAs a row and elements a load),
-the chunks it gives each CTA of a cluster, the reduction order it implies
-against the plain versions, and the kernels' ctypes signatures set once. All
-on the CPU; the kernels themselves run in `tests/test_torch_cuda.py`, and the
-plain versions are held to the JAX package in `tests/test_torch_halo.py`."""
+"""The split kernels' launch plans: K1m's and K2m's (`_split_plan`: CTAs a
+row and elements a load), the chunks it gives each CTA of a cluster and the
+reduction order it implies against the plain versions; K1a's and K2a's
+(`_apply_plan`: chunks a row and elements a load), the chunks covering each
+row once and the C entry points' refusal of a plan they cannot run; the
+kernels' ctypes signatures set once. All on the CPU; the kernels themselves
+run in `tests/test_torch_cuda.py`, and the plain versions are held to the JAX
+package in `tests/test_torch_halo.py`."""
 
 import ctypes
+import re
 
 import numpy as np
 import pytest
@@ -57,7 +61,7 @@ def test_plan_picks_these_clusters(rows, row_len, elem, want):
     assert K._split_plan(rows, row_len, elem, 16)[0] == want
 
 
-@pytest.mark.parametrize("row_len,elem,align,want_vec", [
+NARROWED = [
     (63, 2, 16, 1),        # a ragged 7 x 9 row: odd, so one element a load
     (63, 4, 16, 1),
     (62, 2, 16, 2),
@@ -70,7 +74,10 @@ def test_plan_picks_these_clusters(rows, row_len, elem, want):
     (256, 4, 8, 2),
     (256, 2, 16, 8),
     (256, 4, 16, 4),
-])
+]
+
+
+@pytest.mark.parametrize("row_len,elem,align,want_vec", NARROWED)
 def test_plan_narrows_the_load(row_len, elem, align, want_vec):
     """The widest load within 16 bytes that divides the base alignment and
     the row length, so every row starts on a whole load."""
@@ -152,8 +159,7 @@ def test_planned_order_matches_bwd_row_sums_plain(shape, dtype, activ):
     n, c, h, w = shape
     x = torch.from_numpy(rng.randn(*shape).astype(np.float32) * 2 + 0.5).to(dtype)
     dy = torch.from_numpy(rng.randn(*shape).astype(np.float32)).to(dtype)
-    mean, rsig = K._stats(K.row_moments_plain(x), h * w, 1e-5)
-    y = K.apply_plain(x, mean, rsig, None, None, activ)
+    y, mean, rsig = K.apply_plain(x, K.row_moments_plain(x), h * w, 1e-5, None, None, activ)
     got, _ = _planned(lambda a, b, d: K.bwd_row_sums_plain(a, b, d, mean, rsig, activ),
                       x, y, dy)
     want = K.bwd_row_sums_plain(x, y, dy, mean, rsig, activ)
@@ -212,6 +218,12 @@ def test_library_sets_ctypes_signatures_once(monkeypatch):
         [ctypes.c_int] * 3 + [ctypes.c_void_p]
     assert fns["aclgan_instance_norm_bwd_row_sums"].argtypes[-5:] == \
         [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    # K1a takes n and eps, then (dtype, act, chunks_per_row, vec) before the
+    # stream; K2a inv_n and the same four
+    assert fns["aclgan_instance_norm_apply"].argtypes[-7:] == \
+        [ctypes.c_longlong, ctypes.c_float] + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    assert fns["aclgan_instance_norm_bwd_apply"].argtypes[-6:] == \
+        [ctypes.c_float] + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 
 
 def test_split_wrappers_take_the_plain_version_on_the_cpu():
@@ -227,3 +239,149 @@ def test_split_wrappers_take_the_plain_version_on_the_cpu():
                                K.bwd_row_sums_plain(x, x, dy, mean, rsig, "relu"),
                                rtol=0, atol=0)
     assert (K.moments_launches, K.bwd_sums_launches) == before
+
+
+# ------------------------------------------------------------- K1a and K2a
+@pytest.mark.parametrize("dtype", sorted(ELEM_BYTES))
+@pytest.mark.parametrize("shape", PHASE27_SHAPES)
+def test_apply_plan_on_phase27_shapes(shape, dtype):
+    """16-byte loads on every aligned layer; a row cut into chunks only while
+    the card is short of CTAs and each thread keeps its loads, and no further."""
+    n, c, h, w = shape
+    rows, row_len, elem = n * c, h * w, ELEM_BYTES[dtype]
+    chunks, vec = K._apply_plan(rows, row_len, elem, 16)
+    assert vec * elem == 16
+    target = K.SPLIT_WAVES * K.SPLIT_SMS
+    least = K.SPLIT_THREADS * K.SPLIT_MIN_LOADS  # vectors a chunk holds at least
+    if chunks > 1:
+        assert rows * chunks <= target and row_len // vec // chunks >= least
+    assert rows * (chunks + 1) > target or row_len // vec // (chunks + 1) < least
+
+
+@pytest.mark.parametrize("rows,row_len,elem,want", [
+    (128, 131072, 2, 4),   # a rank's 64 x 256 x 512 layer at batch 2
+    (256, 131072, 2, 2),   # at batch 4
+    (256, 32768, 2, 2),
+    (512, 32768, 2, 1),
+    (512, 8192, 2, 1),     # the 64 x 128 rows: one CTA a row
+    (1536, 8192, 2, 1),
+    (128, 131072, 4, 4),
+    (4, 262144, 2, 32),    # the long-row check's (1, 4, 512, 512): each thread's loads cap it
+    (16, 262144, 4, 33),   # 16 rows: the CTA target caps it
+    (8, 4096, 2, 1),       # few rows, too short to cut
+    (6, 63, 2, 1),         # a ragged 7 x 9 row
+    (6, 1, 2, 1),          # rows of one element
+    (6, 0, 2, 1),          # empty rows: chunk 0 still writes the statistics
+])
+def test_apply_plan_picks_these_chunks(rows, row_len, elem, want):
+    assert K._apply_plan(rows, row_len, elem, 16)[0] == want
+
+
+@pytest.mark.parametrize("row_len,elem,align,want_vec", NARROWED)
+def test_apply_plan_narrows_the_load(row_len, elem, align, want_vec):
+    """K1a's and K2a's load is `_split_plan`'s: the widest within 16 bytes
+    that divides every base's alignment and the row length."""
+    chunks, vec = K._apply_plan(6, row_len, elem, align)
+    assert vec == want_vec == K._split_plan(6, row_len, elem, align)[1]
+    assert chunks >= 1
+
+
+# (rows, row_len, element bytes, base alignment): phase-27 rows, a ragged row
+# alone and over many chunks, rows of one element, bases off 16 bytes
+_COVER = [(128, 131072, 2, 16), (256, 32768, 4, 16), (512, 8192, 2, 16), (6, 63, 2, 16),
+          (4, 262143, 2, 16), (4, 262144, 2, 16), (4, 262144, 2, 2), (16, 262144, 4, 8),
+          (6, 1, 4, 16), (3, 4100, 2, 4)]
+
+
+@pytest.mark.parametrize("rows,row_len,elem,align", _COVER)
+def test_apply_chunks_cover_each_row_once(rows, row_len, elem, align):
+    """The chunks of a planned row cover each element exactly once, in order,
+    each chunk starting on a whole vector and the last one ending the row
+    (the row_len % vec tail included)."""
+    chunks, vec = K._apply_plan(rows, row_len, elem, align)
+    bounds = K._chunk_bounds(row_len, chunks, vec)
+    assert len(bounds) == chunks
+    hits = np.zeros(row_len, np.int64)
+    for lo, hi in bounds:
+        assert lo % vec == 0 and lo <= hi
+        hits[lo:hi] += 1
+    assert np.all(hits == 1)
+    assert bounds[-1][1] == row_len
+    if row_len >= 2 * K.SPLIT_THREADS * vec * K.SPLIT_MIN_LOADS and rows < 64:
+        assert chunks > 1  # these rows are cut
+
+
+def _cu_body(src: str, signature: str) -> str:
+    """The body of the C++ function whose definition starts with `signature`."""
+    start = src.index("{", src.index(signature))
+    depth = 0
+    for i in range(start, len(src)):
+        depth += {"{": 1, "}": -1}.get(src[i], 0)
+        if depth == 0:
+            return src[start + 1:i]
+    raise AssertionError(f"unbalanced braces after {signature}")
+
+
+def test_apply_entry_points_refuse_a_bad_plan_before_launching():
+    """The `.cu` contract: K1a's and K2a's entry points check the plan with
+    `apply_plan_ok` before anything else and return cudaErrorInvalidValue
+    without launching when it fails; the check refuses fewer than one chunk,
+    more than 2^31 - 1 CTAs, a load wider than 16 bytes or not a power of
+    two, a row length it does not divide and a base off its width. Every
+    plan `_apply_plan` makes passes that check."""
+    src = (build.CSRC / K.SOURCE).read_text()
+    load_ok = _cu_body(src, "bool load_ok(")
+    for clause in ("vec < 1", "vec & (vec - 1)", "vec * sizeof(T) > 16", "row_len % vec",
+                   "% (vec * sizeof(T))"):
+        assert clause in load_ok, clause
+    plan_ok = _cu_body(src, "bool apply_plan_ok(")
+    for clause in ("chunks >= 1", "rows * chunks <= INT_MAX", "load_ok<T>(bases, row_len, vec)"):
+        assert clause in plan_ok, clause
+    for name, bases in (("int run_apply(", "{x, y}"), ("int run_bwd_apply(", "{x, y, dy, dx}")):
+        body = _cu_body(src, name).strip()
+        assert re.match(r"if \(!apply_plan_ok<T>\(" + re.escape(bases)
+                        + r", rows, row_len, chunks, vec\)\)\s*return static_cast<int>"
+                        r"\(cudaErrorInvalidValue\);", body), name
+        # the one launch (a macro over vec 1, 2, 4, 8) comes after the check
+        assert body.count("launch_apply(") == 1
+        assert body.index("launch_apply(") > body.index("cudaErrorInvalidValue")
+    for entry, impl in (("aclgan_instance_norm_apply(", "run_apply<"),
+                        ("aclgan_instance_norm_bwd_apply(", "run_bwd_apply<")):
+        body = _cu_body(src, 'extern "C" int ' + entry)
+        assert "<<<" not in body and "launch_apply" not in body and impl in body
+
+    def contract(rows, row_len, elem, align, chunks, vec):  # apply_plan_ok, restated
+        return (chunks >= 1 and rows * chunks <= 2**31 - 1 and vec >= 1
+                and vec & (vec - 1) == 0 and vec * elem <= 16 and row_len % vec == 0
+                and align % (vec * elem) == 0)
+
+    for rows, row_len, elem, align in _COVER + [(n * c, h * w, e, 16)
+                                                for n, c, h, w in PHASE27_SHAPES
+                                                for e in (2, 4)]:
+        assert contract(rows, row_len, elem, align, *K._apply_plan(rows, row_len, elem, align))
+    for bad in ((6, 256, 2, 16, 0, 8), (6, 256, 2, 16, 1, 16), (6, 256, 2, 16, 1, 3),
+                (6, 256, 2, 2, 1, 8), (6, 63, 2, 16, 1, 2), (2**30, 256, 2, 16, 2, 8)):
+        assert not contract(*bad), bad
+
+
+def test_apply_wrappers_take_the_plain_version_on_the_cpu():
+    """On CPU tensors K1a and K2a are their plain versions, launch nothing and
+    load no library; K1a's statistics are `_stats`'s to the bit."""
+    rng = np.random.RandomState(4)
+    x = torch.from_numpy((rng.randn(2, 3, 7, 9) * 2 + 0.5).astype(np.float32))
+    dy = torch.from_numpy(rng.randn(2, 3, 7, 9).astype(np.float32))
+    scale, shift = (torch.from_numpy(rng.randn(2, 3).astype(np.float32)) for _ in range(2))
+    moments = K.row_moments_plain(x)
+    before = (K.apply_launches, K.bwd_apply_launches)
+    y, mean, rsig = K.instance_norm_apply(x, moments, 63, 1e-5, scale, shift, "lrelu")
+    want = K.apply_plain(x, moments, 63, 1e-5, scale, shift, "lrelu")
+    for got, w in zip((y, mean, rsig), want):
+        torch.testing.assert_close(got, w, rtol=0, atol=0)
+    want_mean, want_rsig = K._stats(moments, 63, 1e-5)
+    assert torch.equal(mean, want_mean) and torch.equal(rsig, want_rsig)
+    assert mean.shape == rsig.shape == (2, 3) and mean.dtype == torch.float32
+    sums = K.bwd_row_sums_plain(x, y, dy, mean, rsig, "lrelu")
+    torch.testing.assert_close(
+        K.instance_norm_bwd_apply(x, y, dy, mean, rsig, scale, sums, 63, "lrelu"),
+        K.bwd_apply_plain(x, y, dy, mean, rsig, scale, sums, 63, "lrelu"), rtol=0, atol=0)
+    assert (K.apply_launches, K.bwd_apply_launches) == before
