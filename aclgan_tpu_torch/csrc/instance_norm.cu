@@ -9,27 +9,58 @@
 // the input's dtype.
 //
 // Backward (K2) replaces _bwd_kernel (launched by _bwd_pallas): the
-// activation gate taken from the saved output y, the stats recomputed from x,
-// dx = rsig * s * (dyp - mean(dyp) - xhat * mean(dyp * xhat)) in x's dtype, and
+// activation gate taken from the saved output y, xhat from the statistics K1
+// saved, dx = rsig * s * (dyp - mean(dyp) - xhat * mean(dyp * xhat)) in x's dtype, and
 // per row dscale = sum(dyp * xhat), dshift = sum(dyp) in f32.
 //
 // Layout: x is NCHW-contiguous, seen as rows = N*C rows of row_len = H*W
 // contiguous elements; scale/shift are (N, C) f32, so row r uses scale[r].
-// One 256-thread block per row. The TPU kernel held a whole sample slab in
-// VMEM; a 65,536-element row (256 KB in f32) does not fit in shared memory,
-// so every pass streams the row from global memory / L2: pass 1 sums, pass 2
-// sums squared deviations from the mean, pass 3 normalizes and stores.
+// K1 can also write each row's f32 (mean, rsig), (N, C), and K2 takes them
+// instead of recomputing them: the autograd pair saves K1's for K2, so K2 is
+// the function of (x, scale, y, dy) that _bwd_pallas is, given the
+// statistics of x that the forward computed (the no-grad op asks for none).
 //
-// Bound on an H100: memory. The forward must read x once and write y once
-// (2 * 2 bytes per element in bf16); the kernel reads x three times, so its
-// traffic is 2x the bound whenever a layer's rows overflow the 50 MB L2. The
-// backward must read x, y and dy once and write dx once (4 * 2 bytes per
-// element in bf16); the kernel streams x four times and y and dy twice (8
-// reads), so it moves up to 2.25x the bound's bytes: with ~1,000 rows in
-// flight the rows of a 64x256^2 layer (384 KB of x, y and dy each in bf16)
-// do not stay in L2 between passes. Taking (mean, rsig) saved by the forward
-// would drop two passes; the kernel recomputes them so that it stays a
-// function of (x, scale, y, dy), as _bwd_pallas is.
+// Bound on an H100: bytes. The forward must read x once and write y once
+// (2 * 2 bytes an element in bf16); the backward must read x, y and dy once
+// and write dx once (4 * 2 bytes). Both reduce each row before they can
+// write it, so a kernel that streams the row from global memory reads it
+// again after each reduction. The TPU kernel held a whole sample slab in
+// VMEM; here the row is held in registers instead: each thread loads its
+// share of the row once, as packed 16-byte words (a narrower word, down to
+// one element, where the launch plan finds a base or a row length off 16
+// bytes), all of its loads issued before any arithmetic. A row longer than
+// one 256-thread CTA holds is split into whole-vector chunks over a thread
+// block cluster of 2, 4 or 8 CTAs (chunk_bounds); each CTA reduces its chunk,
+// and every CTA adds the cluster's partial sums in rank order through
+// distributed shared memory, so all CTAs of a row hold the same bits of each
+// statistic and no float atomics are used (two launches give the same bits).
+// K1 on chip reads x once and writes y once: sum -> mean, centered sum of
+// squares -> rsig, then normalize / affine / activation / cast from the
+// registers. K2 on chip reads x, y and dy once and writes dx once: the gated
+// dy and xhat from the saved statistics, their two row sums, then dx.
+//
+// Registers are the budget: what bounds the on-chip kernels is the CTAs an
+// SM holds while others wait on their reductions. A thread holds at most 32
+// elements of each input in bf16 (K1: 16 registers of x, 32 once unpacked;
+// K2: 48 registers of x, y and dy), so a row of up to 8 x 256 x 32 = 65,536
+// elements (every row of the 256^2 model) goes on chip. In f32 K2 holds 16
+// (the same 48 registers), so its rows above 32,768 elements stream; K1
+// holds 64 (64 registers: f32 needs no unpacking), so its rows up to 131,072
+// elements go on chip and a 16,384-element row (the f32 checks' 128^2 layers)
+// takes one CTA. One CTA sums a row in the streaming variant's order, bit for
+// bit; phase 23 of chip_smoke.py (two data-parallel ranks against one
+// process, f32, a discriminator with IN) moved across its 1e-3 bar under a
+// change of that rounding alone (2 CTAs: 1.13e-3; one CTA: 1.6e-4). f32 is
+// the checking dtype (the training path runs in bf16). A kernel is built for
+// its full load count and for half, taken where a chunk fits (a 4,096-element
+// row on one CTA), so that a short row's CTA takes fewer registers; K2 keeps
+// dyp and xhat as two floats an element after its loads (the three inputs
+// unpacked would be three).
+// The plan comes from the
+// wrapper (`ops/kernels/instance_norm.py::_fused_plan`); a row that does not
+// fit on 8 CTAs takes the streaming variant, one CTA a row: K1 streams x
+// three times (sum, centered sum of squares, normalize), K2 streams x, y and
+// dy twice (the two sums, then dx), each with the plan's loads.
 //
 // The split form (K1m, K1a, K2m, K2a, below) computes the same two functions
 // when a row's elements are spread over ranks (H sharding): K1m and K2m
@@ -111,42 +142,6 @@ __device__ __forceinline__ float activate(float v, int act) {
   }
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-instance_norm_fwd_kernel(const T* __restrict__ x, const float* __restrict__ scale,
-                         const float* __restrict__ shift, T* __restrict__ y,
-                         int64_t row_len, float eps, int act) {
-  __shared__ float smem[kWarps];
-  const int64_t row = blockIdx.x;
-  const T* xr = x + row * row_len;
-  T* yr = y + row * row_len;
-  const float inv_len = 1.f / static_cast<float>(row_len);
-
-  float acc = 0.f;
-#pragma unroll 4
-  for (int64_t i = threadIdx.x; i < row_len; i += kThreads) acc += load_f32(xr + i);
-  const float mean = block_sum(acc, smem) * inv_len;
-
-  acc = 0.f;
-#pragma unroll 4
-  for (int64_t i = threadIdx.x; i < row_len; i += kThreads) {
-    const float d = load_f32(xr + i) - mean;
-    acc += d * d;
-  }
-  const float rsig = rsqrtf(block_sum(acc, smem) * inv_len + eps);
-
-  const bool affine = scale != nullptr;
-  const float s = affine ? scale[row] : 1.f;
-  const float b = affine ? shift[row] : 0.f;
-#pragma unroll 4
-  for (int64_t i = threadIdx.x; i < row_len; i += kThreads) {
-    float v = (load_f32(xr + i) - mean) * rsig;
-    if (affine) v = v * s + b;
-    store_f32(yr + i, activate(v, act));
-  }
-}
-
-
 // Upstream gradient through the activation, from the activation's output y
 // (relu and lrelu keep the sign of their input; tanh' = 1 - y^2).
 __device__ __forceinline__ float gate(float dy, float y, int act) {
@@ -157,67 +152,6 @@ __device__ __forceinline__ float gate(float dy, float y, int act) {
     default: return dy;
   }
 }
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-instance_norm_bwd_kernel(const T* __restrict__ x, const float* __restrict__ scale,
-                         const T* __restrict__ y, const T* __restrict__ dy,
-                         T* __restrict__ dx, float* __restrict__ dscale,
-                         float* __restrict__ dshift, int64_t row_len, float eps,
-                         int act) {
-  __shared__ float smem[kWarps];
-  const int64_t row = blockIdx.x;
-  const int64_t off = row * row_len;
-  const T* xr = x + off;
-  const T* yr = y + off;
-  const T* dyr = dy + off;
-  T* dxr = dx + off;
-  const float inv_len = 1.f / static_cast<float>(row_len);
-
-  // pass 1: mean
-  float acc = 0.f;
-#pragma unroll 4
-  for (int64_t i = threadIdx.x; i < row_len; i += kThreads) acc += load_f32(xr + i);
-  const float mean = block_sum(acc, smem) * inv_len;
-
-  // pass 2: centered variance
-  acc = 0.f;
-#pragma unroll 4
-  for (int64_t i = threadIdx.x; i < row_len; i += kThreads) {
-    const float d = load_f32(xr + i) - mean;
-    acc += d * d;
-  }
-  const float rsig = rsqrtf(block_sum(acc, smem) * inv_len + eps);
-
-  // pass 3: gated dy, with sum(dyp) and sum(dyp * xhat)
-  float s_dy = 0.f, s_dyx = 0.f;
-#pragma unroll 4
-  for (int64_t i = threadIdx.x; i < row_len; i += kThreads) {
-    const float g = gate(load_f32(dyr + i), load_f32(yr + i), act);
-    s_dy += g;
-    s_dyx += g * ((load_f32(xr + i) - mean) * rsig);
-  }
-  s_dy = block_sum(s_dy, smem);
-  s_dyx = block_sum(s_dyx, smem);
-
-  const float s = scale != nullptr ? scale[row] : 1.f;
-  if (dscale != nullptr && threadIdx.x == 0) {
-    dscale[row] = s_dyx;
-    dshift[row] = s_dy;
-  }
-
-  // pass 4: dx
-  const float m_dy = s_dy * inv_len;
-  const float m_dyx = s_dyx * inv_len;
-  const float k = rsig * s;
-#pragma unroll 4
-  for (int64_t i = threadIdx.x; i < row_len; i += kThreads) {
-    const float g = gate(load_f32(dyr + i), load_f32(yr + i), act);
-    const float xhat = (load_f32(xr + i) - mean) * rsig;
-    store_f32(dxr + i, k * (g - m_dy - xhat * m_dyx));
-  }
-}
-
 
 // ---------------------------------------------------------------------------
 // The split form, for rows whose elements lie on several ranks (an
@@ -545,6 +479,349 @@ bwd_apply_kernel(const T* __restrict__ x, const T* __restrict__ y,
   }
 }
 
+// ---------------------------------------------------------------------------
+// K1 and K2 (the unsharded pair; design in the header). The grid of the on-chip
+// variants is rows * ctas CTAs, in clusters of ctas along x when ctas > 1, so
+// CTA blockIdx.x is rank blockIdx.x % ctas of row blockIdx.x / ctas; the
+// streaming variants run one CTA a row.
+// Elements of each input a thread of an on-chip kernel holds, at most (the
+// header says why): K1 32 in bf16, 64 in f32; K2 32 in bf16, 16 in f32.
+template <typename T, int INPUTS>
+__host__ __device__ constexpr int row_elems() {
+  return sizeof(T) == 2 ? 32 : (INPUTS == 1 ? 64 : 16);
+}
+
+// A float or float2 from another lane of the warp, and the sum of two.
+__device__ __forceinline__ float shfl_from(float v, int lane) {
+  return __shfl_sync(0xffffffffu, v, lane);
+}
+__device__ __forceinline__ float2 shfl_from(float2 v, int lane) {
+  return make_float2(__shfl_sync(0xffffffffu, v.x, lane), __shfl_sync(0xffffffffu, v.y, lane));
+}
+__device__ __forceinline__ float add(float a, float b) { return a + b; }
+__device__ __forceinline__ float2 add(float2 a, float2 b) {
+  return make_float2(a.x + b.x, a.y + b.y);
+}
+
+// The row's total of a value whose CTA total v every thread holds: v itself
+// on one CTA; over a cluster, each CTA's thread 0 publishes its v in `slot`,
+// and after cluster.sync() every warp reads the ctas slots (lane r reads
+// rank r's) and adds them in rank order, so every thread of every CTA of the
+// row gets the same bits. The caller ends with a cluster.sync() after its last
+// row_total, so that no CTA exits while another may still read its slot.
+template <typename V>
+__device__ __forceinline__ V row_total(V v, int ctas, V* slot) {
+  if (ctas == 1) return v;
+  cg::cluster_group cluster = cg::this_cluster();
+  if (threadIdx.x == 0) *slot = v;
+  cluster.sync();
+  const int lane = threadIdx.x & 31;
+  const V mine = *cluster.map_shared_rank(slot, lane < ctas ? lane : 0);
+  V t = shfl_from(mine, 0);
+  for (int r = 1; r < ctas; ++r) t = add(t, shfl_from(mine, r));
+  return t;
+}
+
+// Sum of v.x and of v.y over the block; every thread receives both.
+__device__ __forceinline__ float2 block_sum2(float2 v, float2* smem) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    v.x += __shfl_xor_sync(0xffffffffu, v.x, o);
+    v.y += __shfl_xor_sync(0xffffffffu, v.y, o);
+  }
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  if (lane == 0) smem[warp] = v;
+  __syncthreads();
+  v = lane < kWarps ? smem[lane] : make_float2(0.f, 0.f);
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    v.x += __shfl_xor_sync(0xffffffffu, v.x, o);
+    v.y += __shfl_xor_sync(0xffffffffu, v.y, o);
+  }
+  __syncthreads();
+  return v;
+}
+
+// The last cluster barrier of an on-chip kernel, split: each CTA arrives
+// once it has read the other CTAs' slots, stores its outputs, and waits at
+// its end, so that no CTA exits (freeing its slots) while another may still
+// read them, and the stores overlap the barrier.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+
+// K1 on chip: the CTA's chunk of the row (chunk_bounds) in registers, LOADS
+// vectors of VEC elements a thread, then mean, rsig and y as the header says,
+// in the arithmetic order of the streaming variant. Rank 0's thread 0 writes
+// (mean, rsig) when mean_out is not null.
+template <typename T, int VEC, int LOADS>
+__global__ void __launch_bounds__(kThreads)
+instance_norm_fwd_onchip_kernel(const T* __restrict__ x, const float* __restrict__ scale,
+                                const float* __restrict__ shift, T* __restrict__ y,
+                                float* __restrict__ mean_out, float* __restrict__ rsig_out,
+                                int64_t row_len, float eps, int act, int ctas) {
+  __shared__ float smem[kWarps];
+  __shared__ float partial[2];
+  const int rank = static_cast<int>(blockIdx.x % ctas);
+  const int64_t row = blockIdx.x / ctas;
+  const T* xr = x + row * row_len;
+  T* yr = y + row * row_len;
+  int64_t lo, hi;
+  chunk_bounds(row_len / VEC, rank, ctas, &lo, &hi);
+  const int64_t i0 = lo + threadIdx.x;
+  Pack<T, VEC> p[LOADS];
+#pragma unroll
+  for (int u = 0; u < LOADS; ++u) {
+    if (i0 + u * kThreads < hi) p[u] = load_pack<T, VEC>(xr + (i0 + u * kThreads) * VEC);
+  }
+  const float inv_len = 1.f / static_cast<float>(row_len);
+  float acc = 0.f;
+#pragma unroll
+  for (int u = 0; u < LOADS; ++u) {
+    if (i0 + u * kThreads < hi) {
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) acc += p[u][e];
+    }
+  }
+  const float mean = row_total(block_sum(acc, smem), ctas, &partial[0]) * inv_len;
+  acc = 0.f;
+#pragma unroll
+  for (int u = 0; u < LOADS; ++u) {
+    if (i0 + u * kThreads < hi) {
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) {
+        const float d = p[u][e] - mean;
+        acc += d * d;
+      }
+    }
+  }
+  const float rsig =
+      rsqrtf(row_total(block_sum(acc, smem), ctas, &partial[1]) * inv_len + eps);
+  if (ctas > 1) cluster_arrive();  // this CTA has read every rank's partial[1]
+  if (mean_out != nullptr && rank == 0 && threadIdx.x == 0) {
+    mean_out[row] = mean;
+    rsig_out[row] = rsig;
+  }
+  const bool affine = scale != nullptr;
+  const float s = affine ? scale[row] : 1.f;
+  const float b = affine ? shift[row] : 0.f;
+#pragma unroll
+  for (int u = 0; u < LOADS; ++u) {
+    if (i0 + u * kThreads < hi) {
+      float v[VEC];
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) {
+        v[e] = (p[u][e] - mean) * rsig;
+        if (affine) v[e] = v[e] * s + b;
+        v[e] = activate(v[e], act);
+      }
+      store_pack<T, VEC>(yr + (i0 + u * kThreads) * VEC, v);
+    }
+  }
+  if (ctas > 1) cluster_wait();  // every rank has read this CTA's partial[1]
+}
+
+// K1 streaming: one CTA a row, x streamed three times with the plan's loads.
+template <typename T, int VEC>
+__global__ void __launch_bounds__(kThreads)
+instance_norm_fwd_kernel(const T* __restrict__ x, const float* __restrict__ scale,
+                         const float* __restrict__ shift, T* __restrict__ y,
+                         float* __restrict__ mean_out, float* __restrict__ rsig_out,
+                         int64_t row_len, float eps, int act) {
+  __shared__ float smem[kWarps];
+  const int64_t row = blockIdx.x;
+  const T* xr = x + row * row_len;
+  T* yr = y + row * row_len;
+  const int64_t n_vec = row_len / VEC;
+  const float inv_len = 1.f / static_cast<float>(row_len);
+
+  float acc = 0.f;
+#pragma unroll 4
+  for (int64_t i = threadIdx.x; i < n_vec; i += kThreads) {
+    const Pack<T, VEC> p = load_pack<T, VEC>(xr + i * VEC);
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) acc += p[e];
+  }
+  const float mean = block_sum(acc, smem) * inv_len;
+
+  acc = 0.f;
+#pragma unroll 4
+  for (int64_t i = threadIdx.x; i < n_vec; i += kThreads) {
+    const Pack<T, VEC> p = load_pack<T, VEC>(xr + i * VEC);
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) {
+      const float d = p[e] - mean;
+      acc += d * d;
+    }
+  }
+  const float rsig = rsqrtf(block_sum(acc, smem) * inv_len + eps);
+  if (mean_out != nullptr && threadIdx.x == 0) {
+    mean_out[row] = mean;
+    rsig_out[row] = rsig;
+  }
+
+  const bool affine = scale != nullptr;
+  const float s = affine ? scale[row] : 1.f;
+  const float b = affine ? shift[row] : 0.f;
+#pragma unroll 4
+  for (int64_t i = threadIdx.x; i < n_vec; i += kThreads) {
+    const Pack<T, VEC> p = load_pack<T, VEC>(xr + i * VEC);
+    float v[VEC];
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) {
+      v[e] = (p[e] - mean) * rsig;
+      if (affine) v[e] = v[e] * s + b;
+      v[e] = activate(v[e], act);
+    }
+    store_pack<T, VEC>(yr + i * VEC, v);
+  }
+}
+
+// K2 on chip: the CTA's chunk of x, y and dy in registers; dyp = dy gated
+// from y, xhat = (x - mean[row]) * rsig[row], kept as two floats an element
+// (fewer registers than the three inputs unpacked) for dx; the row's (sum
+// dyp, sum dyp * xhat) over the CTA and the cluster; rank 0's thread 0
+// writes dshift and dscale (when dscale is not null); dx = rsig * s * (dyp -
+// sum dyp / n - xhat * sum(dyp * xhat) / n).
+template <typename T, int VEC, int LOADS>
+__global__ void __launch_bounds__(kThreads)
+instance_norm_bwd_onchip_kernel(const T* __restrict__ x, const float* __restrict__ scale,
+                                const T* __restrict__ y, const T* __restrict__ dy,
+                                const float* __restrict__ mean, const float* __restrict__ rsig,
+                                T* __restrict__ dx, float* __restrict__ dscale,
+                                float* __restrict__ dshift, int64_t row_len, int act,
+                                int ctas) {
+  __shared__ float2 smem[kWarps];
+  __shared__ float2 partial;
+  const int rank = static_cast<int>(blockIdx.x % ctas);
+  const int64_t row = blockIdx.x / ctas;
+  const int64_t off = row * row_len;
+  const T* xr = x + off;
+  const T* yr = y + off;
+  const T* dyr = dy + off;
+  T* dxr = dx + off;
+  int64_t lo, hi;
+  chunk_bounds(row_len / VEC, rank, ctas, &lo, &hi);
+  const int64_t i0 = lo + threadIdx.x;
+  float g[LOADS][VEC], xh[LOADS][VEC];
+  {
+    Pack<T, VEC> px[LOADS], py[LOADS], pd[LOADS];
+#pragma unroll
+    for (int u = 0; u < LOADS; ++u) {
+      const int64_t i = i0 + u * kThreads;
+      if (i < hi) {
+        px[u] = load_pack<T, VEC>(xr + i * VEC);
+        py[u] = load_pack<T, VEC>(yr + i * VEC);
+        pd[u] = load_pack<T, VEC>(dyr + i * VEC);
+      }
+    }
+    const float m = mean[row];
+    const float r = rsig[row];
+#pragma unroll
+    for (int u = 0; u < LOADS; ++u) {
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) {
+        g[u][e] = gate(pd[u][e], py[u][e], act);
+        xh[u][e] = (px[u][e] - m) * r;
+      }
+    }
+  }
+  float2 acc = make_float2(0.f, 0.f);
+#pragma unroll
+  for (int u = 0; u < LOADS; ++u) {
+    if (i0 + u * kThreads < hi) {
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) {
+        acc.x += g[u][e];
+        acc.y += g[u][e] * xh[u][e];
+      }
+    }
+  }
+  const float2 t = row_total(block_sum2(acc, smem), ctas, &partial);
+  if (ctas > 1) cluster_arrive();  // this CTA has read every rank's `partial`
+  if (dscale != nullptr && rank == 0 && threadIdx.x == 0) {
+    dscale[row] = t.y;
+    dshift[row] = t.x;
+  }
+  const float inv_len = 1.f / static_cast<float>(row_len);
+  const float m_dy = t.x * inv_len;
+  const float m_dyx = t.y * inv_len;
+  const float k = rsig[row] * (scale != nullptr ? scale[row] : 1.f);
+#pragma unroll
+  for (int u = 0; u < LOADS; ++u) {
+    if (i0 + u * kThreads < hi) {
+      float v[VEC];
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) v[e] = k * (g[u][e] - m_dy - xh[u][e] * m_dyx);
+      store_pack<T, VEC>(dxr + (i0 + u * kThreads) * VEC, v);
+    }
+  }
+  if (ctas > 1) cluster_wait();  // every rank has read this CTA's `partial`
+}
+
+// K2 streaming: one CTA a row; x, y and dy streamed twice with the plan's
+// loads (the two sums, then dx), the statistics read as on chip.
+template <typename T, int VEC>
+__global__ void __launch_bounds__(kThreads)
+instance_norm_bwd_kernel(const T* __restrict__ x, const float* __restrict__ scale,
+                         const T* __restrict__ y, const T* __restrict__ dy,
+                         const float* __restrict__ mean, const float* __restrict__ rsig,
+                         T* __restrict__ dx, float* __restrict__ dscale,
+                         float* __restrict__ dshift, int64_t row_len, int act) {
+  __shared__ float2 smem[kWarps];
+  const int64_t row = blockIdx.x;
+  const int64_t off = row * row_len;
+  const T* xr = x + off;
+  const T* yr = y + off;
+  const T* dyr = dy + off;
+  T* dxr = dx + off;
+  const int64_t n_vec = row_len / VEC;
+  const float m = mean[row];
+  const float r = rsig[row];
+
+  float2 acc = make_float2(0.f, 0.f);
+#pragma unroll 4
+  for (int64_t i = threadIdx.x; i < n_vec; i += kThreads) {
+    const Pack<T, VEC> px = load_pack<T, VEC>(xr + i * VEC);
+    const Pack<T, VEC> py = load_pack<T, VEC>(yr + i * VEC);
+    const Pack<T, VEC> pd = load_pack<T, VEC>(dyr + i * VEC);
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) {
+      const float g = gate(pd[e], py[e], act);
+      acc.x += g;
+      acc.y += g * ((px[e] - m) * r);
+    }
+  }
+  const float2 t = block_sum2(acc, smem);
+  if (dscale != nullptr && threadIdx.x == 0) {
+    dscale[row] = t.y;
+    dshift[row] = t.x;
+  }
+
+  const float inv_len = 1.f / static_cast<float>(row_len);
+  const float m_dy = t.x * inv_len;
+  const float m_dyx = t.y * inv_len;
+  const float k = r * (scale != nullptr ? scale[row] : 1.f);
+#pragma unroll 4
+  for (int64_t i = threadIdx.x; i < n_vec; i += kThreads) {
+    const Pack<T, VEC> px = load_pack<T, VEC>(xr + i * VEC);
+    const Pack<T, VEC> py = load_pack<T, VEC>(yr + i * VEC);
+    const Pack<T, VEC> pd = load_pack<T, VEC>(dyr + i * VEC);
+    float v[VEC];
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) {
+      const float g = gate(pd[e], py[e], act);
+      const float xhat = (px[e] - m) * r;
+      v[e] = k * (g - m_dy - xhat * m_dyx);
+    }
+    store_pack<T, VEC>(dxr + i * VEC, v);
+  }
+}
+
 // A load of vec elements of T: vec a power of two within 16 bytes that
 // divides the row length, every base aligned to it.
 template <typename T>
@@ -695,54 +972,149 @@ int run_bwd_apply(const void* x, const void* y, const void* dy, const float* mea
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
+// K1's and K2's launch: the plan (ctas_per_row, vec, on_chip) comes from
+// `ops/kernels/instance_norm.py::_fused_plan`. A plan they cannot run (a
+// load load_ok refuses; more than 2^31 - 1 CTAs; on chip: ctas not 1, 2, 4
+// or 8, or a chunk larger than the CTA's threads hold; streaming: ctas not
+// 1) returns cudaErrorInvalidValue and launches nothing.
+template <typename T, int INPUTS>
+bool fused_plan_ok(std::initializer_list<const void*> bases, long long rows,
+                   long long row_len, int ctas, int vec, int on_chip) {
+  if (!load_ok<T>(bases, row_len, vec) || rows * ctas > INT_MAX) return false;
+  if (!on_chip) return ctas == 1;
+  if (ctas != 1 && ctas != 2 && ctas != 4 && ctas != 8) return false;
+  const long long per_cta = (row_len / vec + ctas - 1) / ctas;  // vectors
+  return per_cta <= static_cast<long long>(kThreads) * (row_elems<T, INPUTS>() / vec);
+}
+
+// The on-chip kernels hold LOADS vectors a thread: row_elems / VEC, or half
+// that where the chunk fits (a 4,096-element row on one CTA), so that a
+// short row's CTA takes fewer registers and an SM holds more of them.
+template <typename T, int INPUTS, int VEC>
+constexpr int max_loads() {
+  return row_elems<T, INPUTS>() / VEC;
+}
+
+template <typename T, int VEC>
+int launch_fwd(const T* x, const float* scale, const float* shift, T* y, float* mean,
+               float* rsig, long long rows, int64_t row_len, float eps, int act, int ctas,
+               int on_chip, cudaStream_t st) {
+  constexpr int kMax = max_loads<T, 1, VEC>();
+  if (!on_chip)
+    return launch_apply(instance_norm_fwd_kernel<T, VEC>, rows, 1, st, x, scale, shift, y,
+                        mean, rsig, row_len, eps, act);
+  if ((row_len / VEC + ctas - 1) / ctas <= static_cast<int64_t>(kThreads) * (kMax / 2))
+    return launch_split(instance_norm_fwd_onchip_kernel<T, VEC, kMax / 2>, rows, ctas, st, x,
+                        scale, shift, y, mean, rsig, row_len, eps, act, ctas);
+  return launch_split(instance_norm_fwd_onchip_kernel<T, VEC, kMax>, rows, ctas, st, x,
+                      scale, shift, y, mean, rsig, row_len, eps, act, ctas);
+}
+
+template <typename T, int VEC>
+int launch_bwd(const T* x, const float* scale, const T* y, const T* dy, const float* mean,
+               const float* rsig, T* dx, float* dscale, float* dshift, long long rows,
+               int64_t row_len, int act, int ctas, int on_chip, cudaStream_t st) {
+  constexpr int kMax = max_loads<T, 3, VEC>();
+  if (!on_chip)
+    return launch_apply(instance_norm_bwd_kernel<T, VEC>, rows, 1, st, x, scale, y, dy, mean,
+                        rsig, dx, dscale, dshift, row_len, act);
+  if ((row_len / VEC + ctas - 1) / ctas <= static_cast<int64_t>(kThreads) * (kMax / 2))
+    return launch_split(instance_norm_bwd_onchip_kernel<T, VEC, kMax / 2>, rows, ctas, st, x,
+                        scale, y, dy, mean, rsig, dx, dscale, dshift, row_len, act, ctas);
+  return launch_split(instance_norm_bwd_onchip_kernel<T, VEC, kMax>, rows, ctas, st, x, scale,
+                      y, dy, mean, rsig, dx, dscale, dshift, row_len, act, ctas);
+}
+
+template <typename T>
+int run_fwd(const void* x, const float* scale, const float* shift, void* y, float* mean,
+            float* rsig, long long rows, long long row_len, float eps, int act, int ctas,
+            int vec, int on_chip, cudaStream_t st) {
+  if (!fused_plan_ok<T, 1>({x, y}, rows, row_len, ctas, vec, on_chip) ||
+      (mean == nullptr) != (rsig == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const T* xp = static_cast<const T*>(x);
+  T* yp = static_cast<T*>(y);
+  const int64_t len = row_len;
+#define ACLGAN_FWD(V) \
+  launch_fwd<T, V>(xp, scale, shift, yp, mean, rsig, rows, len, eps, act, ctas, on_chip, st)
+  switch (vec) {
+    case 1: return ACLGAN_FWD(1);
+    case 2: return ACLGAN_FWD(2);
+    case 4: return ACLGAN_FWD(4);
+    default:
+      if constexpr (sizeof(T) == 2) return ACLGAN_FWD(8);
+  }
+#undef ACLGAN_FWD
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+template <typename T>
+int run_bwd(const void* x, const float* scale, const void* y, const void* dy,
+            const float* mean, const float* rsig, void* dx, float* dscale, float* dshift,
+            long long rows, long long row_len, int act, int ctas, int vec, int on_chip,
+            cudaStream_t st) {
+  if (!fused_plan_ok<T, 3>({x, y, dy, dx}, rows, row_len, ctas, vec, on_chip) ||
+      mean == nullptr || rsig == nullptr || (dscale == nullptr) != (dshift == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const T* xp = static_cast<const T*>(x);
+  const T* yp = static_cast<const T*>(y);
+  const T* dyp = static_cast<const T*>(dy);
+  T* dxp = static_cast<T*>(dx);
+  const int64_t len = row_len;
+#define ACLGAN_BWD(V)                                                                      \
+  launch_bwd<T, V>(xp, scale, yp, dyp, mean, rsig, dxp, dscale, dshift, rows, len, act, ctas, \
+                   on_chip, st)
+  switch (vec) {
+    case 1: return ACLGAN_BWD(1);
+    case 2: return ACLGAN_BWD(2);
+    case 4: return ACLGAN_BWD(4);
+    default:
+      if constexpr (sizeof(T) == 2) return ACLGAN_BWD(8);
+  }
+#undef ACLGAN_BWD
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. scale/shift: both null (IN) or both
-// (rows,) f32 (AdaIN). Launches on `stream`; returns cudaGetLastError().
+// (rows,) f32 (AdaIN). mean/rsig: both null (the no-grad op) or both (rows,)
+// f32 outputs, each row's statistics. The plan (ctas_per_row, vec, on_chip)
+// as `_fused_plan` gives it. Launches on `stream`; returns the launch's error
+// or cudaGetLastError().
 extern "C" int aclgan_instance_norm_fwd(const void* x, const float* scale,
-                                        const float* shift, void* y, long long rows,
-                                        long long row_len, int dtype, int act,
-                                        float eps, void* stream) {
-  const dim3 grid(static_cast<unsigned>(rows));
+                                        const float* shift, void* y, float* mean,
+                                        float* rsig, long long rows, long long row_len,
+                                        int dtype, int act, float eps, int ctas_per_row,
+                                        int vec, int on_chip, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) {
-    instance_norm_fwd_kernel<float><<<grid, kThreads, 0, st>>>(
-        static_cast<const float*>(x), scale, shift, static_cast<float*>(y), row_len,
-        eps, act);
-  } else if (dtype == 1) {
-    instance_norm_fwd_kernel<__nv_bfloat16><<<grid, kThreads, 0, st>>>(
-        static_cast<const __nv_bfloat16*>(x), scale, shift,
-        static_cast<__nv_bfloat16*>(y), row_len, eps, act);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
+  if (dtype == 0)
+    return run_fwd<float>(x, scale, shift, y, mean, rsig, rows, row_len, eps, act,
+                          ctas_per_row, vec, on_chip, st);
+  if (dtype == 1)
+    return run_fwd<__nv_bfloat16>(x, scale, shift, y, mean, rsig, rows, row_len, eps, act,
+                                  ctas_per_row, vec, on_chip, st);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// dtype and act as for the forward; x, y, dy and dx share one layout.
-// scale: null (IN: s = 1) or (rows,) f32. dscale/dshift: both null (no
-// affine: nothing is summed out) or both (rows,) f32 outputs.
-extern "C" int aclgan_instance_norm_bwd(const void* x, const float* scale,
-                                        const void* y, const void* dy, void* dx,
-                                        float* dscale, float* dshift, long long rows,
-                                        long long row_len, int dtype, int act,
-                                        float eps, void* stream) {
-  const dim3 grid(static_cast<unsigned>(rows));
+// dtype, act and the plan as for the forward; x, y, dy and dx share one
+// layout. scale: null (IN: s = 1) or (rows,) f32. mean, rsig: (rows,) f32,
+// the forward's. dscale/dshift: both null (no affine: nothing is summed out)
+// or both (rows,) f32 outputs, every row written.
+extern "C" int aclgan_instance_norm_bwd(const void* x, const float* scale, const void* y,
+                                        const void* dy, const float* mean,
+                                        const float* rsig, void* dx, float* dscale,
+                                        float* dshift, long long rows, long long row_len,
+                                        int dtype, int act, int ctas_per_row, int vec,
+                                        int on_chip, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) {
-    instance_norm_bwd_kernel<float><<<grid, kThreads, 0, st>>>(
-        static_cast<const float*>(x), scale, static_cast<const float*>(y),
-        static_cast<const float*>(dy), static_cast<float*>(dx), dscale, dshift,
-        row_len, eps, act);
-  } else if (dtype == 1) {
-    instance_norm_bwd_kernel<__nv_bfloat16><<<grid, kThreads, 0, st>>>(
-        static_cast<const __nv_bfloat16*>(x), scale,
-        static_cast<const __nv_bfloat16*>(y), static_cast<const __nv_bfloat16*>(dy),
-        static_cast<__nv_bfloat16*>(dx), dscale, dshift, row_len, eps, act);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
+  if (dtype == 0)
+    return run_bwd<float>(x, scale, y, dy, mean, rsig, dx, dscale, dshift, rows, row_len,
+                          act, ctas_per_row, vec, on_chip, st);
+  if (dtype == 1)
+    return run_bwd<__nv_bfloat16>(x, scale, y, dy, mean, rsig, dx, dscale, dshift, rows,
+                                  row_len, act, ctas_per_row, vec, on_chip, st);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // The split form's four entry points. dtype, act and the layout as above;

@@ -8,15 +8,20 @@ K1, the forward, replaces the TPU kernel
 replaces `_bwd_kernel` (launched by `_bwd_pallas`); `_FusedInstanceNorm`
 pairs them as the `custom_vjp` `_fused_in` does.
 
-Kernels: `aclgan_tpu_torch/csrc/instance_norm.cu`, one block per (n, c) row.
-Bound on an H100: bytes. K1 reads x once and writes y once (4 bytes an
-element in bf16), 96.5 MB per 256² image on the translation path, 0.92 ms per
-batch of 32 at 3.35 TB/s; it streams each row three times (sum, centered sum
-of squares, normalize), because a 65,536-element row does not fit in shared
-memory, so it moves up to 2x the bound's bytes. K2 reads x, y and dy and
-writes dx (8 bytes an element in bf16) and streams x four times and y, dy
-twice. Holding a row in shared memory, splitting it over a cluster, or
-saving (mean, rsig) from K1 for K2 is left for later work.
+Kernels: `aclgan_tpu_torch/csrc/instance_norm.cu`. Bound on an H100: bytes.
+K1 reads x once and writes y once (4 bytes an element in bf16), 96.5 MB per
+256² image on the translation path, 0.92 ms per batch of 32 at 3.35 TB/s;
+K2 reads x, y and dy and writes dx (8 bytes an element in bf16). Each holds
+its share of a row in registers, loaded once as 16-byte words, and a row
+longer than one CTA holds is split over a thread block cluster of up to 8
+CTAs whose partial sums meet in distributed shared memory, so each reads
+and writes every byte once. K1 can also return each row's f32 (mean, rsig):
+`_FusedInstanceNorm` saves them, and K2 reads them rather than recomputing
+them from x (`instance_norm_stats_plain` is their formula). The launch plan
+(`_fused_plan`, computed here and cached) picks the CTAs a row, the
+elements a load and the variant: rows too long for 8 CTAs take a streaming
+variant of each kernel, one CTA a row, which reads its inputs two (K2) or
+three (K1) times.
 
 K1 is also one dispatcher op, `torch.ops.aclgan.instance_norm_fwd(x, scale,
 shift, eps, activ)` (activ: the code in `_FUSED_ACTS`), registered when this
@@ -97,6 +102,10 @@ def instance_norm_plain(x: torch.Tensor, scale: Optional[torch.Tensor] = None,
     return apply_activation(y, activ, prelu_alpha)
 
 
+def _col(t: torch.Tensor) -> torch.Tensor:
+    return t.float()[:, :, None, None]
+
+
 def _gate(dy: torch.Tensor, y: torch.Tensor, activ: str) -> torch.Tensor:
     """dy through the activation, from its output y (`_bwd_kernel:113-118`)."""
     if activ == "relu":
@@ -110,18 +119,31 @@ def _gate(dy: torch.Tensor, y: torch.Tensor, activ: str) -> torch.Tensor:
     raise ValueError(f"K2 gates relu / lrelu / tanh / none, not {activ!r}")
 
 
+def instance_norm_stats_plain(x: torch.Tensor, eps: float = 1e-5):
+    """Each (n, c) row's f32 (mean, rsig), (N, C): the centered two-pass
+    formula of `ops/norms.py::_normalize` and of `_fwd_kernel`; what K1
+    writes when asked."""
+    x32 = x.float()
+    mean = x32.mean(dim=(2, 3))
+    xc = x32 - mean[:, :, None, None]
+    return mean, torch.rsqrt((xc * xc).mean(dim=(2, 3)) + eps)
+
+
 def instance_norm_bwd_plain(x: torch.Tensor, scale: Optional[torch.Tensor],
                             y: torch.Tensor, dy: torch.Tensor, eps: float = 1e-5,
-                            activ: str = "none"):
+                            activ: str = "none", mean: Optional[torch.Tensor] = None,
+                            rsig: Optional[torch.Tensor] = None):
     """K2's function in torch ops: (dx in x's dtype, dscale, dshift as (N, C)
-    f32) for y = act(xhat * scale + shift); scale None is plain IN (s = 1)."""
+    f32) for y = act(xhat * scale + shift); scale None is plain IN (s = 1).
+    xhat from the given (N, C) mean and rsig (K2's case, the forward's
+    statistics), or from x's own (`_bwd_kernel`'s) when they are None."""
     x32, y32 = x.float(), y.float()
     dyp = _gate(dy.float(), y32, activ)
-    mean = x32.mean(dim=(2, 3), keepdim=True)
-    xc = x32 - mean
-    rsig = torch.rsqrt((xc * xc).mean(dim=(2, 3), keepdim=True) + eps)
-    xhat = xc * rsig
-    s = 1.0 if scale is None else scale.float()[:, :, None, None]
+    if mean is None:
+        mean, rsig = instance_norm_stats_plain(x, eps)
+    rsig = _col(rsig)
+    xhat = (x32 - _col(mean)) * rsig
+    s = 1.0 if scale is None else _col(scale)
     m_dy = dyp.mean(dim=(2, 3), keepdim=True)
     m_dyx = (dyp * xhat).mean(dim=(2, 3), keepdim=True)
     dx = rsig * s * (dyp - m_dy - xhat * m_dyx)
@@ -161,7 +183,7 @@ def _vec(t: Optional[torch.Tensor], x: torch.Tensor) -> Optional[torch.Tensor]:
 
 def _rows_f32(t: torch.Tensor, x: torch.Tensor, count: int, what: str) -> torch.Tensor:
     """A per-row vector ((N, C) statistics, scale or shift; (N, C, 2) sums) as
-    the `count` contiguous f32 values a split kernel reads: as given when it
+    the `count` contiguous f32 values a kernel reads: as given when it
     already is that (the sharded path's case), else converted as `_vec` does
     (a bf16 AdaIN slice, a strided view, another device)."""
     if t.dtype is not torch.float32 or not t.is_contiguous() or t.get_device() != x.get_device():
@@ -170,6 +192,15 @@ def _rows_f32(t: torch.Tensor, x: torch.Tensor, count: int, what: str) -> torch.
         raise ValueError(f"{what}: a per-row input must hold {count} values, "
                          f"got {tuple(t.shape)}")
     return t
+
+
+def _affine_f32(scale, shift, x: torch.Tensor):
+    """AdaIN's (N, C) scale and shift as K1 and K2 read them (`_rows_f32`),
+    or (None, None) for IN."""
+    if scale is None:
+        return None, None
+    rows = x.shape[0] * x.shape[1]
+    return _rows_f32(scale, x, rows, "scale"), _rows_f32(shift, x, rows, "shift")
 
 
 def _ptr(t: Optional[torch.Tensor]):
@@ -191,28 +222,41 @@ def _launch_device(x: torch.Tensor):
     return torch.cuda.device(x.device)
 
 
-def _launch(x: torch.Tensor, scale, shift, eps: float, activ: str) -> torch.Tensor:
-    """K1 on a CUDA tensor; scale/shift None or f32 (N, C) on x's device."""
+def _launch(x: torch.Tensor, scale, shift, eps: float, activ: str, stats: bool = False,
+            plan=None):
+    """K1 on a CUDA tensor: y, or (y, mean, rsig) with each row's f32
+    statistics, (N, C), when `stats`; scale/shift None or contiguous f32
+    (N, C) on x's device (`_affine_f32`). `plan`, a (ctas_per_row, vec,
+    on_chip) to launch instead of `_fused_plan`'s, lets a check or a timing
+    take either variant at one shape; the kernel refuses one it cannot run."""
     global launches
     rows, row_len = _rows(x)
     y = torch.empty_like(x)
     if rows == 0 or row_len == 0:
-        return y
+        return (y, *instance_norm_stats_plain(x, eps)) if stats else y
+    mean = rsig = None
+    if stats:
+        n, c = x.shape[0], x.shape[1]  # ints: a torch.Size costs torch.empty more host time
+        mean = torch.empty(n, c, dtype=torch.float32, device=x.device)
+        rsig = torch.empty(n, c, dtype=torch.float32, device=x.device)
+    px, py = x.data_ptr(), y.data_ptr()
+    ctas, vec, on_chip = plan or _fused_plan(rows, row_len, x.element_size(), _align(px, py), 1)
     lib = _library()
     with _launch_device(x):
         err = lib.aclgan_instance_norm_fwd(
-            x.data_ptr(), _ptr(scale), _ptr(shift), y.data_ptr(),
-            rows, row_len, _DTYPES[x.dtype], _FUSED_ACTS[activ], float(eps),
-            torch.cuda.current_stream(x.device).cuda_stream)
+            px, _ptr(scale), _ptr(shift), py, _ptr(mean), _ptr(rsig), rows, row_len,
+            _DTYPES[x.dtype], _FUSED_ACTS[activ], eps, ctas, vec, on_chip, _stream(x))
     _raise_on(lib, err, "instance_norm")
     launches += 1
-    return y
+    return (y, mean, rsig) if stats else y
 
 
 def instance_norm_bwd(x: torch.Tensor, scale: Optional[torch.Tensor], y: torch.Tensor,
-                      dy: torch.Tensor, eps: float = 1e-5, activ: str = "none"):
+                      dy: torch.Tensor, mean: torch.Tensor, rsig: torch.Tensor,
+                      activ: str = "none", plan=None):
     """K2 on CUDA tensors: (dx, dscale, dshift), the latter two (N, C) f32, or
-    None when scale is None. x, y and dy: one NCHW-contiguous shape and dtype."""
+    None when scale is None. x, y and dy: one NCHW-contiguous shape and dtype;
+    mean and rsig: the (N, C) statistics K1 wrote for x; `plan` as `_launch`'s."""
     global bwd_launches
     if x.device.type != "cuda":
         raise ValueError(f"K2 runs on a CUDA tensor, got {x.device}")
@@ -223,27 +267,34 @@ def instance_norm_bwd(x: torch.Tensor, scale: Optional[torch.Tensor], y: torch.T
         if t.shape != x.shape or t.dtype != x.dtype or not t.is_contiguous():
             raise ValueError(f"{name} must be NCHW-contiguous {tuple(x.shape)} {x.dtype}, "
                              f"got {tuple(t.shape)} {t.dtype}")
-    scale = _vec(scale, x)
+    n, c = x.shape[0], x.shape[1]
     dx = torch.empty_like(x)
+    if rows == 0 or row_len == 0:  # the sums of nothing
+        ds = None if scale is None else torch.zeros(n, c, device=x.device)
+        return dx, ds, None if ds is None else torch.zeros_like(ds)
     ds = db = None
-    if scale is not None:
-        ds = torch.zeros(x.shape[:2], device=x.device, dtype=torch.float32)
-        db = torch.zeros_like(ds)
-    if rows == 0 or row_len == 0:
-        return dx, ds, db
+    if scale is not None:  # every row is written
+        scale = _rows_f32(scale, x, rows, "K2")
+        ds = torch.empty(n, c, dtype=torch.float32, device=x.device)
+        db = torch.empty(n, c, dtype=torch.float32, device=x.device)
+    mean, rsig = _rows_f32(mean, x, rows, "K2"), _rows_f32(rsig, x, rows, "K2")
+    px, py, pdy, pdx = x.data_ptr(), y.data_ptr(), dy.data_ptr(), dx.data_ptr()
+    ctas, vec, on_chip = plan or _fused_plan(rows, row_len, x.element_size(),
+                                             _align(px, py, pdy, pdx), 3)
     lib = _library()
     with _launch_device(x):
         err = lib.aclgan_instance_norm_bwd(
-            x.data_ptr(), _ptr(scale), y.data_ptr(), dy.data_ptr(), dx.data_ptr(),
-            _ptr(ds), _ptr(db), rows, row_len, _DTYPES[x.dtype], _FUSED_ACTS[activ],
-            float(eps), torch.cuda.current_stream(x.device).cuda_stream)
+            px, _ptr(scale), py, pdy, mean.data_ptr(), rsig.data_ptr(), pdx, _ptr(ds),
+            _ptr(db), rows, row_len, _DTYPES[x.dtype], _FUSED_ACTS[activ], ctas, vec,
+            on_chip, _stream(x))
     _raise_on(lib, err, "instance_norm backward")
     bwd_launches += 1
     return dx, ds, db
 
 
 class _FusedInstanceNorm(torch.autograd.Function):
-    """K1 forward, K2 backward (the `custom_vjp` `_fused_in`, `:161-179`).
+    """K1 forward, K2 backward (the `custom_vjp` `_fused_in`, `:161-179`); K1
+    writes each row's (mean, rsig), saved for K2.
 
     The (N, C) scale/shift may arrive in any dtype and layout (the AdaIN
     vector is a bf16 slice of the MLP output); the kernels read them as
@@ -251,20 +302,20 @@ class _FusedInstanceNorm(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, scale, shift, eps, activ):
-        s32, b32 = _vec(scale, x), _vec(shift, x)
-        y = _launch(x, s32, b32, eps, activ)
-        ctx.save_for_backward(x, s32, b32, y)
-        ctx.eps, ctx.activ = eps, activ
+        s32, b32 = _affine_f32(scale, shift, x)
+        y, mean, rsig = _launch(x, s32, b32, eps, activ, stats=True)
+        ctx.save_for_backward(x, s32, y, mean, rsig)
+        ctx.activ = activ
         ctx.dtypes = (None if scale is None else scale.dtype,
                       None if shift is None else shift.dtype)
         return y
 
     @staticmethod
     def backward(ctx, dy):
-        x, s32, _, y = ctx.saved_tensors
+        x, s32, y, mean, rsig = ctx.saved_tensors
         # autograd may hand over a non-contiguous or differently typed gradient
         dy = dy.to(x.dtype).contiguous()
-        dx, ds, db = instance_norm_bwd(x, s32, y, dy, ctx.eps, ctx.activ)
+        dx, ds, db = instance_norm_bwd(x, s32, y, dy, mean, rsig, ctx.activ)
         if ds is None:
             return dx, None, None, None, None
         return dx, ds.to(ctx.dtypes[0]), db.to(ctx.dtypes[1]), None, None
@@ -275,10 +326,6 @@ def row_moments_plain(x: torch.Tensor) -> torch.Tensor:
     """K1m's function: each (n, c) row's f32 (sum x, sum x^2), (N, C, 2)."""
     x32 = x.float()
     return torch.stack([x32.sum((2, 3)), (x32 * x32).sum((2, 3))], -1)
-
-
-def _col(t: torch.Tensor) -> torch.Tensor:
-    return t.float()[:, :, None, None]
 
 
 def _stats(moments: torch.Tensor, n: int, eps: float):
@@ -385,6 +432,34 @@ def _apply_plan(rows: int, row_len: int, elem_bytes: int, ptr_align: int):
     vec = _load_width(row_len, elem_bytes, ptr_align)
     most = row_len // vec // (SPLIT_THREADS * SPLIT_MIN_LOADS)
     return max(1, min(SPLIT_WAVES * SPLIT_SMS // rows, most)), vec
+
+
+def _fused_elems(elem_bytes: int, inputs: int) -> int:
+    """Elements of each input a thread of K1 (`inputs` 1: x) or K2 (3: x, y,
+    dy) holds on chip (`row_elems` in `csrc/instance_norm.cu`, which says
+    why): 32 in bf16; in f32, 64 for K1 and 16 for K2."""
+    return 32 if elem_bytes == 2 else (64 if inputs == 1 else 16)
+
+
+@functools.lru_cache(maxsize=None)
+def _fused_plan(rows: int, row_len: int, elem_bytes: int, ptr_align: int, inputs: int):
+    """(ctas_per_row, vec, on_chip) for K1 (`inputs` 1) or K2 (3) over `rows`
+    rows of `row_len` elements of `elem_bytes` bytes, at base pointers
+    aligned to `ptr_align` bytes; vec from `_load_width`. On chip: the fewest
+    CTAs of 1, 2, 4, 8 (a cluster above 1) whose whole-vector chunks
+    (`_chunk_bounds`) leave each thread at most `_fused_elems` elements of
+    each input. A row that 8 CTAs cannot hold (over 65,536 elements in
+    bf16; in f32, over 131,072 for K1 and 32,768 for K2) takes the streaming
+    variant, (1, vec, False)."""
+    vec = _load_width(row_len, elem_bytes, ptr_align)
+    per_cta = SPLIT_THREADS * (_fused_elems(elem_bytes, inputs) // vec)  # vectors
+    n_vec = row_len // vec
+    ctas = 1
+    while ctas <= SPLIT_MAX_CLUSTER:
+        if -(-n_vec // ctas) <= per_cta and rows * ctas <= 2**31 - 1:
+            return ctas, vec, True
+        ctas *= 2
+    return 1, vec, False
 
 
 def _chunk_bounds(row_len: int, ctas: int, vec: int):
@@ -583,18 +658,11 @@ def _library() -> ctypes.CDLL:
 
 
 def _configure(lib: ctypes.CDLL) -> ctypes.CDLL:
-    fn = lib.aclgan_instance_norm_fwd
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_longlong, ctypes.c_longlong,
-                                           ctypes.c_int, ctypes.c_int,
-                                           ctypes.c_float, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    fn = lib.aclgan_instance_norm_bwd
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_longlong, ctypes.c_longlong,
-                                           ctypes.c_int, ctypes.c_int,
-                                           ctypes.c_float, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
     rows = [ctypes.c_longlong, ctypes.c_longlong]
     for name, argtypes in (
+            ("fwd", [ctypes.c_void_p] * 6 + rows + [ctypes.c_int] * 2 + [ctypes.c_float]
+             + [ctypes.c_int] * 3 + [ctypes.c_void_p]),
+            ("bwd", [ctypes.c_void_p] * 9 + rows + [ctypes.c_int] * 5 + [ctypes.c_void_p]),
             ("row_moments", [ctypes.c_void_p] * 2 + rows + [ctypes.c_int] * 3
              + [ctypes.c_void_p]),
             ("apply", [ctypes.c_void_p] * 7 + rows + [ctypes.c_longlong, ctypes.c_float]
@@ -649,7 +717,7 @@ _LIB.define("instance_norm_fwd(Tensor x, Tensor? scale, Tensor? shift, float eps
 
 
 def _op_cuda(x, scale, shift, eps, activ):
-    return _launch(x, _vec(scale, x), _vec(shift, x), eps, _ACT_NAMES[activ])
+    return _launch(x, *_affine_f32(scale, shift, x), eps, _ACT_NAMES[activ])
 
 
 def _op_cpu(x, scale, shift, eps, activ):

@@ -16,13 +16,18 @@ with a non-zero exit, if any phase fails:
 
 1. device info (torch/CUDA versions, nvidia-smi name and power limit);
 2. build every kernel under aclgan_tpu_torch/csrc with nvcc;
-3. K1 (instance-norm forward) against its plain PyTorch version at the
-   serving shapes, with timings of the kernel, the plain version and one
-   library call over a Translator batch and over a D+G training iteration,
-   and the host's microseconds a call through the `aclgan::` op costs
-   against the bare wrapper and the wrapper under a device guard;
-4. K2 (instance-norm backward) against its plain version at the training
-   shapes, with the same timings over one G step;
+3. K1 (instance-norm forward), both variants (the row on chip over a
+   cluster, and streaming), against its plain PyTorch version at the
+   serving shapes, phase 27's 512^2 rows, 48 x 40 and odd rows and bases off
+   16 bytes, its (mean, rsig) against `instance_norm_stats_plain`, two
+   launches bit-equal; timings of the kernel (each variant), the plain
+   version and one library call over a Translator batch and over a D+G
+   training iteration, each layer's launch plan, and the host's
+   microseconds a call through the `aclgan::` op costs against the bare
+   wrapper and the wrapper under a device guard;
+4. K2 (instance-norm backward), both variants, fed K1's statistics, against
+   its plain version without them at the training shapes and phase 3's
+   edge cases, with the same timings over one G step;
 5. Translator end to end in float32 (TF32 off): 70 requests in 3 batches of
    32, the last padded; 19 K1 launches per batch; uint8 outputs within
    2 LSB of the same Translator on the CPU (plain versions);
@@ -126,8 +131,12 @@ with a non-zero exit, if any phase fails:
    all four timed in bf16 over a rank's iteration (CUDA events, and device
    time a launch from torch.profiler), beside their bound and one library
    call each;
-28. one JSON line listing every kernel;
-29. last line: {"ok": true, "device": {...}}.
+28. K1's and K2's device time a launch at each layer of phases 3-4's mixes
+   (torch.profiler, or CUDA events behind a queued busy kernel where the
+   profiler loses the kernels) beside the library call's; run last so that
+   no profiler session precedes the phases that trace;
+29. one JSON line listing every kernel;
+30. last line: {"ok": true, "device": {...}}.
 
 Imports nothing of JAX.
 """
@@ -214,6 +223,28 @@ def time_ms(fn, iters: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
+def _ptxas_report(text):
+    """[(kernel, registers, bytes of spill stores and loads)] from nvcc's
+    -Xptxas=-v output, names demangled by c++filt where it exists."""
+    rows, name, spill = [], None, 0
+    for line in text.splitlines():
+        if m := re.search(r"Compiling entry function '(\w+)'", line):
+            name = m.group(1)
+        elif m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line):
+            spill = int(m.group(1)) + int(m.group(2))
+        elif (m := re.search(r"Used (\d+) registers", line)) and name:
+            rows.append([name, int(m.group(1)), spill])
+            name, spill = None, 0
+    try:
+        names = subprocess.run(["c++filt"], input="\n".join(r[0] for r in rows),
+                               capture_output=True, text=True, check=True).stdout.split("\n")
+        for r, n in zip(rows, names):
+            r[0] = n.replace("(anonymous namespace)::", "")
+    except (OSError, subprocess.CalledProcessError):  # no c++filt: mangled names
+        pass
+    return rows
+
+
 def phase_build():
     from aclgan_tpu_torch.ops.kernels import build
 
@@ -222,27 +253,37 @@ def phase_build():
     logs = build.build_all(sources)
     log(f"[build] {sources} in {time.time() - t0:.2f} s")
     for src, text in logs.items():
-        for line in text.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"[build] {src}: {line.strip()}")
+        rows = _ptxas_report(text)
+        for name, regs, spill in rows:
+            log(f"[build] {src}: {name[:120]}: {regs} registers, {spill} bytes spilled")
+        log(f"[build] {src}: {len(rows)} kernels, {sum(r[2] for r in rows)} bytes of spill "
+            f"stores and loads in all")
 
 
-def _time_mix(tag, mix, make, run, plain, library, nbytes, flops_per_element):
+def _time_mix(tag, mix, make, run, plain, library, nbytes, flops_per_element, extra=None,
+              describe=None):
     """Kernel, plain and library ms of a list of (shape, affine, count) layers,
-    each shape timed once and counted `count` times; also the bytes bound."""
-    tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bytes=0.0, flops=0.0)
+    each shape timed once and counted `count` times; also the bytes bound.
+    `extra` ({label: fn}) times more calls of the same arguments (another
+    variant of the kernel) into `<label>_ms`; `describe(*args)` adds a note
+    (the launch plan) to each layer's line."""
+    extra = extra or {}
+    tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bytes=0.0, flops=0.0,
+               **{f"{k}_ms": 0.0 for k in extra})
     for shape, affine, count in mix:
         args = make(shape, affine)
         ms, plain_ms, library_ms = (time_ms(lambda f=f: f(*args))
                                     for f in (run, plain, library))
+        more = {f"{k}_ms": time_ms(lambda f=f: f(*args)) for k, f in extra.items()}
         b = nbytes(shape, affine)
         flops = flops_per_element * math.prod(shape)
         bound = max(b / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S) * 1e3
         log(f"[kernel] {tag} bf16 {shape} affine={affine} x{count}: kernel {ms:.4f} ms, "
-            f"plain {plain_ms:.4f} ms, library {library_ms:.4f} ms, bound {bound:.4f} ms, "
-            f"{b / ms / 1e6:.0f} GB/s")
+            + "".join(f"{k[:-3]} {v:.4f} ms, " for k, v in more.items())
+            + f"plain {plain_ms:.4f} ms, library {library_ms:.4f} ms, bound {bound:.4f} ms, "
+            f"{b / ms / 1e6:.0f} GB/s" + (f"; {describe(*args)}" if describe else ""))
         for key, val in (("ms", ms), ("plain_ms", plain_ms), ("library_ms", library_ms),
-                         ("bytes", b), ("flops", flops)):
+                         ("bytes", b), ("flops", flops), *more.items()):
             tot[key] += count * val
         del args
     bytes_ms = tot["bytes"] / HBM_BYTES_PER_S * 1e3
@@ -338,7 +379,9 @@ def _device_us(mix, make, run, library, kernel):
 
 
 def _log_total(tag, work, tot):
-    log(f"[kernel] {tag} per {work}: kernel {tot['ms']:.4f} ms, plain "
+    more = "".join(f"{k[:-3]} {v:.4f} ms, " for k, v in tot.items()
+                   if k.endswith("_ms") and k not in ("plain_ms", "library_ms", "bound_ms"))
+    log(f"[kernel] {tag} per {work}: kernel {tot['ms']:.4f} ms, {more}plain "
         f"{tot['plain_ms']:.4f} ms, library {tot['library_ms']:.4f} ms, bound "
         f"{tot['bound_ms']:.4f} ms ({tot['bytes'] / 1e9:.3f} GB at 3.35 TB/s, "
         f"{tot['bound_by']})")
@@ -376,36 +419,157 @@ def _op_overhead():
         f"torch.cuda.device {', '.join(f'{u:.2f}' for u in us['guarded'])} us")
 
 
+# K1's and K2's layouts beside the model's (label, shape, storage offset)
+FUSED_EDGE_CASES = (
+    ("phase 27's one-process 512^2 rows (streaming)", (2, 64, 512, 512), 0),
+    ("48 x 40 rows (1,920 elements, not a multiple of a CTA's 2,048)", (2, 8, 48, 40), 0),
+    ("odd 45 x 43 rows (one element a load)", (2, 8, 45, 43), 0),
+    ("bases off 16 bytes (storage offset 1)", (2, 8, 64, 64), 1))
+
+
+def _at_offset(t, offset):
+    """t's values in a contiguous view `offset` elements into a flat buffer."""
+    buf = torch.empty(t.numel() + offset, device=t.device, dtype=t.dtype)
+    buf[offset:].copy_(t.flatten())
+    return buf[offset:].view(t.shape)
+
+
+def _fused_plans(inputs, *tensors):
+    """The plans a check holds K1 (inputs 1) or K2 (3) to on the tensors'
+    layout: `_fused_plan`'s, then the streaming variant where that one is on
+    chip."""
+    from aclgan_tpu_torch.ops.kernels import instance_norm as K
+
+    n, c, h, w = tensors[0].shape
+    plan = K._fused_plan(n * c, h * w, tensors[0].element_size(),
+                         K._align(*(t.data_ptr() for t in tensors)), inputs)
+    return [plan] + ([(1, plan[1], False)] if plan[2] else [])
+
+
+def _fused_cases():
+    """(label, shape, storage offset): the model's layers, then the edge cases."""
+    return [(f"{shape}", shape, 0) for shape in MAIN_SHAPES] + list(FUSED_EDGE_CASES)
+
+
+def _within(what, got, want, lim):
+    """Raises unless every |got - want| <= lim and got is finite; returns the
+    largest |got - want|."""
+    err = (got.float() - want.float()).abs()
+    bad = (err > lim).sum().item()
+    if bad or not torch.isfinite(got).all():
+        raise AssertionError(f"{what}: {bad} values beyond tolerance, max err "
+                             f"{err.max().item()}")
+    return err.max().item()
+
+
+def _check_k1(x, s, b, activ, tol, what):
+    """K1's variants on x against `instance_norm_plain` (y, elementwise) and
+    `instance_norm_stats_plain` ((mean, rsig) within 1e-5 + 1e-5 relative):
+    the planned variant through the no-grad op and with its statistics, two
+    launches bit-equal, then the streaming one. Returns (max abs err of y,
+    max rel err of the statistics, the planned variant's (y, mean, rsig))."""
+    from aclgan_tpu_torch.ops.kernels import instance_norm as K
+
+    want = K.instance_norm_plain(x, s, b, activ=activ)
+    want_stats = K.instance_norm_stats_plain(x)
+    s32, b32 = K._affine_f32(s, b, x)
+    y_err = stats_err = 0.0
+    planned = None
+    for i, plan in enumerate(_fused_plans(1, x)):
+        case = f"instance_norm {what} {x.dtype} affine={s is not None} {activ} plan {plan}"
+        y, mean, rsig = K._launch(x, s32, b32, 1e-5, activ, stats=True, plan=plan)
+        again = (K.fused_instance_norm(x, s, b, activ=activ) if i == 0 else
+                 K._launch(x, s32, b32, 1e-5, activ, plan=plan))
+        torch.cuda.synchronize()
+        if not torch.equal(y, again):
+            raise AssertionError(f"{case}: two launches differ")
+        y_err = max(y_err, _within(case, y, want, tol + tol * want.float().abs()))
+        for name, got, ref in zip(("mean", "rsig"), (mean, rsig), want_stats):
+            err = _within(f"{case} {name}", got, ref, 1e-5 + 1e-5 * ref.abs())
+            stats_err = max(stats_err, err / max(ref.abs().max().item(), 1e-30))
+        if i == 0:
+            planned = (y, mean, rsig)
+    return y_err, stats_err, planned
+
+
+def _check_k2(x, s, y, dy, mean, rsig, activ, tol, what):
+    """K2's variants fed K1's statistics against `instance_norm_bwd_plain`
+    without them (`_bwd_kernel`'s function: the statistics from x): dx
+    elementwise as K1's y, dscale and dshift against their largest; two
+    launches bit-equal. Returns {output: max abs err}."""
+    from aclgan_tpu_torch.ops.kernels import instance_norm as K
+
+    want = K.instance_norm_bwd_plain(x, s, y, dy, 1e-5, activ)
+    errs = {"dx": 0.0, "dscale": 0.0, "dshift": 0.0}
+    for plan in _fused_plans(3, x, y, dy):
+        case = f"instance_norm_bwd {what} {x.dtype} affine={s is not None} {activ} plan {plan}"
+        got = K.instance_norm_bwd(x, s, y, dy, mean, rsig, activ, plan=plan)
+        again = K.instance_norm_bwd(x, s, y, dy, mean, rsig, activ, plan=plan)
+        torch.cuda.synchronize()
+        for name, o, o2, w in zip(errs, got, again, want):
+            if s is None and name != "dx":  # IN: no dscale, dshift
+                if o is not None:
+                    raise AssertionError(f"{case}: {name} returned without a scale")
+                continue
+            if not torch.equal(o, o2):
+                raise AssertionError(f"{case} {name}: two launches differ")
+            lim = tol + tol * w.float().abs() if name == "dx" else tol * w.abs().max()
+            errs[name] = max(errs[name], _within(f"{case} {name}", o, w, lim))
+    return errs
+
+
+def _plan_label(plan):
+    ctas, vec, on_chip = plan
+    return (f"plan ({ctas} CTA{'s' if ctas > 1 else ''} a row, {vec} a load, "
+            f"{'on chip' if on_chip else 'streaming'})")
+
+
+def _fused_device(tag, mix, make, run, library, kernel, nbytes, tot, work):
+    """K1's or K2's device time a launch at each layer of `mix` (`_device_us`:
+    torch.profiler, or CUDA events behind a queued busy kernel where it loses
+    the kernels) beside the library call's, with GB/s and the plan, summed
+    over the mix; logs them and returns the kernels-line keys."""
+    device, source = _device_us(mix, make, run, library, kernel)
+    device_ms = library_device_ms = 0.0
+    for (shape, affine, count), (dev_us, lib_us) in zip(mix, device):
+        device_ms += count * dev_us / 1e3
+        library_device_ms += count * lib_us / 1e3
+        log(f"[kernel] {tag} bf16 {shape} affine={affine} x{count}: device a launch kernel "
+            f"{dev_us:.2f} us, library {lib_us:.2f} us, "
+            f"{nbytes(shape, affine) / dev_us / 1e3:.0f} GB/s")
+    log(f"[kernel] {tag} device time per {work} ({source}): kernel {device_ms:.4f} ms (bound / "
+        f"device {100 * tot['bound_ms'] / device_ms:.1f}%), library {library_device_ms:.4f} ms")
+    return dict(device_ms=device_ms, library_device_ms=library_device_ms, device_source=source)
+
+
 def phase_instance_norm_kernel():
-    """K1 against its plain version; returns its kernels-line entry."""
+    """K1 against its plain version, both variants, with its statistics;
+    returns its kernels-line entry and a function that measures its device
+    time (called after the last phase: a profiler session this early could
+    change the later phases' traces)."""
     from aclgan_tpu_torch.ops.kernels import instance_norm as K
 
     g = torch.Generator(device="cuda").manual_seed(0)
-    max_err = 0.0
-    for shape in MAIN_SHAPES:
+    max_err = stats_rel = 0.0
+    for label, shape, offset in _fused_cases():
         n, c = shape[:2]
         base = torch.randn(shape, device="cuda", generator=g) * 2.0 + 0.5
         scale = torch.randn(n, c, device="cuda", generator=g)
         shift = torch.randn(n, c, device="cuda", generator=g)
         for dtype in (torch.float32, torch.bfloat16):
-            x = base.to(dtype)
+            x = _at_offset(base.to(dtype), offset)
+            plans = _fused_plans(1, x)
             for affine in (False, True):
                 for activ in ("none", "relu", "lrelu", "tanh"):
                     args = (scale, shift) if affine else (None, None)
-                    got = K.fused_instance_norm(x, *args, activ=activ).float()
-                    torch.cuda.synchronize()
-                    want = K.instance_norm_plain(x, *args, activ=activ).float()
-                    err = (got - want).abs()
-                    tol = TOL[dtype]
-                    bad = (err > tol + tol * want.abs()).sum().item()
-                    max_err = max(max_err, err.max().item())
-                    if bad or not torch.isfinite(got).all():
-                        raise AssertionError(
-                            f"instance_norm {shape} {dtype} affine={affine} {activ}: "
-                            f"{bad} elements beyond tol {tol}, max err {err.max().item()}")
+                    y_err, s_err, _ = _check_k1(x, *args, activ, TOL[dtype], label)
+                    max_err, stats_rel = max(max_err, y_err), max(stats_rel, s_err)
+            log(f"[kernel] instance_norm {label} {dtype}: 8 cases within tolerance, "
+                f"{', '.join(_plan_label(p) for p in plans)}; mean / rsig within 1e-5")
             del x
-        log(f"[kernel] instance_norm {shape}: 16 cases within tolerance")
         del base
+    log(f"[kernel] instance_norm max abs err {max_err:.3g}; mean / rsig against "
+        f"instance_norm_stats_plain max rel {stats_rel:.3g}")
 
     def make(shape, affine):
         n, c, h, w = shape
@@ -419,6 +583,9 @@ def phase_instance_norm_kernel():
     def run(x, scale, shift, *_):
         return K.fused_instance_norm(x, scale, shift, activ="relu")
 
+    def streaming(x, scale, shift, *_):
+        return K._launch(x, scale, shift, 1e-5, "relu", plan=(1, _fused_plans(1, x)[0][1], False))
+
     def plain(x, scale, shift, *_):
         return K.instance_norm_plain(x, scale, shift, activ="relu")
 
@@ -428,71 +595,77 @@ def phase_instance_norm_kernel():
     def nbytes(shape, affine):  # read x, write y (+ the f32 scale and shift)
         return 2 * 2 * math.prod(shape) + (2 * 4 * shape[0] * shape[1] if affine else 0)
 
+    def describe(x, *_):
+        return _plan_label(_fused_plans(1, x)[0])
+
     _op_overhead()
     # serving: per Translator batch of 32, IN at 256^2 x64 once, 128^2 x128
     # once, 64^2 x256 nine times, AdaIN at 64^2 x256 eight times
-    serving = _time_mix("instance_norm", _encode_mix(BATCH) + _decode_mix(BATCH), make,
-                        run, plain, library, nbytes, 10.0)
-    _log_total("instance_norm", f"bf16 Translator batch of {BATCH} ({LAUNCHES_PER_BATCH} "
-               "launches)", serving)
-    train = _time_mix("instance_norm", _d_step_mix(TRAIN_BATCH) + _g_step_mix(TRAIN_BATCH),
-                      make, run, plain, library, nbytes, 10.0)
-    _log_total("instance_norm", f"bf16 D+G iteration at batch {TRAIN_BATCH} "
-               f"({2 * K1_PER_STEP} launches)", train)
-    return dict(
+    mixes = {"serving": _encode_mix(BATCH) + _decode_mix(BATCH),
+             "train": _d_step_mix(TRAIN_BATCH) + _g_step_mix(TRAIN_BATCH)}
+    works = {"serving": f"bf16 Translator batch of {BATCH} ({LAUNCHES_PER_BATCH} launches)",
+             "train": f"bf16 D+G iteration at batch {TRAIN_BATCH} ({2 * K1_PER_STEP} launches)"}
+    tots = {}
+    for key, mix in mixes.items():
+        tots[key] = _time_mix("instance_norm", mix, make, run, plain, library, nbytes, 10.0,
+                              extra={"streaming": streaming}, describe=describe)
+        _log_total("instance_norm", works[key], tots[key])
+    serving, train = tots["serving"], tots["train"]
+    entry = dict(
         name="instance_norm_fwd", route="cuda",
         source="aclgan_tpu_torch/csrc/instance_norm.cu",
         replaces="aclgan_tpu/ops/pallas/instance_norm.py:67",
         launches=None, max_abs_err=max_err,
         ms=train["ms"], plain_ms=train["plain_ms"], bound_ms=train["bound_ms"],
         bound_by=train["bound_by"], library_ms=train["library_ms"],
+        streaming_ms=train["streaming_ms"],
         library="F.instance_norm on the (1, N*C, H, W) view (no activation)",
         work=f"one bf16 D+G training iteration at batch {TRAIN_BATCH}, 256^2: "
              f"{2 * K1_PER_STEP} launches; per Translator batch of {BATCH}: "
              f"{serving['ms']:.4f} ms (bound {serving['bound_ms']:.4f})")
 
+    def device():
+        out = {}
+        for key in ("serving", "train"):
+            out[key] = _fused_device("instance_norm", mixes[key], make, run, library,
+                                     "instance_norm_fwd", nbytes, tots[key], works[key])
+        return dict(out["train"], serving_ms=serving["ms"],
+                    serving_device_ms=out["serving"]["device_ms"])
+
+    return entry, device
+
 
 def phase_instance_norm_bwd_kernel():
-    """K2 against its plain version at the training shapes; returns its
-    kernels-line entry."""
+    """K2, both variants, fed K1's statistics, against its plain version
+    without them at the training shapes and the edge cases; returns its
+    kernels-line entry and a function that measures its device time (as
+    phase 3's)."""
     from aclgan_tpu_torch.ops.kernels import instance_norm as K
 
     g = torch.Generator(device="cuda").manual_seed(1)
     max_err = {"dx": 0.0, "dscale": 0.0, "dshift": 0.0}
-    for shape in TRAIN_SHAPES:
+    for label, shape, offset in [(f"{s}", s, 0) for s in TRAIN_SHAPES] + list(FUSED_EDGE_CASES):
         n, c = shape[:2]
         base = torch.randn(shape, device="cuda", generator=g) * 2.0 + 0.5
         dy_base = torch.randn(shape, device="cuda", generator=g)
         scale = torch.randn(n, c, device="cuda", generator=g)
         shift = torch.randn(n, c, device="cuda", generator=g)
         for dtype in (torch.float32, torch.bfloat16):
-            x, dy = base.to(dtype), dy_base.to(dtype)
+            x, dy = _at_offset(base.to(dtype), offset), _at_offset(dy_base.to(dtype), offset)
             tol = TOL[dtype]
+            plans = None
             for affine in (False, True):
                 for activ in ("none", "relu", "lrelu", "tanh"):
                     args = (scale, shift) if affine else (None, None)
-                    y = K.fused_instance_norm(x, *args, activ=activ)
-                    got = K.instance_norm_bwd(x, args[0], y, dy, 1e-5, activ)
-                    torch.cuda.synchronize()
-                    want = K.instance_norm_bwd_plain(x, args[0], y, dy, 1e-5, activ)
-                    for name, o, w in zip(max_err, got, want):
-                        if not affine and name != "dx":  # IN: no dscale, dshift
-                            continue
-                        o, w = o.float(), w.float()
-                        err = (o - w).abs()
-                        max_err[name] = max(max_err[name], err.max().item())
-                        # dx elementwise as K1; the row sums against their largest
-                        lim = tol + tol * w.abs() if name == "dx" else tol * w.abs().max()
-                        bad = (err > lim).sum().item()
-                        if bad or not torch.isfinite(o).all():
-                            raise AssertionError(
-                                f"instance_norm_bwd {shape} {dtype} affine={affine} "
-                                f"{activ} {name}: {bad} elements beyond tolerance, max "
-                                f"err {err.max().item()}")
-                    del y, got, want
+                    y, mean, rsig = _check_k1(x, *args, activ, tol, label)[2]
+                    plans = plans or _fused_plans(3, x, y, dy)
+                    errs = _check_k2(x, args[0], y, dy, mean, rsig, activ, tol, label)
+                    max_err = {k: max(v, errs[k]) for k, v in max_err.items()}
+                    del y, mean, rsig
+            log(f"[kernel] instance_norm_bwd {label} {dtype}: 8 cases within tolerance (dx, "
+                f"dscale, dshift; fed K1's statistics, against the plain version without "
+                f"them), {', '.join(_plan_label(p) for p in plans)}")
             del x, dy
-        log(f"[kernel] instance_norm_bwd {shape}: 16 cases within tolerance (dx, "
-            f"dscale, dshift)")
         del base, dy_base
     log(f"[kernel] instance_norm_bwd max abs err: " + ", ".join(
         f"{k} {v:.3g}" for k, v in max_err.items()))
@@ -502,7 +675,7 @@ def phase_instance_norm_bwd_kernel():
         x = torch.randn(shape, device="cuda", generator=g).to(torch.bfloat16)
         scale = torch.randn(n, c, device="cuda", generator=g) if affine else None
         shift = torch.randn(n, c, device="cuda", generator=g) if affine else None
-        y = K.fused_instance_norm(x, scale, shift, activ="relu")
+        y, kmean, krsig = K._launch(x, scale, shift, 1e-5, "relu", stats=True)
         dy = torch.randn(shape, device="cuda", generator=g).to(torch.bfloat16)
         # the library call gets the stats from a forward; it does not redo them
         xv, dyv = x.view(1, n * c, h, w), dy.view(1, n * c, h, w)
@@ -510,35 +683,51 @@ def phase_instance_norm_bwd_kernel():
         _, mean, invstd = torch.ops.aten.native_batch_norm(
             xv, wv, None if shift is None else shift.flatten(), None, None, True, 0.0,
             1e-5)
-        return x, scale, y, dy, xv, dyv, wv, mean, invstd, [True, affine, affine]
+        return (x, scale, y, dy, kmean, krsig, xv, dyv, wv, mean, invstd,
+                [True, affine, affine])
 
-    def run(x, scale, y, dy, *_):
-        return K.instance_norm_bwd(x, scale, y, dy, 1e-5, "relu")
+    def run(x, scale, y, dy, kmean, krsig, *_):
+        return K.instance_norm_bwd(x, scale, y, dy, kmean, krsig, "relu")
+
+    def streaming(x, scale, y, dy, kmean, krsig, *_):
+        plan = (1, _fused_plans(3, x, y, dy)[0][1], False)
+        return K.instance_norm_bwd(x, scale, y, dy, kmean, krsig, "relu", plan=plan)
 
     def plain(x, scale, y, dy, *_):
         return K.instance_norm_bwd_plain(x, scale, y, dy, 1e-5, "relu")
 
-    def library(x, scale, y, dy, xv, dyv, wv, mean, invstd, mask):
+    def library(x, scale, y, dy, kmean, krsig, xv, dyv, wv, mean, invstd, mask):
         return torch.ops.aten.native_batch_norm_backward(
             dyv, xv, wv, None, None, mean, invstd, True, 1e-5, mask)
 
-    def nbytes(shape, affine):  # read x, y, dy, write dx (+ scale, dscale, dshift)
-        return 4 * 2 * math.prod(shape) + (3 * 4 * shape[0] * shape[1] if affine else 0)
+    def nbytes(shape, affine):  # read x, y, dy, write dx, read mean, rsig (+ scale, ds, db)
+        return 4 * 2 * math.prod(shape) + (5 if affine else 2) * 4 * shape[0] * shape[1]
 
-    tot = _time_mix("instance_norm_bwd", _g_step_mix(TRAIN_BATCH), make, run, plain,
-                    library, nbytes, 20.0)
-    _log_total("instance_norm_bwd", f"bf16 G step at batch {TRAIN_BATCH} "
-               f"({K2_PER_G_STEP} launches)", tot)
-    return dict(
+    def describe(x, scale, y, dy, *_):
+        return _plan_label(_fused_plans(3, x, y, dy)[0])
+
+    mix = _g_step_mix(TRAIN_BATCH)
+    work = f"bf16 G step at batch {TRAIN_BATCH} ({K2_PER_G_STEP} launches)"
+    tot = _time_mix("instance_norm_bwd", mix, make, run, plain, library, nbytes, 20.0,
+                    extra={"streaming": streaming}, describe=describe)
+    _log_total("instance_norm_bwd", work, tot)
+    entry = dict(
         name="instance_norm_bwd", route="cuda",
         source="aclgan_tpu_torch/csrc/instance_norm.cu",
         replaces="aclgan_tpu/ops/pallas/instance_norm.py:102",
         launches=None, max_abs_err=max(max_err.values()),
         ms=tot["ms"], plain_ms=tot["plain_ms"], bound_ms=tot["bound_ms"],
         bound_by=tot["bound_by"], library_ms=tot["library_ms"],
+        streaming_ms=tot["streaming_ms"],
         library="aten.native_batch_norm_backward on the (1, N*C, H, W) view, given "
                 "saved stats, no activation gate",
         work=f"one bf16 G step at batch {TRAIN_BATCH}, 256^2: {K2_PER_G_STEP} launches")
+
+    def device():
+        return _fused_device("instance_norm_bwd", mix, make, run, library, "instance_norm_bwd",
+                             nbytes, tot, work)
+
+    return entry, device
 
 
 def _requests():
@@ -2740,11 +2929,6 @@ def _split_edge_checks(g, max_err):
     rsig from `_stats`."""
     from aclgan_tpu_torch.ops.kernels import instance_norm as K
 
-    def at_offset(t, offset):  # t's values in a contiguous slice `offset` elements in
-        buf = torch.empty(t.numel() + offset, device=t.device, dtype=t.dtype)
-        buf[offset:].copy_(t.flatten())
-        return buf[offset:].view(t.shape)
-
     stats_rel = 0.0
     for label, shape, offset in SPLIT_EDGE_CASES:
         n, c, h, w = shape
@@ -2752,7 +2936,7 @@ def _split_edge_checks(g, max_err):
         dy_base = torch.randn(shape, device="cuda", generator=g)
         packed = torch.randn(n, 3 * c, device="cuda", generator=g).to(torch.bfloat16)
         for dtype in (torch.float32, torch.bfloat16):
-            x, dy = at_offset(base.to(dtype), offset), at_offset(dy_base.to(dtype), 2 * offset)
+            x, dy = _at_offset(base.to(dtype), offset), _at_offset(dy_base.to(dtype), 2 * offset)
             tol = TOL[dtype]
             moments = K.row_moments_plain(x)
             mean, rsig = K._stats(moments, h * w, 1e-5)
@@ -3003,8 +3187,8 @@ def main() -> int:
     log(smi)
 
     phase_build()
-    k1 = phase_instance_norm_kernel()
-    k2 = phase_instance_norm_bwd_kernel()
+    k1, k1_device = phase_instance_norm_kernel()
+    k2, k2_device = phase_instance_norm_bwd_kernel()
     torch.cuda.empty_cache()
 
     cfg = load_config(CONFIG)
@@ -3082,6 +3266,10 @@ def main() -> int:
         by_path.update(sp_paths)
         log(f"[phase 27] {time.time() - t0:.1f} s")
         gc_collect()
+        t0 = time.time()
+        for k, device in ((k1, k1_device), (k2, k2_device)):
+            k.update(device())
+        log(f"[phase 28] {time.time() - t0:.1f} s")
     for i, k in enumerate((k1, k2)):
         k["launches_by_path"] = {path: counts[i] for path, counts in by_path.items()}
     for i, k in enumerate(split, start=2):  # (K1, K2, K1m, K1a, K2m, K2a) of phase 27

@@ -69,20 +69,25 @@ def test_instance_norm_op_on_cuda_is_the_kernel(cuda, dtype, tol):
 
 def test_instance_norm_kernel_rejects_what_it_cannot_take(cuda):
     x = torch.randn(2, 3, 8, 8, device="cuda", generator=cuda)
+    mean, rsig = K.instance_norm_stats_plain(x)
     with pytest.raises(ValueError, match="contiguous"):
         K.fused_instance_norm(x.to(memory_format=torch.channels_last))
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         K.fused_instance_norm(x.half())
     with pytest.raises(ValueError, match="contiguous"):
-        K.instance_norm_bwd(x, None, x, x.to(memory_format=torch.channels_last))
+        K.instance_norm_bwd(x, None, x, x.to(memory_format=torch.channels_last), mean, rsig)
     with pytest.raises(TypeError, match="float32 or bfloat16"):
-        K.instance_norm_bwd(x.half(), None, x.half(), x.half())
+        K.instance_norm_bwd(x.half(), None, x.half(), x.half(), mean, rsig)
     with pytest.raises(ValueError, match="CUDA"):
-        K.instance_norm_bwd(x.cpu(), None, x.cpu(), x.cpu())
+        K.instance_norm_bwd(x.cpu(), None, x.cpu(), x.cpu(), mean.cpu(), rsig.cpu())
+    with pytest.raises(ValueError, match="per-row"):
+        K.instance_norm_bwd(x, None, x, x, mean[:1], rsig)
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 0.05)])
 def test_instance_norm_bwd_kernel_matches_plain(cuda, dtype, tol):
+    """K2 fed K1's statistics against `_bwd_kernel`'s function, which
+    recomputes them from x."""
     x = (torch.randn(4, 32, 48, 40, device="cuda", generator=cuda) * 2 + 0.5).to(dtype)
     scale = torch.randn(4, 32, device="cuda", generator=cuda)
     shift = torch.randn(4, 32, device="cuda", generator=cuda)
@@ -90,9 +95,9 @@ def test_instance_norm_bwd_kernel_matches_plain(cuda, dtype, tol):
     for affine in (False, True):
         args = (scale, shift) if affine else (None, None)
         for activ in ("none", "relu", "lrelu", "tanh"):
-            y = K.instance_norm_plain(x, *args, activ=activ)
+            y, mean, rsig = K._launch(x, *args, 1e-5, activ, stats=True)
             before = K.bwd_launches
-            dx, ds, db = K.instance_norm_bwd(x, args[0], y, dy, 1e-5, activ)
+            dx, ds, db = K.instance_norm_bwd(x, args[0], y, dy, mean, rsig, activ)
             torch.cuda.synchronize()
             assert K.bwd_launches == before + 1
             want = K.instance_norm_bwd_plain(x, args[0], y, dy, 1e-5, activ)
@@ -107,6 +112,107 @@ def test_instance_norm_bwd_kernel_matches_plain(cuda, dtype, tol):
             for got, ref in ((ds, want[1]), (db, want[2])):
                 torch.testing.assert_close(got, ref, rtol=tol,
                                            atol=tol * ref.abs().max().item())
+
+
+# K1's and K2's plans on the card: (shape, storage offset). Between them
+# they give each kernel, in f32 and bf16, on-chip rows over 1, 2, 4 and 8
+# CTAs and streaming rows; a row off 2,048 (48 x 40), an odd row and bases off
+# 16 bytes
+_FUSED_CASES = [((2, 3, 64, 64), 0), ((2, 3, 64, 96), 0), ((2, 3, 128, 128), 0),
+                ((1, 3, 128, 256), 0), ((1, 2, 256, 512), 0),
+                ((1, 2, 256, 256), 0), ((1, 2, 512, 512), 0), ((2, 3, 48, 40), 0),
+                ((2, 3, 45, 43), 0), ((2, 3, 64, 64), 1), ((1, 2, 256, 256), 1)]
+
+
+def _at_offset(t, offset):
+    """t's values in a contiguous view `offset` elements into a flat buffer."""
+    buf = torch.empty(t.numel() + offset, device=t.device, dtype=t.dtype)
+    buf[offset:].copy_(t.flatten())
+    return buf[offset:].view(t.shape)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 0.05)])
+def test_fused_kernels_match_plain_on_every_plan(cuda, dtype, tol):
+    """K1 and K2, each variant (on chip at 1, 2, 4 and 8 CTAs a row, and
+    streaming) against its plain version, IN and AdaIN, every activation:
+    K1's y against `instance_norm_plain` and its (mean, rsig) against
+    `instance_norm_stats_plain`; K2 fed K1's statistics against
+    `instance_norm_bwd_plain` without them (`_bwd_kernel`'s function); two
+    launches of each bit-equal."""
+    seen = {"K1": set(), "K2": set()}
+    for shape, offset in _FUSED_CASES:
+        n, c, h, w = shape
+        x = _at_offset((torch.randn(shape, device="cuda", generator=cuda) * 2 + 0.5).to(dtype),
+                       offset)
+        dy = _at_offset(torch.randn(shape, device="cuda", generator=cuda).to(dtype), offset)
+        scale = torch.randn(n, c, device="cuda", generator=cuda)
+        shift = torch.randn(n, c, device="cuda", generator=cuda)
+        want_mean, want_rsig = K.instance_norm_stats_plain(x)
+        for args in ((None, None), (scale, shift)):
+            for activ in ("none", "relu", "lrelu", "tanh"):
+                y, mean, rsig = K._launch(x, *args, 1e-5, activ, stats=True)
+                y2 = K._launch(x, *args, 1e-5, activ)
+                want = K.instance_norm_plain(x, *args, activ=activ)
+                align = K._align(x.data_ptr(), y.data_ptr())
+                seen["K1"].add(K._fused_plan(n * c, h * w, x.element_size(), align, 1)[::2])
+                torch.cuda.synchronize()
+                assert torch.equal(y, y2)
+                torch.testing.assert_close(y.float(), want.float(), rtol=tol, atol=tol)
+                torch.testing.assert_close(mean, want_mean, rtol=1e-5, atol=1e-5)
+                torch.testing.assert_close(rsig, want_rsig, rtol=1e-5, atol=0)
+                before = K.bwd_launches
+                got = K.instance_norm_bwd(x, args[0], y, dy, mean, rsig, activ)
+                again = K.instance_norm_bwd(x, args[0], y, dy, mean, rsig, activ)
+                ref = K.instance_norm_bwd_plain(x, args[0], y, dy, 1e-5, activ)
+                dx = torch.empty_like(x)
+                align = K._align(x.data_ptr(), y.data_ptr(), dy.data_ptr(), dx.data_ptr())
+                seen["K2"].add(K._fused_plan(n * c, h * w, x.element_size(), align, 3)[::2])
+                torch.cuda.synchronize()
+                assert K.bwd_launches == before + 2
+                for a, b in zip(got, again):
+                    assert (a is None and b is None) or torch.equal(a, b)
+                size = ref[0].float().abs().max().item()
+                torch.testing.assert_close(got[0].float(), ref[0].float(), rtol=tol,
+                                           atol=tol * size)
+                if args[0] is not None:
+                    for g, r in zip(got[1:], ref[1:]):
+                        torch.testing.assert_close(g, r, rtol=tol, atol=tol * r.abs().max().item())
+    for kernel, plans in seen.items():
+        assert {(1, True), (2, True), (4, True), (8, True), (1, False)} <= plans, (kernel, plans)
+
+
+def test_fused_kernels_refuse_a_plan_they_cannot_run(cuda):
+    """The C entry points of K1 and K2 return an error and launch nothing
+    (their outputs keep their bytes) for a cluster outside {1, 2, 4, 8}, a
+    chunk larger than a CTA's threads hold, a streaming plan over more than
+    one CTA, a load wider than 16 bytes, a base off the load's width; and K2
+    without its statistics."""
+    x = torch.randn(1, 2, 256, 256, device="cuda", generator=cuda).bfloat16()
+    stats = torch.ones(2, 2, device="cuda")
+    out = torch.full_like(x, 3.0)
+    lib, stream = K._library(), torch.cuda.current_stream().cuda_stream
+    ptrs = [stats[i].data_ptr() for i in range(2)]
+
+    def k1(ptr, ctas, vec, on_chip):
+        return lib.aclgan_instance_norm_fwd(ptr, None, None, out.data_ptr(), *ptrs, 2, 65536,
+                                            1, 1, 1e-5, ctas, vec, on_chip, stream)
+
+    def k2(ptr, ctas, vec, on_chip, mean=ptrs[0]):
+        return lib.aclgan_instance_norm_bwd(ptr, None, x.data_ptr(), x.data_ptr(), mean,
+                                            ptrs[1], out.data_ptr(), None, None, 2, 65536,
+                                            1, 1, ctas, vec, on_chip, stream)
+
+    for fn in (k1, k2):
+        for ptr, ctas, vec, on_chip in ((x.data_ptr(), 3, 8, 1), (x.data_ptr(), 16, 8, 1),
+                                        (x.data_ptr(), 4, 8, 1), (x.data_ptr(), 2, 8, 0),
+                                        (x.data_ptr(), 8, 16, 1), (x.data_ptr() + 2, 8, 8, 1)):
+            assert fn(ptr, ctas, vec, on_chip) != 0, (fn.__name__, ctas, vec, on_chip)
+    assert k2(x.data_ptr(), 8, 8, 1, mean=None) != 0
+    torch.cuda.synchronize()
+    assert torch.all(out == 3.0) and torch.all(stats == 1.0)
+    assert k1(x.data_ptr(), 8, 8, 1) == 0  # a plan it can run, to compare
+    torch.cuda.synchronize()
+    assert not torch.all(out == 3.0) and not torch.all(stats == 1.0)
 
 
 def _autograd_grads(x, scale, shift, w, activ):
@@ -647,13 +753,6 @@ _SPLIT_EDGE = [((2, 3, 7, 9), 0, 1),        # a ragged row: one element a load
                ((1, 4, 512, 512), 0, 8),    # 262,144-element rows
                ((1, 8, 64, 64), 0, 1),      # 8 rows for 132 SMs, too short to split
                ((1, 16, 512, 512), 0, 8)]   # 16 rows, each over a cluster of 8
-
-
-def _at_offset(t, offset):
-    """t's values in a contiguous view `offset` elements into a flat buffer."""
-    buf = torch.empty(t.numel() + offset, device=t.device, dtype=t.dtype)
-    buf[offset:].copy_(t.flatten())
-    return buf[offset:].view(t.shape)
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 0.05)])

@@ -173,3 +173,84 @@ def test_bwd_plain_gates_and_casts():
     torch.testing.assert_close(db, (y > 0).float().sum(dim=(2, 3)))
     with pytest.raises(ValueError, match="gates"):
         K.instance_norm_bwd_plain(x, None, y, dy, 1e-5, "selu")
+
+
+# ------------------------------------------------------- K1's saved statistics
+_STATS_SHAPES = [(2, 8, 16, 32), (2, 7, 9, 4)]  # NHWC; the second has odd rows
+
+
+@pytest.fixture(scope="module")
+def pallas_fwd():
+    """{NHWC shape: (x, y)}: `_fwd_pallas` (IN, no activation) in interpret
+    mode on seeded inputs, once for the module."""
+    out = {}
+    for i, shape in enumerate(_STATS_SHAPES):
+        x = (np.random.RandomState(10 + i).randn(*shape) * 2 + 0.5).astype(np.float32)
+        with pltpu.force_tpu_interpret_mode():
+            y = _fwd_pallas(jnp.asarray(x), None, None, 1e-5, "none")
+        out[shape] = (x, np.asarray(y))
+    return out
+
+
+@pytest.mark.parametrize("shape", _STATS_SHAPES)
+def test_stats_plain_match_pallas_kernel(pallas_fwd, shape):
+    """`instance_norm_stats_plain` against the mean and rsig `_fwd_kernel`
+    computes: y = (x - mean) * rsig on each row, so a float64 least-squares
+    line of y on x gives rsig (its slope) and mean (x's mean less y's over
+    the slope)."""
+    x, y = pallas_fwd[shape]
+    x64 = x.astype(np.float64).transpose(0, 3, 1, 2).reshape(shape[0], shape[3], -1)
+    y64 = y.astype(np.float64).transpose(0, 3, 1, 2).reshape(shape[0], shape[3], -1)
+    xc = x64 - x64.mean(-1, keepdims=True)
+    rsig = (xc * y64).sum(-1) / (xc * xc).sum(-1)
+    mean = x64.mean(-1) - y64.mean(-1) / rsig
+    got_mean, got_rsig = K.instance_norm_stats_plain(_nchw(x), 1e-5)
+    assert got_mean.shape == got_rsig.shape == (shape[0], shape[3])
+    assert got_mean.dtype == got_rsig.dtype == torch.float32
+    np.testing.assert_allclose(got_mean.numpy(), mean, rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(got_rsig.numpy(), rsig, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("activ", ["none", "relu", "lrelu", "tanh"])
+@pytest.mark.parametrize("affine", [False, True])
+def test_bwd_plain_fed_saved_stats_matches_pallas_kernel(activ, affine):
+    """K2's function as the port runs it, fed the statistics K1 saves
+    (`instance_norm_stats_plain`), against `_bwd_pallas`, which recomputes
+    them from x, in interpret mode."""
+    x, scale, shift, dy = _in_case(8, affine)
+    with pltpu.force_tpu_interpret_mode():
+        y = _fwd_pallas(jnp.asarray(x), _j(scale), _j(shift), 1e-5, activ)
+        want = _bwd_pallas(jnp.asarray(x), _j(scale), y, jnp.asarray(dy), 1e-5, activ)
+    mean, rsig = K.instance_norm_stats_plain(_nchw(x), 1e-5)
+    dx, ds, db = K.instance_norm_bwd_plain(_nchw(x), _t(scale), _nchw(np.asarray(y)),
+                                           _nchw(dy), activ=activ, mean=mean, rsig=rsig)
+    np.testing.assert_allclose(_nhwc(dx), np.asarray(want[0]), rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(ds.numpy(), np.asarray(want[1]), rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(db.numpy(), np.asarray(want[2]), rtol=1e-4, atol=1e-4)
+
+
+def test_autograd_pair_saves_k1_stats_for_k2(monkeypatch):
+    """`_FusedInstanceNorm` asks K1 for the statistics and hands them to K2
+    (here both stand-ins: the wrappers need a card), so K2 gets the forward's
+    (mean, rsig) and no eps."""
+    seen = {}
+
+    def fake_launch(x, scale, shift, eps, activ, stats=False):
+        assert stats
+        mean, rsig = K.instance_norm_stats_plain(x, eps)
+        seen["stats"] = (mean, rsig)
+        return K.instance_norm_plain(x, scale, shift, eps, activ), mean, rsig
+
+    def fake_bwd(x, scale, y, dy, mean, rsig, activ):
+        assert mean is seen["stats"][0] and rsig is seen["stats"][1]
+        return K.instance_norm_bwd_plain(x, scale, y, dy, activ=activ, mean=mean, rsig=rsig)
+
+    monkeypatch.setattr(K, "_launch", fake_launch)
+    monkeypatch.setattr(K, "instance_norm_bwd", fake_bwd)
+    x, scale, shift, w = _in_case(9, True)
+    want = _port_grads(x, scale, shift, w, "lrelu")
+    xt = _nchw(x).requires_grad_()
+    st, bt = (torch.from_numpy(a).requires_grad_() for a in (scale, shift))
+    (K._FusedInstanceNorm.apply(xt, st, bt, 1e-5, "lrelu") * _nchw(w)).sum().backward()
+    for got, wv in zip((_nhwc(xt.grad), st.grad.numpy(), bt.grad.numpy()), want):
+        np.testing.assert_allclose(got, wv, rtol=1e-5, atol=1e-5)

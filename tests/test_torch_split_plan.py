@@ -2,8 +2,11 @@
 row and elements a load), the chunks it gives each CTA of a cluster and the
 reduction order it implies against the plain versions; K1a's and K2a's
 (`_apply_plan`: chunks a row and elements a load), the chunks covering each
-row once and the C entry points' refusal of a plan they cannot run; the
-kernels' ctypes signatures set once. All on the CPU; the kernels themselves
+row once and the C entry points' refusal of a plan they cannot run; K1's
+and K2's (`_fused_plan`: CTAs a row, elements a load, on chip or streaming)
+on the model's rows, the chunks covering each row once within the threads'
+registers, and their entry points' refusal of a bad plan; the kernels'
+ctypes signatures set once. All on the CPU; the kernels themselves
 run in `tests/test_torch_cuda.py`, and the plain versions are held to the JAX
 package in `tests/test_torch_halo.py`."""
 
@@ -224,6 +227,15 @@ def test_library_sets_ctypes_signatures_once(monkeypatch):
         [ctypes.c_longlong, ctypes.c_float] + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     assert fns["aclgan_instance_norm_bwd_apply"].argtypes[-6:] == \
         [ctypes.c_float] + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    # K1: six pointers (x, scale, shift, y, mean, rsig), rows, row_len, dtype,
+    # act, eps, then the plan (ctas_per_row, vec, on_chip) before the stream;
+    # K2: nine pointers (x, scale, y, dy, mean, rsig, dx, dscale, dshift), no eps
+    rows = [ctypes.c_longlong] * 2
+    assert fns["aclgan_instance_norm_fwd"].argtypes == \
+        [ctypes.c_void_p] * 6 + rows + [ctypes.c_int] * 2 + [ctypes.c_float] \
+        + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    assert fns["aclgan_instance_norm_bwd"].argtypes == \
+        [ctypes.c_void_p] * 9 + rows + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 
 
 def test_split_wrappers_take_the_plain_version_on_the_cpu():
@@ -385,3 +397,177 @@ def test_apply_wrappers_take_the_plain_version_on_the_cpu():
         K.instance_norm_bwd_apply(x, y, dy, mean, rsig, scale, sums, 63, "lrelu"),
         K.bwd_apply_plain(x, y, dy, mean, rsig, scale, sums, 63, "lrelu"), rtol=0, atol=0)
     assert (K.apply_launches, K.bwd_apply_launches) == before
+
+
+# ------------------------------------------------------------- K1 and K2
+# The IN / AdaIN layers of the 256^2 model (male2female) at the training and
+# serving batches of chip_smoke.py (16, 32, 48), and phase 7's f32 check at
+# 128^2, batch 2
+MAIN_SHAPES = [(n, c, s, s) for n in (16, 32, 48) for c, s in ((64, 256), (128, 128), (256, 64))]
+F32_CHECK_SHAPES = [(2, 64, 128, 128), (2, 128, 64, 64), (2, 256, 32, 32)]
+KERNEL_INPUTS = {"K1": 1, "K2": 3}
+
+
+@pytest.mark.parametrize("kernel", sorted(KERNEL_INPUTS))
+@pytest.mark.parametrize("shape", MAIN_SHAPES)
+def test_fused_plan_holds_every_main_path_row_on_chip_in_bf16(shape, kernel):
+    """Every bf16 row of the 256^2 model goes on chip for K1 and K2, with
+    16-byte loads, on the fewest CTAs that hold it: 8 for 256^2, 2 for 128^2,
+    1 for 64^2. In f32, K1's rows go on chip as well (64 elements a thread:
+    4 CTAs for 256^2, one for 128^2); K2's 256^2 rows stream."""
+    n, c, h, w = shape
+    ctas, vec, on_chip = K._fused_plan(n * c, h * w, 2, 16, KERNEL_INPUTS[kernel])
+    assert on_chip and vec == 8 and ctas == {65536: 8, 16384: 2, 4096: 1}[h * w]
+    ctas, vec, on_chip = K._fused_plan(n * c, h * w, 4, 16, KERNEL_INPUTS[kernel])
+    assert vec == 4
+    if kernel == "K1":
+        assert on_chip and ctas == {65536: 4, 16384: 1, 4096: 1}[h * w]
+    elif h * w <= 32768:
+        assert on_chip and ctas == {16384: 4, 4096: 1}[h * w]
+    else:
+        assert (ctas, on_chip) == (1, False)
+
+
+@pytest.mark.parametrize("kernel", sorted(KERNEL_INPUTS))
+@pytest.mark.parametrize("shape", F32_CHECK_SHAPES)
+def test_fused_plan_holds_the_f32_check_rows_on_chip(shape, kernel):
+    n, c, h, w = shape
+    ctas, vec, on_chip = K._fused_plan(n * c, h * w, 4, 16, KERNEL_INPUTS[kernel])
+    assert on_chip and vec == 4 and ctas in (1, 2, 4, 8)
+
+
+@pytest.mark.parametrize("kernel", sorted(KERNEL_INPUTS))
+@pytest.mark.parametrize("elem", [2, 4])
+def test_fused_plan_streams_the_512_rows(elem, kernel):
+    """The one-process reference of phase 27 (512^2, 262,144-element rows) is
+    the main path's case for the streaming variants: one CTA a row."""
+    assert K._fused_plan(2 * 64, 512 * 512, elem, 16, KERNEL_INPUTS[kernel]) == \
+        (1, 16 // elem, False)
+
+
+@pytest.mark.parametrize("row_len,elem,inputs,want", [
+    (4096, 2, 1, (1, 8, True)),
+    (8192, 2, 1, (1, 8, True)),      # 256 threads x 32 elements: one CTA exactly
+    (8200, 2, 1, (2, 8, True)),
+    (65536, 2, 1, (8, 8, True)),
+    (65544, 2, 1, (1, 8, False)),    # one vector more than 8 CTAs hold
+    (1920, 2, 1, (1, 8, True)),      # 48 x 40: a row off 2,048
+    (1935, 2, 1, (1, 1, True)),      # 45 x 43: odd, one element a load
+    (8193, 2, 1, (2, 1, True)),
+    (65537, 2, 1, (1, 1, False)),
+    (65536, 4, 1, (4, 4, True)),     # f32 K1: 64 elements a thread
+    (16384, 4, 1, (1, 4, True)),     # an f32 128^2 row on one CTA
+    (131072, 4, 1, (8, 4, True)),
+    (131076, 4, 1, (1, 4, False)),
+    (65536, 2, 3, (8, 8, True)),
+    (32768, 4, 3, (8, 4, True)),     # f32 K2: 16 elements of each input a thread
+    (32772, 4, 3, (1, 4, False)),
+    (65536, 4, 3, (1, 4, False)),
+    (4096, 4, 3, (1, 4, True)),
+    (4100, 4, 3, (2, 4, True)),
+    (63, 2, 3, (1, 1, True)),        # a ragged 7 x 9 row
+])
+def test_fused_plan_picks_these(row_len, elem, inputs, want):
+    assert K._fused_plan(64, row_len, elem, 16, inputs) == want
+
+
+@pytest.mark.parametrize("kernel", sorted(KERNEL_INPUTS))
+@pytest.mark.parametrize("row_len,elem,align,want_vec", NARROWED)
+def test_fused_plan_narrows_the_load(row_len, elem, align, want_vec, kernel):
+    """K1's and K2's load is the split kernels': the widest within 16 bytes
+    that divides every base's alignment and the row length."""
+    ctas, vec, on_chip = K._fused_plan(6, row_len, elem, align, KERNEL_INPUTS[kernel])
+    assert vec == want_vec == K._split_plan(6, row_len, elem, align)[1]
+    assert on_chip and ctas in (1, 2, 4, 8)
+
+
+# (rows, row_len, element bytes, base alignment, inputs): main-path rows,
+# a row off 2,048, an odd row, rows of one element, bases off 16 bytes, rows
+# at each CTA count's edge
+_FUSED_COVER = [(1024, 65536, 2, 16, 1), (1024, 65536, 2, 16, 3), (2048, 16384, 4, 16, 3),
+                (4096, 4096, 2, 16, 3), (6, 1920, 2, 16, 1), (6, 1935, 4, 16, 3),
+                (6, 1, 2, 16, 1), (6, 256, 2, 2, 3), (6, 4096, 4, 8, 1), (6, 8200, 2, 16, 1),
+                (6, 65536, 2, 4, 1), (6, 32768, 4, 16, 3), (6, 16388, 2, 16, 3)]
+
+
+@pytest.mark.parametrize("rows,row_len,elem,align,inputs", _FUSED_COVER)
+def test_fused_chunks_cover_each_row_once_within_the_threads(rows, row_len, elem, align,
+                                                             inputs):
+    """On chip, the cluster's chunks cover each element of a row exactly once,
+    in rank order, each starting on a whole vector; no thread holds more than
+    `_fused_elems` elements of an input; and one CTA fewer would not hold the
+    row (the fewest CTAs)."""
+    ctas, vec, on_chip = K._fused_plan(rows, row_len, elem, align, inputs)
+    assert on_chip
+    hits = np.zeros(row_len, np.int64)
+    most = 0
+    for lo, hi in K._chunk_bounds(row_len, ctas, vec):
+        assert lo % vec == 0 and lo <= hi
+        hits[lo:hi] += 1
+        most = max(most, -(-(hi - lo) // (vec * K.SPLIT_THREADS)) * vec)
+    assert np.all(hits == 1)
+    assert most <= K._fused_elems(elem, inputs)
+    if ctas > 1:
+        n_vec = row_len // vec
+        assert -(-n_vec // (ctas // 2)) > K.SPLIT_THREADS * (K._fused_elems(elem, inputs) // vec)
+
+
+def test_fused_elems_fit_the_register_budget():
+    """32 elements a thread in bf16; in f32, 64 for K1 (64 registers) and 16
+    for K2 (three inputs in 48 registers, as bf16 K2's)."""
+    assert [K._fused_elems(e, i) for e in (2, 4) for i in (1, 3)] == [32, 32, 64, 16]
+    for e, i in ((2, 3), (4, 3), (4, 1)):  # packed 32-bit registers a thread
+        assert i * K._fused_elems(e, i) * e // 4 <= 64
+
+
+def test_fused_entry_points_refuse_a_bad_plan_before_launching():
+    """The `.cu` contract: K1's and K2's launchers check the plan with
+    `fused_plan_ok` (and K2 its statistics pointers) before anything else and
+    return cudaErrorInvalidValue without launching when it fails; the check
+    refuses a load `load_ok` refuses, more than 2^31 - 1 CTAs, a streaming
+    plan over more than one CTA, and on chip a CTA count other than 1, 2, 4,
+    8 or a chunk the CTA's threads cannot hold. Every plan `_fused_plan`
+    makes passes that check."""
+    src = (build.CSRC / K.SOURCE).read_text()
+    plan_ok = _cu_body(src, "bool fused_plan_ok(")
+    for clause in ("!load_ok<T>(bases, row_len, vec)", "rows * ctas > INT_MAX",
+                   "if (!on_chip) return ctas == 1;",
+                   "ctas != 1 && ctas != 2 && ctas != 4 && ctas != 8",
+                   "(row_len / vec + ctas - 1) / ctas",
+                   "static_cast<long long>(kThreads) * (row_elems<T, INPUTS>() / vec)"):
+        assert clause in plan_ok, clause
+    for name, check, launch in (("int run_fwd(", "fused_plan_ok<T, 1>({x, y}", "launch_fwd<"),
+                                ("int run_bwd(", "fused_plan_ok<T, 3>({x, y, dy, dx}",
+                                 "launch_bwd<")):
+        body = _cu_body(src, name).strip()
+        assert body.startswith("if (!" + check), name
+        # the one launch (a macro over vec 1, 2, 4, 8) comes after the check
+        assert body.index("cudaErrorInvalidValue") < body.index("#define")
+        assert body.count(launch) == 1 and "<<<" not in body
+    elems = _cu_body(src, "constexpr int row_elems(")  # `_fused_elems`, restated
+    assert "return sizeof(T) == 2 ? 32 : (INPUTS == 1 ? 64 : 16);" in elems
+    for entry, impl in (("aclgan_instance_norm_fwd(", "run_fwd<"),
+                        ("aclgan_instance_norm_bwd(", "run_bwd<")):
+        body = _cu_body(src, 'extern "C" int ' + entry)
+        assert "<<<" not in body and "launch_" not in body and impl in body
+
+    def contract(rows, row_len, elem, align, inputs, ctas, vec, on_chip):  # restated
+        if not (vec >= 1 and vec & (vec - 1) == 0 and vec * elem <= 16 and row_len % vec == 0
+                and align % (vec * elem) == 0 and rows * ctas <= 2**31 - 1):
+            return False
+        if not on_chip:
+            return ctas == 1
+        return (ctas in (1, 2, 4, 8) and -(-(row_len // vec) // ctas)
+                <= K.SPLIT_THREADS * (K._fused_elems(elem, inputs) // vec))
+
+    cases = [c for c in _FUSED_COVER] + [(n * c, h * w, e, 16, i) for n, c, h, w in MAIN_SHAPES
+                                         for e in (2, 4) for i in (1, 3)]
+    cases += [(128, 262144, e, 16, i) for e in (2, 4) for i in (1, 3)]
+    for rows, row_len, elem, align, inputs in cases:
+        assert contract(rows, row_len, elem, align, inputs,
+                        *K._fused_plan(rows, row_len, elem, align, inputs))
+    for bad in ((6, 65536, 2, 16, 1, 4, 8, True), (6, 65536, 2, 16, 1, 3, 8, True),
+                (6, 262144, 2, 16, 1, 8, 8, True), (6, 4096, 2, 16, 1, 2, 8, False),
+                (6, 4096, 2, 2, 1, 1, 8, True), (6, 63, 2, 16, 1, 1, 2, True),
+                (6, 32768, 4, 16, 3, 4, 4, True), (2**30, 256, 2, 16, 1, 2, 8, True)):
+        assert not contract(*bad), bad
