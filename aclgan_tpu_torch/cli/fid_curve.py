@@ -55,6 +55,24 @@ from aclgan_tpu_torch.utils.checkpoint import list_snapshots, load_generators, p
 
 PROTOCOL = "synchronized 2x style, eval blend, pool3 FID"
 CI_METHOD = "per-style resample, recentered basic bootstrap, f32-eigh anchored to f64 point"
+BATCH = 128   # --batch's default
+SEED = 1      # --seed's default
+
+
+def image_batches(cfg, paths, a2b: bool = True, batch: int = BATCH, seed: int = SEED):
+    """(batch, valid rows) of `paths` as the sweep loads both of its sides:
+    resized square to the source domain's size, unflipped, in order."""
+    size_a, size_b = cfg.data.resolved_sizes()
+    new_size = size_a if a2b else size_b
+    spec = TransformSpec(new_size=new_size, crop_h=new_size, crop_w=new_size, flip=False)
+    loader = DataLoader(ImageDataset(paths, spec), batch_size=min(batch, len(paths)),
+                        train=False, num_workers=2, seed=seed)
+    return loader.iter_padded()
+
+
+def pool3_features(scorer, batches) -> np.ndarray:
+    """The scorer's pool3 features of the valid rows of `batches`."""
+    return np.concatenate([scorer.features((b + 1.0) / 2.0)[:n] for b, n in batches], 0)
 
 
 class FidBootstrap:
@@ -106,8 +124,8 @@ def main(argv=None) -> Dict[str, Any]:
                    help="outputs/<name> dir containing checkpoints/")
     p.add_argument("--inception_weights", required=True)
     p.add_argument("--n", type=int, default=500, help="images per side")
-    p.add_argument("--batch", type=int, default=128)
-    p.add_argument("--seed", type=int, default=1)
+    p.add_argument("--batch", type=int, default=BATCH)
+    p.add_argument("--seed", type=int, default=SEED)
     p.add_argument("--a2b", type=int, default=1)
     p.add_argument("--prefix", default="gen", choices=("gen", "ema"),
                    help="snapshot family to sweep: live weights (gen_*) or EMA "
@@ -129,9 +147,6 @@ def main(argv=None) -> Dict[str, Any]:
     if not scorer.pretrained:
         sys.exit("--inception_weights must name fine-tuned inception weights")
 
-    size_a, size_b = cfg.data.resolved_sizes()
-    new_size = size_a if a2b else size_b
-    spec = TransformSpec(new_size=new_size, crop_h=new_size, crop_w=new_size, flip=False)
     src = os.path.join(cfg.data.data_root, "testA" if a2b else "testB")
     dst = os.path.join(cfg.data.data_root, "testB" if a2b else "testA")
     src_paths = list_images_folder(src)[:args.n]
@@ -139,13 +154,11 @@ def main(argv=None) -> Dict[str, Any]:
     print(f"{len(src_paths)} source / {len(dst_paths)} real target images")
 
     def batches(paths):
-        loader = DataLoader(ImageDataset(paths, spec), batch_size=min(args.batch, len(paths)),
-                            train=False, num_workers=2, seed=args.seed)
-        return loader.iter_padded()
+        return image_batches(cfg, paths, a2b, args.batch, args.seed)
 
-    real_feats = [scorer.features((b + 1.0) / 2.0)[:n] for b, n in batches(dst_paths)]
-    mu_r, sig_r = feature_stats(np.concatenate(real_feats, 0))
-    n_real = int(sum(len(f) for f in real_feats))
+    real_feats = pool3_features(scorer, batches(dst_paths))
+    mu_r, sig_r = feature_stats(real_feats)
+    n_real = len(real_feats)
 
     sd = cfg.gen.style_dim
     styles = 2.0 * torch.randn((max(1, args.styles), sd),

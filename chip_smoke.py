@@ -62,9 +62,11 @@ with a non-zero exit, if any phase fails:
    one batch (translation + scoring), the scorer's img/s at batch 32 and
    299^2, the seconds of the 2048^2 scipy sqrtm, peak memory, and the
    device time by kernel group over one batch;
-15. `cli.fid_curve` over phase 9's snapshots 20 and 40, 64 images, 2
-   styles, 20 bootstrap resamples: rows with the JAX tool's keys, finite
-   FIDs and intervals, 19 K1 launches a snapshot a style, seconds a snapshot;
+15. `cli.fid_curve`: since the acceptance phase sweeps the same path at the
+   same sizes (64 images, 2 styles, 20 bootstrap resamples) over its own
+   snapshots, its checks run there (phase 28): rows with the JAX tool's
+   keys, finite FIDs and intervals, 19 K1 launches a snapshot a style,
+   seconds a snapshot;
 16. [bucketed] `BucketedTranslator` (buckets 128/192/256, batch 32, bf16): 96
    requests with short sides over 100-320 and explicit styles; each output
    within 1 LSB of a plain Translator at its bucket; `compiled_shapes()` 3
@@ -131,12 +133,27 @@ with a non-zero exit, if any phase fails:
    all four timed in bf16 over a rank's iteration (CUDA events, and device
    time a launch from torch.profiler), beside their bound and one library
    call each;
-28. K1's and K2's device time a launch at each layer of phases 3-4's mixes
+28. [acceptance_mini] `tools/torch_synthfaces_hard.py --smoke` on phase 11's
+   dataset and phase 12's classifier: the train CLI on
+   `configs/synthfaces_hard.yaml` (EMA 0.999, batch 16, bf16) for 20
+   iterations, then `--resume` to 40, snapshots at 20 and 40, each call
+   followed by the gen and the ema FID curves (n 64, 2 styles, 20 resamples;
+   the second sweep of each resumes with `--start_after 20`); the (K1, K2)
+   launches of each call against the count the D1/G2 cadence gives, finite
+   records, every gen / dis / ema snapshot; `report` refusing the recorded
+   curves (n 500) and taking gen against ema, with the selected snapshot's
+   grid; then one f32 D+G iteration and one D iteration with EMA at 128^2,
+   batch 2 on the card against the CPU: the EMA after the G step equal to
+   d * EMA + (1 - d) * the stepped weights in float32 within 1e-2 of
+   (1 - d) * max |step| and off the form with the weights from before the
+   step by at least half of that, unmoved by the D iteration, and its
+   movement within the parity tests' movement bar (rel-L2 0.05) of the CPU's;
+29. K1's and K2's device time a launch at each layer of phases 3-4's mixes
    (torch.profiler, or CUDA events behind a queued busy kernel where the
    profiler loses the kernels) beside the library call's; run last so that
    no profiler session precedes the phases that trace;
-29. one JSON line listing every kernel;
-30. last line: {"ok": true, "device": {...}}.
+30. one JSON line listing every kernel;
+31. last line: {"ok": true, "device": {...}}.
 
 Imports nothing of JAX.
 """
@@ -1330,7 +1347,6 @@ K1_PER_TRIPLET = 3 * 11 + 3 * 8   # test_batch: 3 content encodes, 3 decodes
 EVAL_BATCH = 32
 EVAL_STYLES = 3
 FT_STEPS = 40                      # the classifier fine-tune's steps
-SWEEP_STYLES = 2
 
 
 def _eval_config(cfg, tmp, name, **tpu):
@@ -1559,41 +1575,20 @@ def phase_cli_test_batch(cfg, tmp, ckpt, inc):
     return launches
 
 
-def phase_fid_curve(cfg, tmp, run_dir, inc):
-    """`cli.fid_curve` over two phase-9 snapshots; returns its (K1, K2) launches."""
-    import shutil
-
-    from aclgan_tpu_torch.cli import fid_curve
-    from aclgan_tpu_torch.ops.kernels import instance_norm as K
-
-    sweep = Path(tmp) / "sweep"
-    (sweep / "checkpoints").mkdir(parents=True)
-    for it in (20, 40):
-        shutil.copy(Path(run_dir) / f"gen_{it:08d}.pt", sweep / "checkpoints")
-    path = _eval_config(cfg, tmp, "m2f_sweep")
-    K.launches = K.bwd_launches = 0
-    r = fid_curve.main(["--config", path, "--run_dir", str(sweep), "--inception_weights",
-                        inc, "--n", "64", "--styles", str(SWEEP_STYLES), "--bootstrap",
-                        "20"])
-    torch.cuda.synchronize()
-    launches = (K.launches, K.bwd_launches)
-    if launches != (LAUNCHES_PER_BATCH * 2 * SWEEP_STYLES, 0):
-        raise AssertionError(f"cli.fid_curve: (K1, K2) launches {launches}")
-    doc = json.loads(Path(r["path"]).read_text())
+def _curve_checks(doc, iterations):
+    """`cli.fid_curve`'s rows: the JAX tool's keys, finite FIDs and intervals."""
     keys = {"iteration", "fid", "target_domain_rate", "n_fake", "n_real", "fid_styles",
             "fid_spread", "fid_ci95", "fid_f32_minus_f64"}
     rows = doc["rows"]
-    if [row["iteration"] for row in rows] != [20, 40] or any(set(x) != keys for x in rows):
-        raise AssertionError(f"cli.fid_curve rows: {rows}")
+    if [row["iteration"] for row in rows] != list(iterations) or any(set(x) != keys
+                                                                     for x in rows):
+        raise AssertionError(f"cli.fid_curve {doc.get('prefix')} rows: {rows}")
     vals = [v for row in rows for v in [row["fid"], row["fid_f32_minus_f64"],
                                         *row["fid_ci95"], *row["fid_styles"]]]
     if not all(math.isfinite(v) for v in vals) or not doc["complete"]:
-        raise AssertionError(f"cli.fid_curve: non-finite values in {rows}")
-    log(f"[cli.fid_curve] {cfg.tpu.compute_dtype}, 2 snapshots x {SWEEP_STYLES} styles, n 64, 20 bootstrap "
-        f"resamples: rows {json.dumps(rows)}; {launches[0]} K1 launches; seconds a "
-        f"snapshot {', '.join(f'{x:.2f}' for x in r['seconds'])}; scipy sqrtm 2048^2 "
-        f"{', '.join(f'{x:.2f}' for x in r['fid_seconds'])} s")
-    return launches
+        raise AssertionError(f"cli.fid_curve {doc.get('prefix')}: non-finite values or an "
+                             f"incomplete sweep in {rows}")
+    return rows
 
 
 # ------------------------------------------------------------------ serving stack
@@ -3165,6 +3160,225 @@ def phase_spatial_two_ranks(cfg, tmp, smi):
     return entries, paths
 
 
+# ------------------------------------------------------------------ acceptance
+ACC_ITERS = (20, 40)                # the mini run's two calls: fresh, then --resume
+
+
+def _acceptance_tool():
+    """`tools/torch_synthfaces_hard.py` as a module."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "torch_synthfaces_hard", ROOT / "tools" / "torch_synthfaces_hard.py")
+    module = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = module
+    spec.loader.exec_module(module)
+    return module
+
+
+MOVE_TOL_GEN = 0.05   # tests/torch_parity.py: a generator's movement across frameworks
+
+
+def _ema_card_vs_cpu(cfg, decay):
+    """One f32 D+G iteration then one D iteration with EMA `decay`, at phase
+    7's cut, on the card against the CPU. Adam's first step moves each
+    weight by about lr, so the EMA moves by about (1 - d) * lr: at lr 1e-4
+    that is 1e-7, the size of the EMA's own float32 rounding. So the EMA
+    after the G step is held to d * EMA + (1 - d) * the stepped weights in
+    the trainer's float32 arithmetic on the card, within 1e-2 of
+    (1 - d) * max |stepped - initial weights|, and the same form with the
+    weights from before the step must miss it by at least half of that (the
+    check separates the two orders). The D iteration leaves the EMA as it
+    was. The EMA's movement is within the parity tests' movement bar
+    (rel-L2 0.05) of the CPU's; the weights whose gradient is float noise
+    move by +-lr with another sign on the two devices, so the live weights'
+    movement and the share of steps of another sign are logged beside it.
+    Returns the figures."""
+    from aclgan_tpu_torch.ops.kernels import instance_norm as K
+    from aclgan_tpu_torch.trainer import GEN_NAMES
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    size, b = 128, 2
+    vcfg = _variant_cfg(cfg, size, ema_decay=decay)
+    rng = np.random.RandomState(11)
+    batches = [tuple(rng.randint(0, 256, (b, size, size, 3), dtype=np.uint8)
+                     for _ in range(2)) for _ in range(2)]
+    zs = [{k: [rng.randn(b, vcfg.gen.style_dim).astype(np.float32) for _ in range(3)]
+           for k in ("dis", "gen")} for _ in range(2)]
+
+    def flat(tensors):
+        return {n: torch.cat([t.detach().flatten() for _, t in sorted(tensors[n].items())])
+                for n in GEN_NAMES}
+
+    def run(device):
+        model = _train_model(vcfg, device)
+        live0 = flat({n: dict(model.gen(n).named_parameters()) for n in GEN_NAMES})
+        seen, counts = [flat(model.ema)], []
+        for (xa, xb), z, do_gen in zip(batches, zs, (True, False)):
+            K.launches = K.bwd_launches = 0
+            m = model.train_step(xa, xb, True, do_gen, z=z)
+            if not all(math.isfinite(float(v)) for v in m.values()):
+                raise AssertionError(f"ema f32 {device}: non-finite metrics {m}")
+            counts.append((K.launches, K.bwd_launches))
+            seen.append(flat(model.ema))
+            if do_gen:
+                live = flat({n: dict(model.gen(n).named_parameters()) for n in GEN_NAMES})
+        return seen, live0, live, counts
+
+    def ema_form(ema, weights):  # the trainer's update, in its float32 order
+        return ema.clone().mul_(decay).add_(weights, alpha=1.0 - decay)
+
+    def max_abs(t):
+        return float(t.double().abs().max())
+
+    got, live0, live, counts = run("cuda")
+    if counts != [(2 * K1_PER_STEP, K2_PER_G_STEP), (K1_PER_STEP, 0)]:
+        raise AssertionError(f"ema f32: (K1, K2) launches {counts}")
+    out = {"counts": counts, "order": {}, "movement": {}, "live_movement": {},
+           "sign_flips": {}}
+    for n in GEN_NAMES:
+        scale = (1.0 - decay) * max_abs(live[n] - live0[n])
+        out["order"][n] = {"stepped": max_abs(got[1][n] - ema_form(got[0][n], live[n])),
+                           "before_the_step": max_abs(got[1][n] - ema_form(got[0][n], live0[n])),
+                           "scale": scale}
+    unmoved = all(torch.equal(got[2][n], got[1][n]) for n in GEN_NAMES)
+    if not unmoved or any(o["scale"] == 0.0 or o["stepped"] > 1e-2 * o["scale"]
+                          or o["before_the_step"] < 0.5 * o["scale"]
+                          for o in out["order"].values()):
+        raise AssertionError(f"ema f32: EMA after the G step against d*EMA + (1-d)*weights, "
+                             f"stepped and from before the step, beside (1-d)*max|step| "
+                             f"{out['order']}; the D iteration "
+                             f"{'left it' if unmoved else 'moved it'}")
+    want, want_live0, want_live, _ = run("cpu")
+
+    def rel(g, w):
+        g, w = g.double().cpu(), w.double().cpu()
+        return float((g - w).norm() / w.norm())
+
+    for n in GEN_NAMES:
+        out["movement"][n] = rel(got[1][n] - got[0][n], want[1][n] - want[0][n])
+        step, want_step = live[n] - live0[n], want_live[n] - want_live0[n]
+        out["live_movement"][n] = rel(step, want_step)
+        out["sign_flips"][n] = float((torch.sign(step.cpu()) != torch.sign(want_step))
+                                     .double().mean())
+    if max(out["movement"].values()) > MOVE_TOL_GEN:
+        raise AssertionError(f"ema f32: EMA movement card vs CPU {out}")
+    return out
+
+
+def phase_acceptance_mini(cfg, tmp, inc):
+    """[acceptance_mini] `tools/torch_synthfaces_hard.py --smoke` on phase 11's
+    dataset and phase 12's classifier: the train CLI at batch 16 with EMA,
+    20 iterations then `--resume` to 40 (snapshots at 20 and 40), each call
+    followed by both FID curves (n 64, 2 styles, 20 resamples; the second
+    sweep of each resumes with `--start_after 20`), and `report`, which must
+    refuse the recorded curves (n 500) and accept gen against ema. Then the
+    f32 EMA check on the card against the CPU. Returns {path: (K1, K2)}."""
+    from aclgan_tpu_torch.config import load_config
+    from aclgan_tpu_torch.ops.kernels import instance_norm as K
+
+    tool = _acceptance_tool()
+    smoke, decay = tool.SMOKE, load_config(tool.SHIPPED).tpu.ema_decay
+    work = Path(tmp) / "acceptance"
+    base = ["--smoke", "--work", str(work), "--data_root", str(Path(tmp) / "ds"),
+            "--inception_weights", inc]
+    train_k, curve_k = [0, 0], [0, 0]
+    curve_seconds, sqrtm_seconds, train_s, lines = [], [], [], []
+    for i, iters in enumerate(ACC_ITERS):
+        K.launches = K.bwd_launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        seg = tool.main(["train", *base, "--iters", str(iters)])["train"]
+        torch.cuda.synchronize()
+        got = (K.launches, K.bwd_launches)
+        derived = (seg["derived"]["k1"], seg["derived"]["k2"])
+        if got != derived or seg["start"] != (ACC_ITERS[i - 1] if i else 0):
+            raise AssertionError(f"acceptance_mini train to {iters}: from {seg['start']}, "
+                                 f"(K1, K2) {got}, derived {derived}")
+        train_k = [a + b for a, b in zip(train_k, got)]
+        train_s.append(seg["seconds"])
+        lines += seg["iteration_lines"]
+        peak = torch.cuda.max_memory_allocated()
+        K.launches = K.bwd_launches = 0
+        sweeps = tool.main(["curves", *base])["curves"]
+        torch.cuda.synchronize()
+        got = (K.launches, K.bwd_launches)
+        derived = tuple(sum(sweeps[p]["derived"][k] for p in sweeps) for k in ("k1", "k2"))
+        resumed = all(("--start_after" in sweeps[p]["argv"]) == bool(i) for p in sweeps)
+        if got != derived or not resumed or len(sweeps) != 2:
+            raise AssertionError(f"acceptance_mini curves after {iters}: (K1, K2) {got}, "
+                                 f"derived {derived}, argv "
+                                 f"{[sweeps[p].get('argv') for p in sweeps]}")
+        curve_k = [a + b for a, b in zip(curve_k, got)]
+        curve_seconds += sweeps["gen"]["seconds_a_snapshot"]
+        sqrtm_seconds += sweeps["gen"]["fid_seconds"] + sweeps["ema"]["fid_seconds"]
+    ckpt = work / "run" / "outputs" / "synthfaces_hard" / "checkpoints"
+    files = {p: tool.snapshot_stamps(ckpt, p) for p in ("gen", "dis", "ema")}
+    if any(v != list(ACC_ITERS) for v in files.values()):
+        raise AssertionError(f"acceptance_mini snapshots: {files}")
+    recs = _records(work / "run" / "logs" / "synthfaces_hard")
+    _check_records(recs, range(10, ACC_ITERS[-1] + 1, 10), "acceptance_mini")
+    docs = {p: json.loads((work / "run" / "outputs" / "synthfaces_hard" /
+                           f"fid_curve_{p}.json").read_text()) for p in ("gen", "ema")}
+    rows = {p: _curve_checks(d, ACC_ITERS) for p, d in docs.items()}
+    try:
+        tool.main(["report", *base, "--recorded", str(ROOT / "docs" / "run_synthfaces_hard")])
+        raise AssertionError("acceptance_mini: report took the recorded curves (n 500) "
+                             f"against n {smoke.curve_n}")
+    except SystemExit as e:
+        if "protocol mismatch on 'n'" not in str(e):
+            raise
+        refusal = str(e)
+    summary = tool.main(["report", *base])["report"]
+    grid = work / "docs" / summary["selected"].get("grid", "missing")
+    if not grid.is_file() or set(summary["gen_against_ema"]["wins"]) != {"gen", "ema"}:
+        raise AssertionError(f"acceptance_mini report: {summary['selected']}, "
+                             f"{summary['gen_against_ema']}")
+    t_ema = time.time()
+    ema = _ema_card_vs_cpu(cfg, decay)
+    ema_s = time.time() - t_ema
+    s_it = [secs / 10 for _, secs in lines]
+    log(f"[acceptance_mini] tools/torch_synthfaces_hard.py --smoke: the train CLI on "
+        f"configs/synthfaces_hard.yaml (EMA {decay}, batch 16, bf16) on phase 11's "
+        f"JPEGs, {ACC_ITERS[0]} iterations then --resume to {ACC_ITERS[-1]}: "
+        f"{' + '.join(f'{x:.1f}' for x in train_s)} s, s per iteration over each 10 "
+        f"{[round(x, 4) for x in s_it]}, peak memory {peak / 2**30:.3f} GiB; (K1, K2) "
+        f"{tuple(train_k)} = the cadence's count; snapshots {files['gen']} (gen, dis, ema); "
+        f"{len(recs)} finite records")
+    for p in ("gen", "ema"):
+        log(f"[acceptance_mini] fid_curve --prefix {p} (n {smoke.curve_n}, {smoke.styles} "
+            f"styles, {smoke.bootstrap} resamples; cut after its first row, resumed with "
+            f"--start_after "
+            f"{ACC_ITERS[0]}): rows {json.dumps(rows[p])}")
+    log(f"[cli.fid_curve] bfloat16, n {smoke.curve_n}, {smoke.styles} styles, "
+        f"{smoke.bootstrap} bootstrap resamples, "
+        f"gen then ema over 2 snapshots each: {curve_k[0]} K1 launches; seconds a gen "
+        f"snapshot {', '.join(f'{x:.2f}' for x in curve_seconds)}; scipy sqrtm 2048^2 "
+        f"{', '.join(f'{x:.2f}' for x in sqrtm_seconds)} s")
+    log(f"[acceptance_mini] report: the recorded curves refused ({refusal[:90]}...); gen "
+        f"against ema {summary['gen_against_ema']}; grid {grid.name} "
+        f"({grid.stat().st_size} B)")
+    log(f"[acceptance_mini] f32 EMA {decay}, 128^2 batch 2, D+G then D on the card vs "
+        f"the CPU: (K1, K2) {ema['counts']}; EMA after the G step off d*EMA + (1-d)*weights "
+        f"in float32, max |diff| with the stepped / the initial weights against "
+        f"(1-d)*max|step|: "
+        + ", ".join(f"{n} {o['stepped']:.2e} / {o['before_the_step']:.2e} against "
+                    f"{o['scale']:.2e}" for n, o in ema["order"].items())
+        + "; unmoved by the D iteration; EMA movement rel-L2 "
+        + ", ".join(f"{n} {ema['movement'][n]:.2e}" for n in ema["movement"])
+        + " (the live weights' " + ", ".join(f"{n} {ema['live_movement'][n]:.2e}"
+                                             for n in ema["live_movement"])
+        + "; steps of another sign " + ", ".join(f"{n} {ema['sign_flips'][n]:.2e}"
+                                                 for n in ema["sign_flips"])
+        + f") ({ema_s:.1f} s)")
+    return {f"acceptance_mini: train CLI with EMA at batch 16 on JPEGs, {ACC_ITERS[0]} + "
+            f"{ACC_ITERS[-1] - ACC_ITERS[0]} resumed iterations (phase 28)": tuple(train_k),
+            f"acceptance_mini: cli.fid_curve gen + ema, 2 snapshots x {smoke.styles} styles x "
+            f"{smoke.curve_n} images, cut and resumed (phase 28)": tuple(curve_k),
+            "acceptance_mini: f32 D+G then D iteration with EMA, 128^2 batch 2 (phase 28)":
+            tuple(map(sum, zip(*ema["counts"])))}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         log("chip_smoke: no CUDA device available")
@@ -3218,10 +3432,6 @@ def main() -> int:
         by_path[f"cli.test_batch, 64 images at batch {EVAL_BATCH} x {EVAL_STYLES} styles "
                 "(phase 14)"] = phase_cli_test_batch(cfg, tmp, ckpt, inc)
         torch.cuda.empty_cache()
-        run_dir = Path(tmp) / "b3" / "outputs" / "m2f_b3" / "checkpoints"
-        by_path[f"cli.fid_curve, 2 snapshots x {SWEEP_STYLES} styles x 64 images "
-                "(phase 15)"] = phase_fid_curve(cfg, tmp, run_dir, inc)
-        torch.cuda.empty_cache()
         by_path[f"BucketedTranslator, {N_BUCKETED} requests over buckets {BUCKETS} "
                 "(phase 16)"] = phase_bucketed(cfg, ckpt)
         torch.cuda.empty_cache()
@@ -3267,9 +3477,13 @@ def main() -> int:
         log(f"[phase 27] {time.time() - t0:.1f} s")
         gc_collect()
         t0 = time.time()
+        by_path.update(phase_acceptance_mini(cfg, tmp, inc))
+        log(f"[phase 28] {time.time() - t0:.1f} s")
+        gc_collect()
+        t0 = time.time()
         for k, device in ((k1, k1_device), (k2, k2_device)):
             k.update(device())
-        log(f"[phase 28] {time.time() - t0:.1f} s")
+        log(f"[phase 29] {time.time() - t0:.1f} s")
     for i, k in enumerate((k1, k2)):
         k["launches_by_path"] = {path: counts[i] for path, counts in by_path.items()}
     for i, k in enumerate(split, start=2):  # (K1, K2, K1m, K1a, K2m, K2a) of phase 27

@@ -22,8 +22,8 @@ from aclgan_tpu.utils.torch_import import map_generator_state_dict
 from aclgan_tpu_torch.config import from_dict
 from aclgan_tpu_torch.trainer import ACLGAN, DIS_NAMES, GEN_NAMES
 from tests.helpers import tiny_config
-from tests.torch_parity import (BASE_KEY, assert_metrics, assert_moved_alike, batches,
-                                jax_z, port_model, port_tree, rel_l2)
+from tests.torch_parity import (BASE_KEY, MOVE_TOL, assert_metrics, assert_moved_alike,
+                                batches, flat, jax_z, port_model, port_tree, rel_l2)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -141,6 +141,57 @@ def test_ten_iteration_trajectory_matches_jax(smooth):
     np.testing.assert_allclose(sum(p_loss, []), sum(j_loss, []), rtol=2e-3)
     assert pm.step == int(state.step) == 10
     assert_moved_alike(pm, state0, state)
+
+
+@pytest.fixture(scope="module")
+def smooth_ema():
+    """`smooth` with `tpu.ema_decay: 0.999`, the synthfaces_hard setting."""
+    return _pair(_config(focus_delta=0.0, focus_epsilon=10.0,
+                         tpu=dataclasses.replace(tiny_config().tpu, ema_decay=0.999)))
+
+
+def _ema_movement(ema, ema0):
+    return {n: jax.tree_util.tree_map(lambda a, b: np.asarray(a) - np.asarray(b),
+                                      ema[n], ema0[n]) for n in GEN_NAMES}
+
+
+def test_ten_iteration_ema_trajectory_matches_jax(smooth_ema):
+    """The D1/G2 cadence over 10 iterations with EMA 0.999 on the JAX z: the
+    EMA moves only after a G step, in both packages, and its movement from
+    the initial weights matches the JAX `ema_params`' within the movement
+    tolerance of the parameters (`aclgan_tpu/trainer.py:598-602`)."""
+    jm, state0, _ = smooth_ema
+    pm = port_model(jm, state0)
+    state = state0
+
+    def port_ema():
+        return {n: map_generator_state_dict({k: t.clone() for k, t in pm.ema[n].items()},
+                                            pm.cfg.gen) for n in GEN_NAMES}
+
+    ema0 = port_ema()
+    for it, (xa, xb) in enumerate(batches(10)):
+        do_gen = it % 2 == 0
+        before_p, before_j = port_ema(), jax.device_get(state.ema_params)
+        state, _ = jm.train_step(state, jnp.asarray(xa), jnp.asarray(xb), BASE_KEY, True,
+                                 do_gen)
+        pm.train_step(xa, xb, True, do_gen, z=jax_z(jm, it))
+        after_p, after_j = port_ema(), jax.device_get(state.ema_params)
+        for n in GEN_NAMES:
+            moved_p = rel_l2(after_p[n], before_p[n]) > 0
+            moved_j = rel_l2(after_j[n], before_j[n]) > 0
+            assert moved_p == moved_j == do_gen, (it, n, moved_p, moved_j)
+    got = _ema_movement(port_ema(), ema0)
+    want = _ema_movement(jax.device_get(state.ema_params), jax.device_get(state0.ema_params))
+    for n in GEN_NAMES:
+        assert rel_l2(got[n], want[n]) < MOVE_TOL["gen"], n
+    # ten iterations at 0.999: the EMA holds a hundredth of the weights' way
+    live = _ema_movement(port_tree_gens(pm), ema0)
+    ratio = np.linalg.norm(flat(got)) / np.linalg.norm(flat(live))
+    assert 0.002 < ratio < 0.01, ratio
+
+
+def port_tree_gens(pm):
+    return {n: port_tree(pm, n) for n in GEN_NAMES}
 
 
 def test_step_increment_and_own_noise():
