@@ -88,6 +88,11 @@ moments_launches = 0
 apply_launches = 0
 bwd_sums_launches = 0
 bwd_apply_launches = 0
+# every counter above, by name. A wrapper counts in Python, so a CUDA graph's
+# replay calls none: `graphs.py` keeps each counter's change over the capture
+# and adds it at every replay instead.
+COUNTERS = ("launches", "bwd_launches", "moments_launches", "apply_launches",
+            "bwd_sums_launches", "bwd_apply_launches")
 
 
 def instance_norm_plain(x: torch.Tensor, scale: Optional[torch.Tensor] = None,

@@ -17,6 +17,13 @@ replica a device, each taking its k-th of the batch's rows (the JAX
 package's batch-sharded mesh, `aclgan_tpu/serving.py:110-127`); -1 is every
 visible GPU. With `device="cpu"` it runs k replicas on the CPU.
 
+Where the JAX package jits the served batch (one executable per shape), a
+replica on a CUDA device records `translate_u8` into one CUDA graph per
+(batch, H, W, a2b) on its second batch of that shape and replays it
+(`graphs.StepGraphs`, held by the replica's model; threads may call one
+`Translator` at once: a call holds the graphs' lock from its copy-in to its
+copy-out); `graphs=False` keeps it eager, as the CPU is.
+
     tr = Translator("configs/male2female.yaml", "gen_00350000.pt")
     outs = tr(list_of_uint8_images)            # list of HxWx3 uint8
 
@@ -62,6 +69,7 @@ class Translator:
         seed: int = 0,
         devices: int = 1,
         device: Union[str, torch.device] = "cuda",
+        graphs: bool = True,
     ):
         cfg = load_config(config) if isinstance(config, str) else config
         self.cfg = cfg
@@ -75,12 +83,12 @@ class Translator:
             raise ValueError(f"size {self.size} must be a multiple of the "
                              f"generator stride {stride} (2**n_downsample)")
         replica_devices = _replica_devices(device, devices, batch_size)
-        self.model = ACLGAN(cfg, device=replica_devices[0])
+        self.model = ACLGAN(cfg, device=replica_devices[0], graphs=graphs)
         load_generators(checkpoint, self.model)
         self.device = self.model.device
         self.replicas = [self.model]
         for dev in replica_devices[1:]:
-            replica = ACLGAN(cfg, device=dev)
+            replica = ACLGAN(cfg, device=dev, graphs=graphs)
             for name in ("AB", "BA"):
                 replica.gen(name).load_state_dict(self.model.gen(name).state_dict())
             self.replicas.append(replica)
@@ -128,17 +136,25 @@ class Translator:
         device, so launches on k devices overlap), and the outputs come back
         in row order."""
         if len(self.replicas) == 1:
-            return translate_u8(self.model, x, z, self.a2b)
+            return self._served(self.model, x, z)
         parts = []
         for model, xs, zs in zip(self.replicas, x.chunk(len(self.replicas)),
                                  z.chunk(len(self.replicas))):
             dev = model.device
-            parts.append(translate_u8(model, xs.to(dev, non_blocking=True),
-                                      zs.to(dev, non_blocking=True), self.a2b))
+            parts.append(self._served(model, xs.to(dev, non_blocking=True),
+                                      zs.to(dev, non_blocking=True)))
         img = torch.cat([p[0].to(self.device) for p in parts])
         masks = [p[1] for p in parts]
         return img, None if masks[0] is None else torch.cat([m.to(self.device)
                                                               for m in masks])
+
+    def _served(self, model: ACLGAN, x: torch.Tensor, z: torch.Tensor):
+        """`translate_u8` on one replica: its CUDA graph for this shape, or
+        eager."""
+        if model.graphs is None:
+            return translate_u8(model, x, z, self.a2b)
+        return model.graphs.run(("translate", tuple(x.shape), self.a2b), (x, z),
+                                lambda xs, zs: translate_u8(model, xs, zs, self.a2b))
 
     def _run_batches(self, prepped: np.ndarray, styles: np.ndarray):
         outs: List[np.ndarray] = []
@@ -243,14 +259,21 @@ class BucketedTranslator(Translator):
         return super()._run_batches(prepped, styles)
 
     def warmup(self):
-        """Run every (batch_size, bucket, bucket, 3) device shape once."""
-        for b in self.buckets:
-            self([np.zeros((b, b, 3), np.uint8)])
+        """Run every (batch_size, bucket, bucket, 3) device shape once; on a
+        CUDA device twice, which captures its graph."""
+        for _ in range(1 if self.model.graphs is None else 2):
+            for b in self.buckets:
+                self([np.zeros((b, b, 3), np.uint8)])
 
     def compiled_shapes(self) -> int:
         """The number of distinct (batch_size, bucket, bucket, 3) device
         shapes served so far: one per bucket at steady state, and repeat
-        traffic adds none (the counterpart of the JAX jit cache size)."""
+        traffic adds none. On a CUDA device, the keys of the first replica's
+        CUDA graphs, one per shape (a shape is captured on its second batch;
+        the counterpart of the JAX jit cache size); on the CPU, the shapes
+        served."""
+        if self.model.graphs is not None:
+            return sum(1 for key in self.model.graphs.keys() if key[0] == "translate")
         return len(self._shapes)
 
 

@@ -17,7 +17,16 @@ Port of `aclgan_tpu/trainer.py` (`to_model_range`, `ACLGAN`: `init_state`,
   `torch.utils.checkpoint` (non-reentrant) where the JAX step uses
   `jax.checkpoint`; `tpu.grad_accum` runs the strided micro-batches one after
   another, summing gradients, where the JAX step scans them;
-  `tpu.moment_dtype: bfloat16` takes `optim.AdamBf16Mu`.
+  `tpu.moment_dtype: bfloat16` keeps `optim.Adam`'s first moments in bf16.
+- Where the JAX package jits `train_step`, the port records it on a CUDA
+  device into one CUDA graph per (do_dis, do_gen, batch shapes, z injected
+  or drawn) and replays it (`graphs.StepGraphs`); `step_increment` stays on
+  the host, which writes the learning rate of the step into the optimizers'
+  lr tensors before each call. The step body reads nothing back to the host.
+  It runs eagerly on the CPU, under a data-parallel or spatial mesh (gloo's
+  host-staged all-reduce cannot be captured; NCCL capture is not done), under
+  `tpu.check_nans` (anomaly mode cannot be captured), or when built with
+  `graphs=False`; the model prints which when it is built.
 - Data parallelism (`mesh`, one process a GPU; `parallel/mesh.py`): each
   rank steps on its rows of the global batch and draws the global z, keeping
   its rows; bn's batch statistics and the focus loss's batch sums are
@@ -50,9 +59,10 @@ from torch.utils.checkpoint import checkpoint
 
 from aclgan_tpu_torch import losses
 from aclgan_tpu_torch.config import Config
+from aclgan_tpu_torch.graphs import StepGraphs
 from aclgan_tpu_torch.models.discriminator import MsDiscriminator
 from aclgan_tpu_torch.models.generator import AdaINGenerator
-from aclgan_tpu_torch.optim import AdamBf16Mu
+from aclgan_tpu_torch.optim import Adam
 from aclgan_tpu_torch.parallel.mesh import (DataMesh, all_reduce_mean, all_reduce_sum,
                                             batch_sharding)
 from aclgan_tpu_torch.parallel.spatial import SpatialMesh, data_rows
@@ -112,14 +122,22 @@ class ACLGAN:
     what training needs: `dis_A` / `dis_B` / `dis_2`, the optimizers, the EMA
     and the step; serving builds only the generators. With a `mesh`, the
     train step is one rank's share of a data-parallel step, and under a
-    `SpatialMesh` the train step and `translate` take this rank's H-slice."""
+    `SpatialMesh` the train step and `translate` take this rank's H-slice.
+    `graphs` False keeps every step eager on a CUDA device too (`graphs` is
+    then None; the checks compare the two forms so)."""
 
     def __init__(self, cfg: Config, device: Union[str, torch.device] = "cuda",
                  seed: Optional[int] = None,
-                 mesh: Optional[Union[DataMesh, SpatialMesh]] = None):
+                 mesh: Optional[Union[DataMesh, SpatialMesh]] = None,
+                 graphs: bool = True):
         self.cfg = cfg
         self.device = resolve_device(device)
         self.mesh = mesh
+        eager = self._eager_reason(graphs)
+        self.graphs = None if eager else StepGraphs(self.device)
+        if eager:
+            print(f"ACLGAN: steps run eagerly ({eager})")
+        self._metric_names: Dict[Tuple[bool, bool], List[str]] = {}
         self.dtype = compute_dtype(cfg)
         self.use_focus = cfg.use_focus
         self.seed = cfg.seed if seed is None else seed
@@ -150,12 +168,24 @@ class ACLGAN:
             raise ValueError(f"tpu.moment_dtype {cfg.tpu.moment_dtype!r} not supported "
                              f"({sorted(_DTYPES)})")
 
+    def _eager_reason(self, graphs: bool) -> Optional[str]:
+        """Why the steps cannot be CUDA graphs here, or None."""
+        if not graphs:
+            return "graphs=False"
+        if self.device.type != "cuda":
+            return f"no CUDA graphs on {self.device.type}"
+        if self.mesh is not None:
+            return (f"a {type(self.mesh).__name__}: its all-reduces are not captured")
+        if self.cfg.tpu.check_nans:
+            return "tpu.check_nans: anomaly mode cannot be captured"
+        return None
+
     # ------------------------------------------------------------------
     def init_state(self, seed: Optional[int] = None) -> None:
         """Build the training state (`aclgan_tpu/trainer.py:150-190`): the three
         discriminators (gaussian init; dis_2 sees input_dim_b channels), one
         Adam over both generators and one over the discriminators (coupled L2
-        weight decay, as `torch.optim.Adam` has it; `AdamBf16Mu` under
+        weight decay; `optim.Adam`, its first moments bf16 under
         `tpu.moment_dtype: bfloat16`), the EMA copies when
         `tpu.ema_decay > 0`, step 0, and the z generator. Discriminator
         weights draw from seed + 1 (the generators took the seed), z from
@@ -173,9 +203,9 @@ class ACLGAN:
                     weight_decay=cfg.weight_decay)
         self.gen_params = [p for n in GEN_NAMES for p in self.gen(n).parameters()]
         self.dis_params = [p for n in DIS_NAMES for p in self.dis(n).parameters()]
-        adam_cls = AdamBf16Mu if cfg.tpu.moment_dtype == "bfloat16" else torch.optim.Adam
-        self.gen_opt = adam_cls(self.gen_params, **adam)
-        self.dis_opt = adam_cls(self.dis_params, **adam)
+        adam = dict(adam, mu_dtype=_DTYPES[cfg.tpu.moment_dtype])
+        self.gen_opt = Adam(self.gen_params, **adam)
+        self.dis_opt = Adam(self.dis_params, **adam)
         self.ema_decay = float(cfg.tpu.ema_decay)
         self.ema = None
         if self.ema_decay > 0:  # copies, never views of the live weights
@@ -184,6 +214,8 @@ class ACLGAN:
                         for n in GEN_NAMES}
         self.step = 0
         self.z_gen = torch.Generator(device=self.device).manual_seed(seed)
+        if self.graphs is not None:  # they hold the replaced state's tensors
+            self.graphs.clear()
 
     def _set_mesh(self, name: str, net: torch.nn.Module) -> None:
         """Set the mesh on the layers that read one (bn: the global batch's
@@ -364,12 +396,6 @@ class ACLGAN:
         for net in nets:
             all_reduce_mean([p.grad for p in net.parameters()], self.mesh)
 
-    def _apply(self, opt: torch.optim.Optimizer) -> None:
-        lr = self.learning_rate(self.step)
-        for group in opt.param_groups:
-            group["lr"] = lr
-        opt.step()
-
     def _micro(self, x_a: torch.Tensor, x_b: torch.Tensor, z: ZTriple):
         """(x_a, x_b, z) of each micro-batch: the whole batch when accum is 1."""
         if self.accum == 1:
@@ -388,8 +414,14 @@ class ACLGAN:
             g = torch.autograd.grad(total, params)
             grads = g if grads is None else [a + b for a, b in zip(grads, g)]
             per_micro.append(metrics)
-        for p, g in zip(params, grads):
-            p.grad = g if self.accum == 1 else g / self.accum
+        if self.accum > 1:
+            grads = torch._foreach_div(list(grads), float(self.accum))
+        held = [p.grad for p in params]
+        if any(h is None for h in held):
+            for p, g in zip(params, grads):
+                p.grad = g
+        else:  # into the same buffers each step: a graph's replay writes them too
+            torch._foreach_copy_(held, list(grads))
         if len(per_micro) == 1:
             return per_micro[0]
         return {k: torch.stack([m[k] for m in per_micro]).mean(0) for k in per_micro[0]}
@@ -405,7 +437,7 @@ class ACLGAN:
         a graph. bn stats and sn u / v advance on each micro-batch's forwards."""
         metrics = self._accumulate(self._dis_step_loss, self.dis_params, x_a, x_b, z)
         self._sync_grads([self.dis(n) for n in DIS_NAMES])
-        self._apply(self.dis_opt)
+        self.dis_opt.update()  # at the lr train_step wrote
         return metrics
 
     def gen_update(self, x_a: torch.Tensor, x_b: torch.Tensor, z: ZTriple) -> Metrics:
@@ -415,7 +447,7 @@ class ACLGAN:
         bn stats and sn u / v still advance on these forwards)."""
         metrics = self._accumulate(self._gen_loss, self.gen_params, x_a, x_b, z)
         self._sync_grads([self.gen(n) for n in GEN_NAMES])
-        self._apply(self.gen_opt)
+        self.gen_opt.update()
         if self.ema is not None:
             d = self.ema_decay
             with torch.no_grad():
@@ -431,7 +463,11 @@ class ACLGAN:
 
     def _images(self, x) -> torch.Tensor:
         """NHWC uint8 or [-1, 1] float -> NCHW float in [-1, 1] on the device."""
-        x = torch.as_tensor(x).to(self.device)
+        return self._nchw(torch.as_tensor(x).to(self.device))
+
+    @staticmethod
+    def _nchw(x: torch.Tensor) -> torch.Tensor:
+        """NHWC uint8 or [-1, 1] float already on the device -> NCHW [-1, 1]."""
         return to_model_range(x).permute(0, 3, 1, 2).contiguous()
 
     def train_step(self, x_a, x_b, do_dis: bool, do_gen: bool, step_increment: int = 1,
@@ -442,6 +478,9 @@ class ACLGAN:
         schedule) follows the global iteration. `z` ({"dis": (z1, z2, z3),
         "gen": (...)}, each (B, style_dim)) replaces the draws. Returns the
         metrics as 0-dim tensors under the JAX names, without a host sync.
+        On a CUDA device with `graphs`, the step after the host's part (the
+        step count, the lr, the batches' copy to the device) is one CUDA
+        graph per key, replayed.
 
         Under a `mesh`, x_a and x_b are this rank's rows of the global batch
         (under a `SpatialMesh`, its data index's rows and its H-slice) and `z`
@@ -449,36 +488,64 @@ class ACLGAN:
         the metrics are the global batch's."""
         if step_increment != 1:
             self.step += step_increment - 1
-        x_a, x_b = self._images(x_a), self._images(x_b)
+        if not (do_dis or do_gen):
+            self.step += 1
+            return {}
+        lr = self.learning_rate(self.step)
+        self.gen_opt.set_lr(lr)
+        self.dis_opt.set_lr(lr)
+        x_a, x_b = torch.as_tensor(x_a).to(self.device), torch.as_tensor(x_b).to(self.device)
         if isinstance(self.mesh, SpatialMesh):
             b = x_a.shape[0] * self.mesh.n_data
             rows = data_rows(self.mesh, b)
         else:
             b = x_a.shape[0] * (1 if self.mesh is None else self.mesh.world)
             rows = batch_sharding(self.mesh, b)
-
-        def noise(kind: str) -> ZTriple:
-            if z is not None:
-                zs = tuple(torch.as_tensor(v).to(self.device, torch.float32)
-                           for v in z[kind])
-                if any(v.shape[0] != b for v in zs):
+        kinds = [k for k, on in (("dis", do_dis), ("gen", do_gen)) if on]
+        zs: Tuple[torch.Tensor, ...] = ()
+        if z is not None:
+            for kind in kinds:
+                triple = tuple(torch.as_tensor(v).to(self.device, torch.float32)
+                               for v in z[kind])
+                if any(v.shape[0] != b for v in triple):
                     raise ValueError(f"z must hold the global batch's {b} rows")
-            else:
-                zs = self._draw_z(b)
-            return tuple(v[rows] for v in zs)
+                zs += tuple(v[rows] for v in triple)
+
+        def body(xa: torch.Tensor, xb: torch.Tensor, *zin: torch.Tensor) -> torch.Tensor:
+            return self._step(xa, xb, do_dis, do_gen, b, rows, zin)
+
+        if self.graphs is None:
+            values = body(x_a, x_b, *zs)
+        else:
+            key = ("train", do_dis, do_gen, tuple(x_a.shape), x_a.dtype, tuple(x_b.shape),
+                   x_b.dtype, z is None)
+            values = self.graphs.run(key, (x_a, x_b, *zs), body, (self.z_gen,))
+        self.step += 1
+        if self.mesh is not None:
+            all_reduce_mean([values], self.mesh)
+        return dict(zip(self._metric_names[(do_dis, do_gen)], values.unbind()))
+
+    def _step(self, x_a: torch.Tensor, x_b: torch.Tensor, do_dis: bool, do_gen: bool,
+              b: int, rows, zs: Sequence[torch.Tensor]) -> torch.Tensor:
+        """The step body on device batches: the updates, on the z triples in
+        `zs` (D's then G's) or on draws from `z_gen` when it is empty; returns
+        the metrics stacked, their names kept in `_metric_names`. Device work
+        only: this is what a CUDA graph records."""
+        x_a, x_b = self._nchw(x_a), self._nchw(x_b)
+        triples = iter([tuple(zs[i:i + 3]) for i in range(0, len(zs), 3)])
+
+        def noise() -> ZTriple:
+            if zs:
+                return next(triples)
+            return tuple(v[rows] for v in self._draw_z(b))
 
         metrics: Metrics = {}
         if do_dis:
-            metrics.update(self.dis_update(x_a, x_b, noise("dis")))
+            metrics.update(self.dis_update(x_a, x_b, noise()))
         if do_gen:
-            metrics.update(self.gen_update(x_a, x_b, noise("gen")))
-        self.step += 1
-        out = {k: v.detach() for k, v in metrics.items()}
-        if self.mesh is not None and out:
-            values = torch.stack(list(out.values()))
-            all_reduce_mean([values], self.mesh)
-            out = dict(zip(out, values.unbind()))
-        return out
+            metrics.update(self.gen_update(x_a, x_b, noise()))
+        self._metric_names[(do_dis, do_gen)] = list(metrics)
+        return torch.stack([v.detach() for v in metrics.values()])
 
     # ------------------------------------------------------------------
     @torch.no_grad()
@@ -557,7 +624,10 @@ class ACLGAN:
         """Load a `snapshot()`-shaped dict into the state `init_state` built.
         An absent ("ema": None) EMA, with EMA on, starts from copies of the
         loaded generator weights; absent optimizer states keep fresh moments;
-        an absent "rng" keeps the z stream as seeded."""
+        an absent "rng" keeps the z stream as seeded. The CUDA graphs are
+        dropped: the optimizers' state tensors are replaced."""
+        if self.graphs is not None:
+            self.graphs.clear()
         for n in GEN_NAMES:
             self.gen(n).load_state_dict(snap["gen"][n])
         for n in DIS_NAMES:

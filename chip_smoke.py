@@ -12,7 +12,10 @@ the exported artifact, the HTTP front), the JPEG decode core, data
 parallelism (two ranks on the card, the CLI under torchrun), the
 multi-replica Translator, the VGG perceptual loss and spatial (H) sharding
 (two ranks at 512^2), through the hand-written CUDA kernels, and fails,
-with a non-zero exit, if any phase fails:
+with a non-zero exit, if any phase fails. On the card the single-device
+train step and the Translator's served batch run as CUDA graphs
+(`aclgan_tpu_torch/graphs.py`: each key's first call eager, then captured,
+then replayed), so every phase's launch counts hold for the graphed forms:
 
 1. device info (torch/CUDA versions, nvidia-smi name and power limit);
 2. build every kernel under aclgan_tpu_torch/csrc with nvcc;
@@ -38,8 +41,9 @@ with a non-zero exit, if any phase fails:
    one D iteration on the card against the same on the CPU (metrics, every
    network's gradients, K1/K2 launch counts);
 8. training in bfloat16 at 256^2, batch 16 (the shipped config): iterations/s,
-   images/s, peak memory, finite losses, device time by kernel group over one
-   D+G iteration, and the K1/K2 launches of one D+G iteration;
+   images/s, peak memory and the graphs' pool, finite losses, device time by
+   kernel group over one D+G iteration, and the K1/K2 launches of one D+G
+   iteration (its FLOPs are counted in phase 29, where an eager step runs);
 9. the train CLI (`aclgan_tpu_torch.cli.train.main`, in process) on the
    shipped config at its own batch of 3, on the synthetic dataset: 40
    iterations with grids at 10/20/30/40 and snapshots at 20/40 (scalars, files,
@@ -112,7 +116,7 @@ with a non-zero exit, if any phase fails:
    aclgan_tpu_torch.cli.train` with `tpu.distributed: true` (NCCL) on the
    shipped config, synthetic, batch 16, bf16: 30 iterations traced at 10..14,
    then `--resume` to 35: p50 s per iteration against phase 10, the trace's
-   K1 / K2 events (equal to the traced steps' count), the records and the
+   K1 / K2 events (held to the traced steps' count), the records and the
    snapshot files;
 25. [devices] `Translator(devices=-1)`: outputs equal to phase 6's; devices=2
    raises the JAX message with one card visible;
@@ -148,12 +152,26 @@ with a non-zero exit, if any phase fails:
    (1 - d) * max |step| and off the form with the weights from before the
    step by at least half of that, unmoved by the D iteration, and its
    movement within the parity tests' movement bar (rel-L2 0.05) of the CPU's;
-29. K1's and K2's device time a launch at each layer of phases 3-4's mixes
+29. [graphs] the CUDA graphs against the eager forms: the Translator's
+   outputs over phase 5's requests (f32, TF32 off: bit-equal) and six f32
+   training iterations at 128^2, batch 2 (D+G, D, step_increment 2, a StepLR
+   boundary, EMA: metrics, the five networks, moments, EMA, z stream, against
+   three eager runs' spread, reported, then one D+G iteration from one state,
+   replayed and eager twice: pre-update metrics bit-equal, the replayed
+   state no further from eager than two eager copies are from each other;
+   `graph_train_check`); the bare bf16 step at 256^2, batch 3 and 16,
+   graphed and eager in turns (s an iteration, the host's s to issue one, the
+   device's idle share over a traced D+G + D, peak memory, the graphs' pool,
+   capture seconds, (K1, K2) against the cadence's count, TFLOP/s from an
+   eager step's FLOPs); phase 9's CLI s an iteration; the Translator in bf16
+   at 256^2, batch 1, 8 and 32, graphed and eager (img/s, p50 ms a batch,
+   the host's us a call, capture seconds, pool);
+30. K1's and K2's device time a launch at each layer of phases 3-4's mixes
    (torch.profiler, or CUDA events behind a queued busy kernel where the
    profiler loses the kernels) beside the library call's; run last so that
    no profiler session precedes the phases that trace;
-30. one JSON line listing every kernel;
-31. last line: {"ok": true, "device": {...}}.
+31. one JSON line listing every kernel;
+32. last line: {"ok": true, "device": {...}}.
 
 Imports nothing of JAX.
 """
@@ -811,8 +829,12 @@ _KERNEL_GROUPS = [  # (group, substrings of the CUDA kernel name), first match w
 ]
 
 
-def _profile(what, fn):
-    """Device time by kernel group over one call of fn(), with torch.profiler."""
+def _profile(what, fn, launches=None):
+    """Device time by kernel group over one call of fn(), with torch.profiler;
+    returns (wall ms, device busy ms). With `launches` (K1, K2), the trace's
+    K1 and K2 kernel events are held to them by `_hold_trace`: a count read
+    from the device's own record, which a replayed CUDA graph's counters are
+    not."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -824,6 +846,15 @@ def _profile(what, fn):
         end.record()
         torch.cuda.synchronize()
     wall_ms = start.elapsed_time(end)
+    # the first device event against the first call that queues device work:
+    # below 0, the device's timestamps read behind the host's
+    trace = prof.events()
+    calls = [e.time_range.start for e in trace if e.device_type == DeviceType.CPU
+             and e.name.startswith("cuda")
+             and any(s in e.name for s in ("Launch", "Memcpy", "Memset"))]
+    device = [e.time_range.start for e in trace if e.device_type == DeviceType.CUDA]
+    offset = (f"{(min(device) - min(calls)) / 1e3:.3f} ms" if calls and device
+              else "not measured")
     groups: dict = {}
     kernels = []
     for e in prof.key_averages():
@@ -837,13 +868,21 @@ def _profile(what, fn):
                      "other elementwise / reduction")
         groups[group] = groups.get(group, 0.0) + ms
     busy = sum(groups.values())
+    events = tuple(sum(e.count for e in prof.key_averages()
+                       if e.device_type == DeviceType.CUDA and mark in e.key)
+                   for mark in ("instance_norm_fwd", "instance_norm_bwd"))
     log(f"[profile] {what}: {wall_ms:.2f} ms wall, "
-        f"{busy:.2f} ms device busy ({100 * (1 - busy / wall_ms):.1f}% idle)")
+        f"{busy:.2f} ms device busy ({100 * (1 - busy / wall_ms):.1f}% idle); "
+        f"(K1, K2) kernel events {events}; first device event minus first launch "
+        f"{offset}")
+    if launches is not None:
+        _hold_trace(what, events, launches)
     for g, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
         log(f"[profile]   {g}: {ms:.2f} ms ({100 * ms / wall_ms:.1f}% of wall)")
     kernels.sort(reverse=True)
     for ms, count, key in kernels[:15]:
         log(f"[profile]   {ms:8.2f} ms x{count:<5d} {key[:110]}")
+    return wall_ms, busy
 
 
 def phase_translator_bf16(cfg, ckpt, outs32):
@@ -866,11 +905,12 @@ def phase_translator_bf16(cfg, ckpt, outs32):
     peak = torch.cuda.max_memory_allocated()
     log(f"[translator bf16] batch {BATCH}: p50 {np.median(rates):.1f} img/s over "
         f"7 windows of {len(window)} requests ({', '.join(f'{r:.1f}' for r in rates)}); "
-        f"peak memory {peak / 2**30:.3f} GiB ({peak} B); vs f32: max {diff.max()} LSB, "
-        f"mean {diff.mean():.4f} LSB")
+        f"peak memory {peak / 2**30:.3f} GiB ({peak} B), the graph's pool "
+        f"{_pool(tr.model)}; vs f32: max {diff.max()} LSB, mean {diff.mean():.4f} LSB")
     if diff.mean() > 8:
         raise AssertionError(f"bf16 outputs drift {diff.mean():.2f} LSB on average from f32")
-    _profile(f"one window of {len(window)} requests", lambda: tr(window, win_styles))
+    _profile(f"one window of {len(window)} requests", lambda: tr(window, win_styles),
+             (LAUNCHES_PER_BATCH * len(window) // BATCH, 0))
     return outs
 
 
@@ -896,12 +936,19 @@ def _img_rates(tr, window, win_styles, windows=7):
     return rates
 
 
-def _train_model(cfg, device, seed=0):
+def _train_model(cfg, device, seed=0, graphs=True):
     from aclgan_tpu_torch.trainer import ACLGAN
 
-    model = ACLGAN(cfg, device=device, seed=seed)
+    model = ACLGAN(cfg, device=device, seed=seed, graphs=graphs)
     model.init_state()
     return model
+
+
+def _pool(model):
+    """The GiB a model's CUDA graphs reserve, as a phase prints it."""
+    if model.graphs is None:
+        return "none (eager)"
+    return f"{model.graphs.pool_bytes / 2**30:.3f} GiB ({model.graphs.pool_bytes} B)"
 
 
 def _grads(model):
@@ -975,10 +1022,10 @@ def phase_train_f32(cfg):
 
 
 def phase_train_bf16(cfg):
-    """The shipped config (bf16) at 256^2, batch 16: 2 warm-up iterations, then
-    5 timed windows of 8 iterations at the D1/G2 cadence (CUDA events), then
-    one profiled D+G iteration. Returns the (K1, K2) launches of the first
-    (D+G) iteration."""
+    """The shipped config (bf16) at 256^2, batch 16: 4 warm-up iterations (each
+    key's eager call and its capture), then 5 timed windows of 8 iterations
+    at the D1/G2 cadence (CUDA events), then one profiled D+G iteration.
+    Returns the (K1, K2) launches of the first (D+G) iteration."""
     from aclgan_tpu_torch.ops.kernels import instance_norm as K
 
     b = TRAIN_BATCH
@@ -1002,7 +1049,8 @@ def phase_train_bf16(cfg):
     launches = (K.launches, K.bwd_launches)
     if launches != (2 * K1_PER_STEP, K2_PER_G_STEP):
         raise AssertionError(f"train bf16: D+G iteration launched (K1, K2) {launches}")
-    iteration()
+    for _ in range(3):
+        iteration()
     rates, window = [], 8
     for _ in range(5):
         start = torch.cuda.Event(enable_timing=True)
@@ -1021,14 +1069,13 @@ def phase_train_bf16(cfg):
     log(f"[train bf16] male2female 256^2 batch {b}, D{cfg.D_update}/G{cfg.G_update}: "
         f"p50 {p50:.3f} it/s = {p50 * b:.2f} img/s over 5 windows of {window} "
         f"iterations ({', '.join(f'{r:.3f}' for r in rates)} it/s); peak memory "
-        f"{peak / 2**30:.3f} GiB ({peak} B); every loss finite; last losses {last}")
+        f"{peak / 2**30:.3f} GiB ({peak} B), the graphs' pool {_pool(model)}; every loss "
+        f"finite; last losses {last}")
     if it % cfg.G_update:
         iteration()
     # each kind of iteration alone, in turns (the step is even here, so D+G
-    # comes first): device ms (CUDA events, median of 3) and the FLOPs of its
-    # aten ops (convolutions forward and backward, matmuls; the instance-norm
-    # kernels are not aten ops and count none)
-    from torch.utils.flop_counter import FlopCounterMode
+    # comes first): device ms (CUDA events, median of 3); a replay runs no
+    # aten op in Python, so the FLOPs are counted on an eager step (phase 29)
 
     def timed():
         start = torch.cuda.Event(enable_timing=True)
@@ -1044,14 +1091,10 @@ def phase_train_bf16(cfg):
         for kind in times:
             times[kind].append(timed())
     for kind, ts in times.items():
-        counter = FlopCounterMode(display=False)
-        with counter:
-            iteration()
-        ms, flops = float(np.median(ts)), counter.get_total_flops()
-        log(f"[train bf16] one {kind} iteration: {ms:.2f} ms "
-            f"({', '.join(f'{t:.2f}' for t in ts)}), {flops / 1e12:.3f} TFLOP of aten ops, "
-            f"{flops / ms / 1e9:.1f} TFLOP/s")
-    _profile(f"one D+G training iteration at batch {b}", iteration)
+        log(f"[train bf16] one {kind} iteration: {float(np.median(ts)):.2f} ms "
+            f"({', '.join(f'{t:.2f}' for t in ts)})")
+    _profile(f"one D+G training iteration at batch {b}", iteration,
+             (2 * K1_PER_STEP, K2_PER_G_STEP))
     return launches, 1.0 / p50
 
 
@@ -1083,13 +1126,14 @@ class _Tee(io.TextIOBase):
 
 
 def _run_cli(argv):
-    """`cli.train.main(argv)` in process; returns its stdout lines."""
+    """`cli.train.main(argv)` in process; returns (its stdout lines, its
+    `TrainRun`)."""
     from aclgan_tpu_torch.cli.train import main as train_main
 
     tee = _Tee(sys.stdout)
     with contextlib.redirect_stdout(tee):
-        train_main(argv)
-    return tee.lines
+        run = train_main(argv)
+    return tee.lines, run
 
 
 def _cli_config(cfg, tmp, name, **changes):
@@ -1206,7 +1250,7 @@ def phase_train_cli_b3(cfg, tmp):
     cadence = _cadence(derived, epoch_len, 1, 40)
     K.launches = K.bwd_launches = 0
     t0 = time.time()
-    lines = _run_cli(["--config", path, "--output_path", out, "--max_iter", "40"])
+    lines, _ = _run_cli(["--config", path, "--output_path", out, "--max_iter", "40"])
     torch.cuda.synchronize()
     wall = time.time() - t0
     launches = (K.launches, K.bwd_launches)
@@ -1246,8 +1290,8 @@ def phase_train_cli_b3(cfg, tmp):
     n_tensors = _assert_restored(check, run / "checkpoints", 40)
     del check
     torch.cuda.empty_cache()
-    lines = _run_cli(["--config", path, "--output_path", out, "--resume",
-                      "--max_iter", "50"])
+    lines, _ = _run_cli(["--config", path, "--output_path", out, "--resume",
+                         "--max_iter", "50"])
     _check_records(_records(log_dir), range(1, 51), "train CLI b3 resumed")
     opt = torch.load(run / "checkpoints" / "optimizer.pt", weights_only=True)
     if opt["step"] != 50 or opt["saved_iteration"] != 50:
@@ -1256,53 +1300,87 @@ def phase_train_cli_b3(cfg, tmp):
         f"iteration-40 files bit for bit; records 41..50 appended; step 50; "
         f"{sum(bool(_ITERATION.match(x)) for x in lines)} Iteration lines")
     torch.cuda.empty_cache()
-    bare = _bare_train_step(derived)
+    bare = _bare_train_step(derived)["s"]
     log(f"[train cli b3] CLI {per_it:.4f} s per iteration against the bare train_step's "
         f"{bare:.4f} s: ratio {per_it / bare:.4f}")
     return per_it, launches
 
 
-def _bare_train_step(cfg):
+def _bare_train_step(cfg, graphs=True, windows=5, window=8):
     """`train_step` alone at cfg.batch_size on device-resident batches, as phase
-    8 runs it: p50 seconds per iteration over 5 windows of 8 at D1/G2 (CUDA
-    events), the host's seconds to issue a window, and the device's idle
-    share over one D+G iteration (torch.profiler)."""
+    8 runs it: p50 seconds per iteration over `windows` windows of `window`
+    at D1/G2 (CUDA events), the host's seconds to issue one iteration (p50 of
+    6 calls, each after a synchronize), the device's idle share over one
+    traced D+G and D pair (torch.profiler), peak memory, the graphs' pool and
+    capture seconds, and (K1, K2) over every iteration against the cadence's
+    count (it fails if they differ); the traced pair's K1 and K2 kernel
+    events must number the pair's launches too. Returns them as a dict."""
+    from aclgan_tpu_torch.ops.kernels import instance_norm as K
+
     b = cfg.batch_size
-    model = _train_model(cfg, "cuda")
+    gc_collect()
+    torch.cuda.reset_peak_memory_stats()
+    model = _train_model(cfg, "cuda", graphs=graphs)
     rng = np.random.RandomState(1)
     batches = [tuple(torch.from_numpy(rng.randint(0, 256, (b, 256, 256, 3), dtype=np.uint8))
                      .cuda() for _ in range(2)) for _ in range(4)]
-    it = 0
+    it, kinds = 0, {"D+G": 0, "D": 0}
+    K.launches = K.bwd_launches = 0
 
     def iteration():
         nonlocal it
         xa, xb = batches[it % len(batches)]
-        model.train_step(xa, xb, it % cfg.D_update == 0, it % cfg.G_update == 0)
+        do_gen = it % cfg.G_update == 0
+        model.train_step(xa, xb, it % cfg.D_update == 0, do_gen)
+        kinds["D+G" if do_gen else "D"] += 1
         it += 1
 
-    for _ in range(2):
+    for _ in range(4):  # each key's eager call and its capture
         iteration()
     torch.cuda.synchronize()
-    secs, host, window = [], [], 8
-    for _ in range(5):
+    secs, host = [], []
+    for _ in range(windows):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
-        t0 = time.perf_counter()
         start.record()
         for _ in range(window):
             iteration()
         end.record()
-        host.append((time.perf_counter() - t0) / window)
         torch.cuda.synchronize()
         secs.append(start.elapsed_time(end) / 1e3 / window)
-    p50 = float(np.median(secs))
-    log(f"[train bare b{b}] train_step at batch {b}, D1/G2: p50 {p50:.4f} s per iteration "
-        f"over 5 windows of {window} ({', '.join(f'{s:.4f}' for s in secs)}); the host "
-        f"issues an iteration in {float(np.median(host)):.4f} s (p50)")
+    for _ in range(6):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        iteration()
+        host.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
     if it % cfg.G_update:
         iteration()
-    _profile(f"one D+G training iteration at batch {b}", iteration)
-    return p50
+    form = "graphed" if graphs else "eager"
+    wall_ms, busy_ms = _profile(f"one D+G and one D iteration at batch {b}, {form}",
+                                lambda: [iteration() for _ in range(2)],
+                                (3 * K1_PER_STEP, K2_PER_G_STEP))
+    torch.cuda.synchronize()
+    launches = (K.launches, K.bwd_launches)
+    want = (K1_PER_STEP * (2 * kinds["D+G"] + kinds["D"]), K2_PER_G_STEP * kinds["D+G"])
+    if launches != want:
+        raise AssertionError(f"bare train_step b{b} {form}: (K1, K2) {launches} over "
+                             f"{kinds}, expected {want}")
+    out = dict(s=float(np.median(secs)), host_s=float(np.median(host)),
+               idle=1 - busy_ms / wall_ms, peak=torch.cuda.max_memory_allocated(),
+               pool=_pool(model), launches=launches, iterations=dict(kinds),
+               capture_s=[round(v, 4) for v in (model.graphs.capture_seconds.values()
+                                                if graphs else ())])
+    log(f"[train bare b{b}] train_step at batch {b}, D1/G2, {form}: p50 {out['s']:.4f} s "
+        f"per iteration over {windows} windows of {window} "
+        f"({', '.join(f'{x:.4f}' for x in secs)}); the host issues an iteration in "
+        f"{out['host_s']:.4f} s (p50 of 6 after a sync); device idle {100 * out['idle']:.1f}% "
+        f"over a traced D+G + D; peak memory {out['peak'] / 2**30:.3f} GiB ({out['peak']} B); "
+        f"graphs' pool {out['pool']}, capture s {out['capture_s']}; (K1, K2) {launches} over "
+        f"{kinds} = the cadence's count")
+    del model, batches
+    gc_collect()
+    return out
 
 
 def phase_train_cli_b16(cfg, tmp, bare_s_per_it):
@@ -1317,8 +1395,8 @@ def phase_train_cli_b16(cfg, tmp, bare_s_per_it):
     cadence = _cadence(derived, epoch_len, 1, 30)
     torch.cuda.reset_peak_memory_stats()
     K.launches = K.bwd_launches = 0
-    lines = _run_cli(["--config", path, "--output_path", out, "--max_iter", "30",
-                      "--profile_dir", str(prof_dir)])
+    lines, cli_run = _run_cli(["--config", path, "--output_path", out, "--max_iter", "30",
+                               "--profile_dir", str(prof_dir)])
     torch.cuda.synchronize()
     launches = (K.launches, K.bwd_launches)
     peak = torch.cuda.max_memory_allocated()
@@ -1330,6 +1408,10 @@ def phase_train_cli_b16(cfg, tmp, bare_s_per_it):
     size = trace.stat().st_size if trace.is_file() else 0
     if not size or TRACE_MARK not in trace.read_text():
         raise AssertionError(f"train CLI b16: trace {trace} empty or without K1 ({size} B)")
+    traced = _trace_launches(trace)
+    window = _expected_launches({i: cadence[i] for i in range(11, 16)}, samples=0)
+    # replayed graphs: the counters alone would not show it
+    _hold_trace("train CLI b16, iterations 11..15", traced, window)
     # setup, and the traced window (profiler on) and the iteration after it
     skip = {1} | set(range(11, 17))
     p50, per_it, counts = _cli_seconds(lines, cadence, skip)
@@ -1337,8 +1419,9 @@ def phase_train_cli_b16(cfg, tmp, bare_s_per_it):
         f"D+G {p50['D+G']:.4f} s, D {p50['D']:.4f} s ({counts} iterations), "
         f"{per_it:.4f} s per iteration at D1/G2 = {b / per_it:.2f} img/s; bare "
         f"train_step (phase 8) {bare_s_per_it:.4f} s: ratio {per_it / bare_s_per_it:.4f}; "
-        f"peak memory {peak / 2**30:.3f} GiB ({peak} B); (K1, K2) launches {launches}; "
-        f"trace {size} B")
+        f"peak memory {peak / 2**30:.3f} GiB ({peak} B), the graphs' pool "
+        f"{_pool(cli_run.model)}; (K1, K2) launches {launches}; "
+        f"trace {size} B, its (K1, K2) kernel events over iterations 11..15 {traced}")
     return per_it, launches
 
 
@@ -2013,7 +2096,8 @@ def gc_collect():
 
 def _rate(model, batches, cadence_start, windows=3, window=6):
     """p50 it/s of `model.train_step` at D1/G2 over `windows` windows (CUDA
-    events) after one D+G and one D warm-up iteration."""
+    events) after two D and two D+G warm-up iterations (each key's eager
+    call and its capture)."""
     it = cadence_start
 
     def iteration():
@@ -2022,7 +2106,7 @@ def _rate(model, batches, cadence_start, windows=3, window=6):
         model.train_step(xa, xb, True, it % 2 == 0)
         it += 1
 
-    for _ in range(2):
+    for _ in range(4):
         iteration()
     rates = []
     for _ in range(windows):
@@ -2067,7 +2151,8 @@ def _train_probe(cfg, b, tag):
                     if isinstance(t, torch.Tensor))
     log(f"[remat_bf16] {tag}, batch {b}: p50 {p50:.3f} it/s = {p50 * b:.2f} img/s "
         f"({', '.join(f'{r:.3f}' for r in rates)}); peak memory {peak / 2**30:.3f} GiB "
-        f"({peak} B); (K1, K2) of a D+G iteration {launched}; optimizer state "
+        f"({peak} B), the graphs' pool {_pool(model)}; (K1, K2) of a D+G iteration "
+        f"{launched}; optimizer state "
         f"{opt_bytes} B")
     del model, batches
     gc_collect()
@@ -2298,7 +2383,8 @@ def phase_native(cfg, tmp, synthetic_s_per_it):
     epoch_len = len(paths) // b
     cadence = _cadence(derived, epoch_len, 1, 30)
     K.launches = K.bwd_launches = 0
-    lines = _run_cli(["--config", str(path), "--output_path", str(out), "--max_iter", "30"])
+    lines, _ = _run_cli(["--config", str(path), "--output_path", str(out), "--max_iter",
+                         "30"])
     torch.cuda.synchronize()
     launches = (K.launches, K.bwd_launches)
     want = _expected_launches(cadence, samples=0)
@@ -2442,6 +2528,21 @@ def phase_dp_two_ranks(cfg, tmp):
     return counts
 
 
+def _hold_trace(what, events, launches):
+    """A trace's (K1, K2) kernel events against the launches of the traced
+    work. torch.profiler loses a few kernel events of a session now and then,
+    in the eager form too, whose every launch its wrapper counts, so the trace
+    must hold every kernel that the work launched, none that it did not, and
+    no more events than launches; a shortfall is logged."""
+    events, launches = tuple(events), tuple(launches)
+    if any(n > want or (n == 0) != (want == 0) for n, want in zip(events, launches)):
+        raise AssertionError(f"{what}: the trace holds (K1, K2) kernel events {events}, "
+                             f"the traced work launches {launches}")
+    if events != launches:
+        log(f"[profile] {what}: torch.profiler lost (K1, K2) "
+            f"{tuple(w - n for n, w in zip(events, launches))} of {launches} kernel events")
+
+
 def _trace_launches(trace):
     """(K1, K2) kernel events in a chrome trace of torch.profiler."""
     events = json.loads(Path(trace).read_text()).get("traceEvents", [])
@@ -2484,9 +2585,7 @@ def phase_ddp_cli(cfg, tmp, cli_s_per_it):
     p50, per_it, counts = _cli_seconds(lines, cadence, {1} | set(range(11, 17)))
     traced = _trace_launches(prof_dir / "trace.json")
     window = _expected_launches({i: cadence[i] for i in range(11, 16)}, samples=0)
-    if traced != window:
-        raise AssertionError(f"ddp_cli: the trace holds (K1, K2) events {traced}, the "
-                             f"traced steps launch {window}")
+    _hold_trace("ddp_cli, iterations 11..15", traced, window)
     resumed, resume_s = run(["--max_iter", str(DDP_RESUME_TO), "--resume"])
     if not any(line == f"Resume from iteration {DDP_ITERS}" for line in resumed):
         raise AssertionError("ddp_cli: --resume did not start from the snapshot")
@@ -3160,6 +3259,299 @@ def phase_spatial_two_ranks(cfg, tmp, smi):
     return entries, paths
 
 
+# ------------------------------------------------------------------ graphs
+# (do_dis, do_gen, step_increment) of phase 29's six training iterations; with
+# step_size 4 the StepLR boundary falls at the fourth
+GRAPH_SCHEDULE = [(True, True, 1), (True, False, 1), (True, True, 2), (True, False, 1),
+                  (True, True, 1), (True, True, 1)]
+# a D+G iteration's metrics taken before its D update changes a weight
+PRE_UPDATE = ("loss_dis_", "loss_idt_", "loss_gen_focus_")
+SERVE_BATCHES = (1, 8, 32)
+
+
+def _graph_train_run(cfg, graphs, batches, reseed_at=None):
+    from aclgan_tpu_torch.ops.kernels import instance_norm as K
+
+    model = _train_model(cfg, "cuda", graphs=graphs)
+    metrics, counts = [], []
+    for i, ((xa, xb), (do_dis, do_gen, inc)) in enumerate(zip(batches, GRAPH_SCHEDULE)):
+        if i == reseed_at:
+            model.reseed_z(40)
+        k = (K.launches, K.bwd_launches)
+        metrics.append(model.train_step(xa, xb, do_dis, do_gen, inc))  # held across replays
+        counts.append((K.launches - k[0], K.bwd_launches - k[1]))
+    torch.cuda.synchronize()
+    return model, [{k: float(v) for k, v in m.items()} for m in metrics], counts
+
+
+def _train_state(model):
+    """Every tensor a step updates (the five networks, the EMA, both
+    optimizers' moments and counts), f64 on the host, and the z stream's
+    next draw."""
+    from aclgan_tpu_torch.trainer import DIS_NAMES, GEN_NAMES
+
+    out = {}
+    for n in GEN_NAMES:
+        out.update({f"gen_{n}.{k}": v for k, v in model.gen(n).state_dict().items()})
+        out.update({f"ema_{n}.{k}": v for k, v in (model.ema or {}).get(n, {}).items()})
+    for n in DIS_NAMES:
+        out.update({f"dis_{n}.{k}": v for k, v in model.dis(n).state_dict().items()})
+    for key in ("gen_opt", "dis_opt"):
+        opt = getattr(model, key)
+        for i, p in enumerate(opt.param_groups[0]["params"]):
+            out.update({f"{key}.{i}.{k}": v for k, v in opt.state[p].items()})
+    out = {k: v.detach().double().cpu() for k, v in out.items()}
+    z_next = torch.cat(model._draw_z(2)).cpu()
+    return out, z_next
+
+
+def _flat_rel(a, b):
+    fa = torch.cat([v.flatten() for _, v in sorted(a.items())])
+    fb = torch.cat([v.flatten() for _, v in sorted(b.items())])
+    return float((fa - fb).norm() / fb.norm().clamp_min(1e-30))
+
+
+def graph_train_check(cfg, batches, reseed_at=None):
+    """GRAPH_SCHEDULE on `batches` (one more than its iterations), eager three
+    times and graphed (`reseed_z` before iteration `reseed_at` when given),
+    then one D+G iteration on the last batch from the graphed model's state:
+    replayed, and eager in two copies of that state. Two eager runs differ
+    from the first update on (atomic adds in the backward, e.g. the reflect
+    pad's, sum in any order), and over six iterations that difference grows
+    by amounts that vary several-fold from run to run, so the six-iteration
+    spread is reported, not held to a ratio. Bars: the same launch counts;
+    iteration 0's pre-update metrics bit-equal; every metric within the
+    card-against-CPU bar (1e-3 relative + 1e-6: a focus term can sit near
+    0) and each owner's state (a network, its EMA, an optimizer: a
+    conv bias in front of a norm takes float-noise gradients, so single
+    tensors can differ wholly) within its gradient bar rel-L2 1e-2; the z
+    stream's next draw equal; and from one state, the metrics taken before
+    the D update bit-equal in all three, and the replayed state's rel-L2
+    from the first eager copy no wider than two times the two eager copies'
+    (bit-equal where theirs is). Raises AssertionError naming what missed;
+    returns what it measured (also the tests' check)."""
+    import copy
+
+    runs = [_graph_train_run(cfg, g, batches, reseed_at) for g in (False, False, False, True)]
+    (_, e1, c1), (_, e2, c2), _, (model, g, cg) = runs
+    states = [_train_state(r[0]) for r in runs]
+    snap = model.snapshot()
+    twins = []
+    for _ in range(2):
+        twins.append(_train_model(cfg, "cuda", graphs=False))
+        twins[-1].restore(copy.deepcopy(snap))  # no tensor shared with the source
+    same = [{k: float(v) for k, v in m.train_step(*batches[-1], True, True).items()}
+            for m in (model, *twins)]
+    after = [_train_state(m)[0] for m in (model, *twins)]
+
+    def worst(x, y):
+        return max(abs(x[k] - y[k]) / max(abs(y[k]), 1e-12) for k in y)
+
+    (s1, z1), (s2, z2), (s3, _), (sg, zg) = states
+    owners = sorted({k.split(".")[0] for k in s1})
+    out = dict(
+        counts=cg, keys=model.graphs.keys(),
+        per_it=[(worst(gi, ei), worst(e2i, ei)) for gi, ei, e2i in zip(g, e1, e2)],
+        first=[k for k in g[0] if k.startswith(PRE_UPDATE) and g[0][k] != e1[0][k]],
+        by_owner={o: _flat_rel({k: v for k, v in sg.items() if k.split(".")[0] == o},
+                               {k: v for k, v in s1.items() if k.split(".")[0] == o})
+                  for o in owners},
+        graphed=float(np.median([_flat_rel(sg, e) for e in (s1, s2, s3)])),
+        widest=max(_flat_rel(s2, s1), _flat_rel(s3, s1), _flat_rel(s3, s2)),
+        z_equal=torch.equal(zg, z1) and torch.equal(z2, z1), n_state=len(s1),
+        pre=[k for k in same[0] if k.startswith(PRE_UPDATE)],
+        step_graphed=_flat_rel(after[0], after[1]), step_eager=_flat_rel(after[2], after[1]),
+        step_bit_equal={pair: sum(torch.equal(x[k], y[k]) for k in x) for pair, (x, y) in
+                        {"replayed-eager": (after[0], after[1]),
+                         "eager-eager": (after[2], after[1])}.items()})
+    out["pre_bad"] = [k for k in out["pre"] if not same[0][k] == same[1][k] == same[2][k]]
+    bad = [(i, k) for i, (gi, ei) in enumerate(zip(g, e1)) for k in ei
+           if abs(gi[k] - ei[k]) > 1e-3 * abs(ei[k]) + 1e-6]
+    bad_t = [o for o, r in out["by_owner"].items() if r > 1e-2]
+    wider = (out["step_graphed"] > 2 * out["step_eager"] or out["step_graphed"] > 1e-2
+             or (out["step_eager"] == 0) != (out["step_graphed"] == 0))
+    if not c1 == c2 == cg:
+        raise AssertionError(f"graphs: (K1, K2) a training iteration graphed {cg}, eager {c1}")
+    if out["first"] or bad or bad_t or out["pre_bad"] or not out["z_equal"] or not out["pre"] \
+            or wider:
+        raise AssertionError(
+            f"graphs: graphed training off eager: iteration 0 {out['first']}, metrics {bad}, "
+            f"owners {bad_t}, pre-update {out['pre_bad']} of {len(out['pre'])}, z equal "
+            f"{out['z_equal']}; from one state, state rel-L2 replayed-vs-eager "
+            f"{out['step_graphed']:.3e} against eager-vs-eager {out['step_eager']:.3e}")
+    del runs, model, twins
+    gc_collect()
+    return out
+
+
+def _graph_train_equality(cfg):
+    """`graph_train_check` at phase 7's cut (f32, 128^2, batch 2, smooth focus
+    terms) with EMA 0.999 and StepLR every 4. Returns the graphed run's
+    (K1, K2) a training iteration."""
+    size, b = 128, 2
+    cfg = dataclasses.replace(
+        cfg, focus_delta=0.0, focus_epsilon=10.0, step_size=4,
+        tpu=dataclasses.replace(cfg.tpu, compute_dtype="float32", ema_decay=0.999),
+        data=dataclasses.replace(cfg.data, crop_image_height=size, crop_image_width=size))
+    rng = np.random.RandomState(29)
+    batches = [tuple(torch.from_numpy(rng.randint(0, 256, (b, size, size, 3), dtype=np.uint8))
+                     .cuda() for _ in range(2)) for _ in range(len(GRAPH_SCHEDULE) + 1)]
+    r = graph_train_check(cfg, batches)
+    log(f"[graphs] training f32 {size}^2 batch {b}, six iterations {GRAPH_SCHEDULE}: (K1, K2) "
+        f"per iteration {r['counts']} in both forms; iteration 0's pre-update metrics "
+        f"bit-equal; metrics max rel per iteration graphed-vs-eager / eager-vs-eager "
+        + ", ".join(f"{a:.2e}/{c:.2e}" for a, c in r["per_it"])
+        + f"; {r['n_state']} state tensors after six iterations: rel-L2 of all, graphed from "
+        f"the three eager runs (median) {r['graphed']:.3e}, the widest eager pair "
+        f"{r['widest']:.3e} (reported); graphed-vs-eager by owner "
+        + ", ".join(f"{o} {x:.2e}" for o, x in r["by_owner"].items())
+        + f"; z stream's next draw equal {r['z_equal']}; from one state, one D+G iteration: "
+        f"its {len(r['pre'])} pre-update metrics bit-equal, state rel-L2 replayed-vs-eager "
+        f"{r['step_graphed']:.3e} against eager-vs-eager {r['step_eager']:.3e}, tensors "
+        f"bit-equal {r['step_bit_equal']}. Not bit-equal after an update: two eager runs "
+        f"differ there too (atomic adds in the backward, e.g. the reflect pad's, sum in any "
+        f"order)")
+    return r["counts"]
+
+
+def _graph_translator_equality(cfg, ckpt):
+    """Phase 5's requests in f32 through the eager Translator twice and a
+    graphed one twice (the second pass all replays): uint8 outputs and masks
+    bit-equal."""
+    from aclgan_tpu_torch.serving import Translator
+
+    cfg32 = dataclasses.replace(cfg, tpu=dataclasses.replace(cfg.tpu, compute_dtype="float32"))
+    imgs, styles = _requests()
+    outs = {}
+    for name, graphs, passes in (("eager 1", False, 1), ("eager 2", False, 1),
+                                 ("graphed", True, 2)):
+        tr = Translator(cfg32, ckpt, batch_size=BATCH, graphs=graphs)
+        for _ in range(passes):
+            outs[name] = tr(imgs, styles, return_masks=True)
+    keys = tr.model.graphs.keys()
+
+    def equal(a, b):
+        return all(np.array_equal(x, y) for x, y in zip(a[0] + a[1], b[0] + b[1]))
+
+    spread, same = equal(outs["eager 1"], outs["eager 2"]), equal(outs["graphed"], outs["eager 1"])
+    log(f"[graphs] Translator f32, {N_REQUESTS} requests at batch {BATCH}: eager against "
+        f"eager bit-equal {spread}, graphed (replays) against eager bit-equal {same}; "
+        f"graphs {keys}")
+    if not same:
+        raise AssertionError("graphs: the graphed Translator's outputs differ from eager")
+    del tr
+    gc_collect()
+
+
+def _step_flops(cfg):
+    """FLOPs of the aten ops of one eager D+G and one D iteration at
+    cfg.batch_size (convolutions forward and backward, matmuls; the
+    instance-norm kernels are not aten ops and count none)."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    b = cfg.batch_size
+    model = _train_model(cfg, "cuda", graphs=False)
+    rng = np.random.RandomState(2)
+    xa, xb = (torch.from_numpy(rng.randint(0, 256, (b, 256, 256, 3), dtype=np.uint8)).cuda()
+              for _ in range(2))
+    flops = {}
+    for kind, do_gen in (("D+G", True), ("D", False)):
+        counter = FlopCounterMode(display=False)
+        with counter:
+            model.train_step(xa, xb, True, do_gen)
+        flops[kind] = counter.get_total_flops()
+    del model
+    gc_collect()
+    return flops
+
+
+def _serve_rate(cfg, ckpt, bs, graphs):
+    """The bf16 Translator at batch bs on 256^2 requests: p50 ms a batch
+    (CUDA events over 12 calls, resize and copies included) and img/s, the
+    host's us to issue the served step alone (p50 of 20, each after a
+    synchronize), peak memory, the graph's pool and capture seconds."""
+    from aclgan_tpu_torch.serving import Translator
+
+    gc_collect()
+    torch.cuda.reset_peak_memory_stats()
+    tr = Translator(cfg, ckpt, batch_size=bs, graphs=graphs)
+    imgs, styles = _requests()
+    batch = (imgs[:bs], styles[:bs])
+    for _ in range(2):
+        tr(*batch)
+    ms = []
+    for _ in range(12):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        tr(*batch)
+        end.record()
+        torch.cuda.synchronize()
+        ms.append(start.elapsed_time(end))
+    x = torch.randint(0, 256, (bs, 256, 256, 3), dtype=torch.uint8, device="cuda")
+    z = torch.randn(bs, cfg.gen.style_dim, device="cuda")
+    host = []
+    with torch.inference_mode():
+        for _ in range(20):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tr._served(tr.model, x, z)
+            host.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    p50 = float(np.median(ms))
+    out = dict(ms=p50, img_s=bs / p50 * 1e3, host_us=float(np.median(host)) * 1e6,
+               peak=torch.cuda.max_memory_allocated(), pool=_pool(tr.model),
+               capture_s=[round(v, 4) for v in (tr.model.graphs.capture_seconds.values()
+                                                if graphs else ())])
+    del tr
+    return out
+
+
+def phase_graphs(cfg, ckpt, smi, cli_b3_s):
+    """[graphs] The CUDA graphs against the eager forms: equality (Translator
+    and training, f32), the bare bf16 step at batch 3 and 16 and the
+    Translator at batch 1, 8 and 32 in both forms, in turns. Returns
+    {path: (K1, K2)} of the graphed runs."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    log(f"[graphs] {smi}")
+    _graph_translator_equality(cfg, ckpt)
+    paths = {"graphs: six f32 training iterations at 128^2, batch 2, graphed (phase 29)":
+             tuple(map(sum, zip(*_graph_train_equality(cfg))))}
+    flops = _step_flops(dataclasses.replace(cfg, batch_size=TRAIN_BATCH))
+    for b, windows, window in ((cfg.batch_size, 5, 8), (TRAIN_BATCH, 3, 6)):
+        derived = dataclasses.replace(cfg, batch_size=b)
+        res = {form: _bare_train_step(derived, form == "graphed", windows, window)
+               for form in ("graphed", "eager")}
+        paths[f"graphs: bare train_step at batch {b}, D1/G2, {sum(res['graphed']['iterations'].values())} "
+              "iterations, graphed (phase 29)"] = res["graphed"]["launches"]
+        tflops = ""
+        if b == TRAIN_BATCH:
+            per_pair = flops["D+G"] + flops["D"]
+            tflops = "; TFLOP/s of aten ops at D1/G2 " + ", ".join(
+                f"{f} {per_pair / (2 * r['s']) / 1e12:.1f}" for f, r in res.items())
+        g, e = res["graphed"], res["eager"]
+        log(f"[graphs] {smi}: bare bf16 step 256^2 batch {b}, D1/G2: graphed {g['s']:.4f} s "
+            f"an iteration against eager {e['s']:.4f} s (ratio {g['s'] / e['s']:.4f}); host "
+            f"{g['host_s']:.4f} s against {e['host_s']:.4f} s to issue one; device idle "
+            f"{100 * g['idle']:.1f}% against {100 * e['idle']:.1f}%; peak memory "
+            f"{g['peak'] / 2**30:.3f} against {e['peak'] / 2**30:.3f} GiB, graphs' pool "
+            f"{g['pool']}; capture s {g['capture_s']}{tflops}")
+    log(f"[graphs] {smi}: FLOPs of one eager iteration at batch {TRAIN_BATCH}: D+G "
+        f"{flops['D+G'] / 1e12:.3f} TFLOP, D {flops['D'] / 1e12:.3f} TFLOP; the train CLI "
+        f"at batch {cfg.batch_size}, graphed (phase 9): {cli_b3_s:.4f} s an iteration")
+    for bs in SERVE_BATCHES:
+        res = {form: _serve_rate(cfg, ckpt, bs, form == "graphed") for form in ("graphed", "eager")}
+        g, e = res["graphed"], res["eager"]
+        log(f"[graphs] {smi}: Translator bf16 256^2 batch {bs}: graphed {g['img_s']:.1f} img/s, "
+            f"p50 {g['ms']:.3f} ms a batch, against eager {e['img_s']:.1f} img/s, "
+            f"{e['ms']:.3f} ms (ratio {e['ms'] / g['ms']:.4f}); host {g['host_us']:.1f} us a "
+            f"replay against {e['host_us']:.1f} us eager; capture s {g['capture_s']}; "
+            f"graph's pool {g['pool']}; peak memory {g['peak'] / 2**30:.3f} against "
+            f"{e['peak'] / 2**30:.3f} GiB")
+    gc_collect()
+    return paths
+
+
 # ------------------------------------------------------------------ acceptance
 ACC_ITERS = (20, 40)                # the mini run's two calls: fresh, then --resume
 
@@ -3418,7 +3810,7 @@ def main() -> int:
         by_path = {"train_step, one D+G iteration at batch 16 (phase 8)":
                    (k1["launches"], k2["launches"])}
         torch.cuda.empty_cache()
-        _, by_path["train CLI, 40 iterations at batch 3 (phase 9)"] = \
+        cli_b3_s, by_path["train CLI, 40 iterations at batch 3 (phase 9)"] = \
             phase_train_cli_b3(cfg, tmp)
         torch.cuda.empty_cache()
         cli16_s_per_it, by_path["train CLI, 30 iterations at batch 16 (phase 10)"] = \
@@ -3481,9 +3873,12 @@ def main() -> int:
         log(f"[phase 28] {time.time() - t0:.1f} s")
         gc_collect()
         t0 = time.time()
+        by_path.update(phase_graphs(cfg, ckpt, smi, cli_b3_s))
+        log(f"[phase 29] {time.time() - t0:.1f} s")
+        t0 = time.time()
         for k, device in ((k1, k1_device), (k2, k2_device)):
             k.update(device())
-        log(f"[phase 29] {time.time() - t0:.1f} s")
+        log(f"[phase 30] {time.time() - t0:.1f} s")
     for i, k in enumerate((k1, k2)):
         k["launches_by_path"] = {path: counts[i] for path, counts in by_path.items()}
     for i, k in enumerate(split, start=2):  # (K1, K2, K1m, K1a, K2m, K2a) of phase 27

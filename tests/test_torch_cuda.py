@@ -553,7 +553,7 @@ def test_sn_bn_discriminators_on_cuda_match_cpu(cuda, norm):
 
 
 def test_bf16_moment_adam_on_cuda_matches_cpu(cuda):
-    from aclgan_tpu_torch.optim import AdamBf16Mu
+    from aclgan_tpu_torch.optim import Adam
 
     gen = torch.Generator().manual_seed(0)
     shapes = [(8, 4, 3, 3), (16,), (5, 7)]
@@ -562,7 +562,8 @@ def test_bf16_moment_adam_on_cuda_matches_cpu(cuda):
     runs = {}
     for device in ("cpu", "cuda"):
         params = [p.clone().to(device).requires_grad_() for p in start]
-        opt = AdamBf16Mu(params, lr=1e-3, betas=(0.9, 0.999), weight_decay=1e-4)
+        opt = Adam(params, lr=1e-3, betas=(0.9, 0.999), weight_decay=1e-4,
+                   mu_dtype=torch.bfloat16)
         for gs in grads:
             for p, g in zip(params, gs):
                 p.grad = g.to(device)
@@ -985,3 +986,97 @@ def test_spatial_grid_on_four_cards_matches_one_process(cuda, tmp_path):
             for r in ranks[1:]:
                 for k, t in r[kind][n].items():
                     assert torch.equal(t, ranks[0][kind][n][k]), (kind, n, k)
+
+
+# --------------------------------------------------------------- CUDA graphs
+def _assert_graphed_like_eager(cfg, reseed_at=None):
+    """`chip_smoke.graph_train_check` in f32 with TF32 off: six iterations
+    graphed against three eager runs within the card-against-CPU bars, and
+    from one state a D+G iteration replayed and eager twice (pre-update
+    metrics bit-equal, the replayed state no further from eager than the
+    eager copies are apart); both train keys hold a graph."""
+    import chip_smoke
+
+    batches = [_train_batch(i) for i in range(len(chip_smoke.GRAPH_SCHEDULE) + 1)]
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        r = chip_smoke.graph_train_check(cfg, batches, reseed_at)
+    finally:
+        torch.backends.cudnn.allow_tf32 = True
+        torch.backends.cuda.matmul.allow_tf32 = True
+    shape = (4, 16, 16, 3)
+    assert set(r["keys"]) == {("train", True, gen, shape, torch.uint8, shape, torch.uint8, True)
+                              for gen in (True, False)}
+    assert len(r["pre"]) >= 5
+
+
+@pytest.mark.parametrize("variant", ["dis none, EMA", "dis bn", "dis sn", "remat all, accum 2",
+                                     "bf16 moments"])
+def test_graphed_train_step_matches_eager(cuda, variant):
+    """Six iterations (D+G, D, a step_increment 2, a StepLR boundary at 4)
+    through CUDA graphs against the eager step on the same seed."""
+    dis, tpu = {}, {"ema_decay": 0.999}
+    if variant == "dis bn" or variant == "dis sn":
+        dis = {"norm": variant[-2:], "gan_type": "nsgan" if variant == "dis sn" else "lsgan"}
+    elif variant == "remat all, accum 2":
+        tpu.update(remat="all", grad_accum=2)
+    elif variant == "bf16 moments":
+        tpu.update(moment_dtype="bfloat16")
+    cfg = _train_cfg(dis=dis, **tpu)
+    cfg.step_size = 4
+    _assert_graphed_like_eager(cfg)
+
+
+def test_reseed_z_after_capture_follows_the_eager_stream(cuda):
+    """`reseed_z` after both graphs exist: the replays draw the new stream."""
+    cfg = _train_cfg()
+    _assert_graphed_like_eager(cfg, reseed_at=4)
+
+
+def test_graphed_translator_matches_eager(cuda, tmp_path):
+    """One graph per shape: its outputs and masks equal the eager Translator's
+    over three batches, outputs returned earlier stay as they were, and K1
+    counts 19 a batch either way."""
+    from aclgan_tpu_torch.serving import Translator
+
+    cfg, path = _served(tmp_path)
+    rng = np.random.RandomState(5)
+    imgs = [rng.randint(0, 256, (32, 32, 3), dtype=np.uint8) for _ in range(6)]
+    styles = rng.randn(6, cfg.gen.style_dim).astype(np.float32)
+    outs = {}
+    for graphs in (False, True):
+        tr = Translator(cfg, path, batch_size=2, size=32, graphs=graphs)
+        k1 = K.launches
+        first = tr(imgs[:2], styles[:2], return_masks=True)
+        kept = [o.copy() for o in first[0]]
+        rest = tr(imgs[2:], styles[2:], return_masks=True)
+        torch.cuda.synchronize()
+        assert K.launches - k1 == 19 * 3
+        assert all(np.array_equal(a, b) for a, b in zip(first[0], kept))
+        outs[graphs] = (first[0] + rest[0], first[1] + rest[1])
+        assert (tr.model.graphs is None) == (not graphs)
+    assert tr.model.graphs.keys() == [("translate", (2, 32, 32, 3), True)]
+    for a, b in zip(*outs.values()):
+        assert all(np.array_equal(x, y) for x, y in zip(a, b))
+
+
+def test_graphed_translator_replicas_on_two_cards_match_eager(cuda, tmp_path):
+    """`Translator(devices=2)`: each replica's own graph on its own card,
+    equal to the eager replicas. Needs two cards."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    from aclgan_tpu_torch.serving import Translator
+
+    cfg, path = _served(tmp_path)
+    rng = np.random.RandomState(6)
+    imgs = [rng.randint(0, 256, (16, 16, 3), dtype=np.uint8) for _ in range(12)]
+    styles = rng.randn(12, cfg.gen.style_dim).astype(np.float32)
+    kw = dict(batch_size=4, size=16, devices=2)
+    eager = Translator(cfg, path, graphs=False, **kw)(imgs, styles)
+    tr = Translator(cfg, path, **kw)
+    got = tr(imgs, styles)
+    assert all(np.array_equal(a, b) for a, b in zip(got, eager))
+    for i, replica in enumerate(tr.replicas):
+        assert replica.graphs.keys() == [("translate", (2, 16, 16, 3), True)]
+        assert replica.graphs.device == torch.device("cuda", i)

@@ -14,7 +14,8 @@ from aclgan_tpu_torch import config
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "aclgan_tpu_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "tools" / "torch_synthfaces_hard.py"]
+    ROOT / "chip_smoke.py", ROOT / "tools" / "torch_synthfaces_hard.py",
+    ROOT / "tools" / "torch_graphs.py"]
 CONFIGS = sorted((ROOT / "configs").glob("*.yaml"))
 # msgpack too: the GPU host has no msgpack package (utils/msgpack.py reads the format)
 _FORBIDDEN_ROOTS = {"jax", "jaxlib", "flax", "optax", "msgpack"}

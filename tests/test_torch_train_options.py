@@ -1,6 +1,6 @@
 """The port's training options against the JAX package: `tpu.remat` (every
 family), `tpu.grad_accum` (the strided micro-split) and `tpu.moment_dtype:
-bfloat16` (`aclgan_tpu_torch.optim.AdamBf16Mu` against optax). The same
+bfloat16` (`aclgan_tpu_torch.optim.Adam` with bf16 first moments against optax). The same
 weights, batches and z go to both, on the CPU in float32."""
 
 import dataclasses
@@ -17,7 +17,7 @@ from aclgan_tpu.trainer import ACLGAN as JACLGAN
 from aclgan_tpu.trainer import to_model_range as jto_model_range
 from aclgan_tpu_torch import trainer as port_trainer
 from aclgan_tpu_torch.config import from_dict
-from aclgan_tpu_torch.optim import AdamBf16Mu
+from aclgan_tpu_torch.optim import Adam
 from aclgan_tpu_torch.trainer import ACLGAN, GEN_NAMES
 from tests.helpers import tiny_config
 from tests.torch_parity import (BASE_KEY, assert_metrics, assert_moved_alike, batches,
@@ -156,7 +156,7 @@ def _bits(t):
 def test_bf16_adam_matches_optax(wd, b1):
     """Five updates on the same random gradients: optax's
     chain(add_decayed_weights, scale_by_adam(mu_dtype=bfloat16)) (bare
-    scale_by_adam at wd 0) and AdamBf16Mu keep a bit-equal bf16 mu, nu
+    scale_by_adam at wd 0) and `Adam(mu_dtype=bfloat16)` keep a bit-equal bf16 mu, nu
     within 1e-6 relative and the params within 1e-6."""
     rng = np.random.RandomState(0)
     shapes = [(8, 4, 3, 3), (16,), (5, 7)]
@@ -166,7 +166,8 @@ def test_bf16_adam_matches_optax(wd, b1):
     jparams = [jnp.asarray(p) for p in params0]
     jstate = tx.init(jparams)
     tparams = [torch.tensor(p, requires_grad=True) for p in params0]
-    opt = AdamBf16Mu(tparams, lr=1e-3, betas=(b1, 0.999), eps=1e-8, weight_decay=wd)
+    opt = Adam(tparams, lr=1e-3, betas=(b1, 0.999), eps=1e-8, weight_decay=wd,
+               mu_dtype=torch.bfloat16)
     for step in range(5):
         lr = 1e-3 * 0.5 ** (step // 2)
         grads = [rng.randn(*s).astype(np.float32) * 10.0 ** rng.randint(-6, 1)
@@ -189,7 +190,7 @@ def test_bf16_adam_matches_optax(wd, b1):
             np.testing.assert_allclose(p.detach().numpy(), jparams[i], rtol=0, atol=1e-6)
     sd = opt.state_dict()
     assert set(sd["state"][0]) == {"step", "exp_avg", "exp_avg_sq"}
-    again = AdamBf16Mu([torch.zeros_like(p) for p in tparams], lr=1e-3)
+    again = Adam([torch.zeros_like(p) for p in tparams], lr=1e-3, mu_dtype=torch.bfloat16)
     again.load_state_dict(sd)
     assert all(st["exp_avg"].dtype == torch.bfloat16 for st in again.state.values())
 
@@ -201,7 +202,8 @@ def test_bf16_moments_full_step_matches_jax():
     jm = JACLGAN(_smooth(moment_dtype="bfloat16"))
     state0 = jm.init_state(jax.random.PRNGKey(2), (16, 16))
     pm = port_model(jm, state0)
-    assert isinstance(pm.gen_opt, AdamBf16Mu) and isinstance(pm.dis_opt, AdamBf16Mu)
+    assert all(isinstance(o, Adam) and o.mu_dtype == torch.bfloat16
+               for o in (pm.gen_opt, pm.dis_opt))
     state = state0
     for it, ((xa, xb), do_gen) in enumerate(zip(batches(2, seed=11), (True, False))):
         state, want = jm.train_step(state, jnp.asarray(xa), jnp.asarray(xb), BASE_KEY,
