@@ -1,12 +1,16 @@
 """CUDA graphs of the port's steps: what `jax.jit` does for the JAX package.
 
 The JAX package compiles its train step (`aclgan_tpu/trainer.py:645-646`: one
-executable per (do_dis, do_gen, step_increment) and shape) and its served
-batch (`aclgan_tpu/serving.py:124-128`: one per shape), and one host call
-then launches each. `StepGraphs` gives the port the same on a CUDA device: a
+executable per (do_dis, do_gen, step_increment) and shape; under a mesh
+too, with the collectives XLA inserts), the display grid's `sample`
+(`aclgan_tpu/cli/train.py:174`) and its served batch
+(`aclgan_tpu/serving.py:124-128`: one per shape), and one host call then
+launches each. `StepGraphs` gives the port the same on a CUDA device: a
 step is recorded once per key into a `torch.cuda.CUDAGraph` and replayed, one
 host call in place of the few thousand launches (98 K1 and 49 K2 among them
-in a D+G iteration) that Python issues one at a time when eager.
+in a D+G iteration) that Python issues one at a time when eager. The train
+step replays on one device and under an NCCL mesh of one rank; gloo meshes
+and meshes of more ranks keep it eager (`trainer.py`).
 
 `run(key, inputs, body)`:
 
@@ -35,6 +39,18 @@ draws its random numbers from the `generators` given, which each graph
 registers, so a replay draws what the eager step would have drawn, and a
 reseed after the capture holds.
 
+Collectives: a body may hold NCCL collectives (a train step under a mesh;
+`mesh.capturable()`), which the graph records as device work.
+The key's eager call creates their communicators (NCCL makes them at a
+group's first collective, which a capture cannot do). Each rank records its
+own graph, so every rank of the `mesh` given to `run` must capture the same
+key at the same call: before the capture the ranks compare a digest of the
+key, and after it whether every rank's capture succeeded (two small
+all-reduces, outside the graph); a mismatch or a failure anywhere raises on
+every rank, naming the key, rather than leaving a rank to replay
+collectives that its peers never issue. A key run by one rank alone (the
+display grid's `sample` on rank 0) is given no mesh.
+
 All graphs of one `StepGraphs` share one memory pool; `pool_bytes` is the
 reserved memory their captures added, `capture_bytes` and `capture_seconds`
 each key's share and capture time. A call holds the object's lock from its
@@ -50,11 +66,13 @@ raises with its key and cause; nothing falls back to the eager form.
 from __future__ import annotations
 
 import contextlib
+import hashlib
 import threading
 import time
 from typing import Any, Callable, Dict, Hashable, List, Sequence, Set
 
 import torch
+import torch.distributed as dist
 
 from aclgan_tpu_torch.ops.kernels import instance_norm as K
 
@@ -111,9 +129,11 @@ class StepGraphs:
         self.capture_seconds.clear()
 
     def run(self, key: Hashable, inputs: Sequence[torch.Tensor], body: Callable[..., Any],
-            generators: Sequence[torch.Generator] = ()) -> Any:
+            generators: Sequence[torch.Generator] = (), mesh=None) -> Any:
         """body(*inputs): eager on the key's first call, captured on its
-        second, replayed from then on."""
+        second, replayed from then on. With a `mesh`, every rank of its
+        `world_group` captures the key at the same call (see the module's
+        docstring)."""
         with self._on_device(), self._lock:
             entry = self._entries.get(key)
             if entry is None:
@@ -123,7 +143,8 @@ class StepGraphs:
                         out = body(*inputs)
                     warmed.add(threading.get_ident())
                     return out
-                entry = self._entries[key] = self._capture(key, inputs, body, generators)
+                entry = self._entries[key] = self._capture(key, inputs, body, generators,
+                                                           mesh)
             with self._in_order():
                 for static, t in zip(entry.inputs, inputs):
                     static.copy_(t, non_blocking=True)
@@ -132,7 +153,13 @@ class StepGraphs:
             _set_counts([c + d for c, d in zip(_counts(), entry.delta)])
             return out
 
-    def _capture(self, key, inputs, body, generators) -> _Entry:
+    def _capture(self, key, inputs, body, generators, mesh) -> _Entry:
+        if mesh is not None:
+            digest = int.from_bytes(hashlib.sha256(repr(key).encode()).digest()[:7], "big")
+            high, neg_low = self._all_max(mesh, [digest, -digest])
+            if high != -neg_low:
+                raise RuntimeError(f"CUDA graph capture of key {key!r}: the ranks of the mesh "
+                                   f"capture different keys at this call")
         static = [t.clone() for t in inputs]
         graph = self._new_graph()
         for gen in generators:
@@ -140,6 +167,7 @@ class StepGraphs:
         reserved = self._free_cached()
         before = _counts()
         t0 = time.perf_counter()
+        error = None
         try:
             with self._side():
                 # thread_local: a serving worker captures while request
@@ -153,20 +181,34 @@ class StepGraphs:
                     raise
                 graph.capture_end()
         except Exception as e:
-            # out of memory stays that error, for callers that size batches by it
-            kind = (torch.cuda.OutOfMemoryError if isinstance(e, torch.cuda.OutOfMemoryError)
-                    else RuntimeError)
-            raise kind(f"CUDA graph capture failed for key {key!r}: "
-                       f"{type(e).__name__}: {e}") from e
+            error = e
         finally:
             after = _counts()
             _set_counts(before)  # the capture launched nothing
+        failed_elsewhere = (mesh is not None
+                            and self._all_max(mesh, [int(error is not None)])[0] > 0)
+        if error is not None:
+            # out of memory stays that error, for callers that size batches by it:
+            # the allocator's, or the CUDA runtime's when it instantiates the graph
+            oom = isinstance(error, torch.cuda.OutOfMemoryError) or "out of memory" in str(error)
+            kind = torch.cuda.OutOfMemoryError if oom else RuntimeError
+            raise kind(f"CUDA graph capture failed for key {key!r}: "
+                       f"{type(error).__name__}: {error}") from error
+        if failed_elsewhere:
+            raise RuntimeError(f"CUDA graph capture failed for key {key!r} on another rank "
+                               f"of the mesh")
         self.capture_seconds[key] = time.perf_counter() - t0
         self.capture_bytes[key] = self._reserved() - reserved
         self.pool_bytes += self.capture_bytes[key]
         if self._pool is None:
             self._pool = graph.pool()
         return _Entry(graph, static, out, [a - b for a, b in zip(after, before)])
+
+    def _all_max(self, mesh, values: List[int]) -> List[int]:
+        """Each value's maximum over the mesh's ranks (eager, outside a graph)."""
+        t = torch.tensor(values, dtype=torch.int64, device=self.device)
+        dist.all_reduce(t, op=dist.ReduceOp.MAX, group=mesh.world_group)
+        return t.tolist()
 
     # the device's side of it (a stand-in replaces these on the CPU in the tests)
     def _new_graph(self):

@@ -10,12 +10,20 @@ sharded, so it is padded locally after H. (The JAX module moves
 read, and at the bottom rank they would be reflect rows that a 2-row shard
 of a 4x4/s2 layer does not have.)
 
-The JAX module moves the rows with `ppermute`. Here the exchange is one
-`all_reduce` over the spatial group: each rank writes the rows its
-neighbours need into its own slot of a zeroed (n, N, C, top + bottom, W)
-buffer and reads its neighbours' slots. That works over NCCL, over gloo on
-the CPU and over gloo with CUDA tensors (two ranks sharing one card), at n
-times the bytes a point-to-point exchange would move.
+The JAX module moves the rows with a pair of `ppermute`s. Here the form
+depends on what the spatial group can move (`_point_to_point`):
+
+- over NCCL, and over gloo on the CPU, the rows go point to point, as the
+  `ppermute`s send them: one `dist.batch_isend_irecv` a layer sends a rank's
+  last `top` rows to the next spatial rank and its first `bottom` rows to
+  the previous one; the grid's first and last ranks send and receive
+  nothing that `halo_rows` would discard. Over NCCL this is device work,
+  which a CUDA graph can record (the trainer keeps a multi-rank step eager);
+- gloo with CUDA tensors (two ranks sharing one card) moves them only by
+  `all_reduce` and `broadcast`, so there the exchange is one `all_reduce`
+  over the spatial group: each rank writes the rows its neighbours need
+  into its own slot of a zeroed (n, N, C, top + bottom, W) buffer and reads
+  its neighbours' slots, at n times the bytes.
 
 `sharded_instance_norm` is the plain counterpart of the JAX function; the
 model's IN / AdaIN layers take the split kernels instead
@@ -46,17 +54,58 @@ def _edge_rows(x: torch.Tensor, n_rows: int, top: bool, pad_type: str) -> torch.
     raise ValueError(f"Unsupported padding type: {pad_type!r}")
 
 
+def _point_to_point(x: torch.Tensor, group) -> bool:
+    """The halo's form for `x` over `group`: point to point over NCCL and
+    over gloo on the CPU; one all-reduce for gloo with CUDA tensors, which
+    gloo cannot send point to point."""
+    return x.device.type == "cpu" or dist.get_backend(group) == "nccl"
+
+
+def _exchange(mesh, sends, recv_like):
+    """Point to point in the spatial group: `sends` {offset: tensor} go to
+    the spatial rank at that offset (+1 next, -1 previous); returns
+    {offset: tensor} received from those ranks, one `recv_like[offset]`
+    (shape, tensor to match) each."""
+    ops, got = [], {}
+    for off, t in sends.items():
+        ops.append(dist.P2POp(dist.isend, t.contiguous(), mesh.rank + off, mesh.spatial_group))
+    for off, (shape, like) in recv_like.items():
+        got[off] = like.new_empty(shape)
+        ops.append(dist.P2POp(dist.irecv, got[off], mesh.rank + off, mesh.spatial_group))
+    if ops:
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+    return got
+
+
 class _HaloExchange(torch.autograd.Function):
     """(the previous spatial rank's last `top` rows, the next rank's first
-    `bottom` rows); the grid's first and last ranks get the rows of the
-    other end, which `halo_rows` leaves unused. The backward is the
-    transpose: each halo row's gradient goes back to the rank that owns the
-    row and is added to it there."""
+    `bottom` rows). The grid's first and last ranks get zeros where the
+    all-reduce form gives them the rows of the other end: `halo_rows` uses
+    neither. The backward is the transpose: each halo row's gradient goes
+    back to the rank that owns the row and is added to it there."""
 
     @staticmethod
     def forward(ctx, x, top, bottom, mesh):
         ctx.top, ctx.bottom, ctx.mesh, ctx.h = top, bottom, mesh, x.shape[2]
+        ctx.p2p = _point_to_point(x, mesh.spatial_group)
         n, r, h = mesh.n_spatial, mesh.spatial_rank, x.shape[2]
+        if ctx.p2p:
+            def rows(k):
+                return x.shape[:2] + (k, x.shape[3])
+
+            sends, recvs = {}, {}
+            if top and r < n - 1:
+                sends[1] = x[:, :, h - top:]  # the next rank's top halo
+            if bottom and r > 0:
+                sends[-1] = x[:, :, :bottom]  # the previous rank's bottom halo
+            if top and r > 0:
+                recvs[-1] = (rows(top), x)
+            if bottom and r < n - 1:
+                recvs[1] = (rows(bottom), x)
+            got = _exchange(mesh, sends, recvs)
+            return (got[-1] if -1 in got else x.new_zeros(rows(top)),
+                    got[1] if 1 in got else x.new_zeros(rows(bottom)))
         buf = x.new_zeros((n,) + x.shape[:2] + (top + bottom, x.shape[3]))
         buf[r, :, :, :top] = x[:, :, h - top:]  # for the next rank's top halo
         buf[r, :, :, top:] = x[:, :, :bottom]   # for the previous rank's bottom halo
@@ -68,13 +117,29 @@ class _HaloExchange(torch.autograd.Function):
     def backward(ctx, g_prev, g_next):
         top, bottom, mesh, h = ctx.top, ctx.bottom, ctx.mesh, ctx.h
         n, r = mesh.n_spatial, mesh.spatial_rank
+        dx = g_prev.new_zeros(g_prev.shape[:2] + (h, g_prev.shape[3]))
+        if ctx.p2p:
+            sends, recvs = {}, {}
+            if top and r > 0:
+                sends[-1] = g_prev
+            if bottom and r < n - 1:
+                sends[1] = g_next
+            if top and r < n - 1:
+                recvs[1] = (g_prev.shape, g_prev)
+            if bottom and r > 0:
+                recvs[-1] = (g_next.shape, g_next)
+            got = _exchange(mesh, sends, recvs)
+            if 1 in got:
+                dx[:, :, h - top:] += got[1]
+            if -1 in got:
+                dx[:, :, :bottom] += got[-1]
+            return dx, None, None, None
         buf = g_prev.new_zeros((n,) + g_prev.shape[:2] + (top + bottom, g_prev.shape[3]))
         if r > 0:
             buf[r, :, :, :top] = g_prev
         if r < n - 1:
             buf[r, :, :, top:] = g_next
         dist.all_reduce(buf, group=mesh.spatial_group)
-        dx = g_prev.new_zeros(g_prev.shape[:2] + (h, g_prev.shape[3]))
         if r < n - 1:
             dx[:, :, h - top:] += buf[r + 1, :, :, :top]
         if r > 0:

@@ -22,8 +22,12 @@ A mesh's collectives run over its `world_group`: the default group for a
 also splits each image's rows over `n_spatial` ranks; a `DataMesh` has
 `n_spatial` 1).
 
-Only `all_reduce`, `broadcast` and `barrier` are used: they work with NCCL,
-with gloo on the CPU and with gloo on CUDA tensors.
+Only `all_reduce`, `broadcast` and `barrier` are used here: they work with
+NCCL, with gloo on the CPU and with gloo on CUDA tensors. A mesh whose
+groups are all NCCL answers `capturable()`: its collectives are device
+work, which a CUDA graph can record (`graphs.py`; the trainer records a
+mesh of one rank); gloo stages them through the host, so a gloo mesh's
+steps run eagerly.
 """
 
 from __future__ import annotations
@@ -48,6 +52,15 @@ class DataMesh:
     world: int
     world_group = None  # the default group
     n_spatial = 1       # whole images on every rank
+
+    def capturable(self) -> bool:
+        """Whether a CUDA graph can record this mesh's collectives: NCCL."""
+        return nccl_groups(self.world_group)
+
+
+def nccl_groups(*groups) -> bool:
+    """Whether every group (None: the default group) runs on NCCL."""
+    return dist.is_initialized() and all(dist.get_backend(g) == "nccl" for g in groups)
 
 
 def init_distributed(device_type: str) -> torch.device:

@@ -19,8 +19,9 @@ exchanges itself, in the layers that need them:
   3x3/s2 pool takes one halo row a side, and bn's batch statistics cover
   the whole grid.
 
-Every collective is an `all_reduce` (or a `broadcast`): the one-card host
-runs two ranks over gloo with CUDA tensors, which supports nothing else.
+The halo moves point to point (`parallel/halo.py`) over NCCL and over gloo
+on the CPU; every other collective is an `all_reduce` (or a `broadcast`),
+which gloo with CUDA tensors (two ranks sharing one card) also supports.
 """
 
 from __future__ import annotations
@@ -29,6 +30,8 @@ from dataclasses import dataclass
 from typing import Any, Optional, Tuple
 
 import torch.distributed as dist
+
+from aclgan_tpu_torch.parallel.mesh import nccl_groups
 
 
 @dataclass(frozen=True, eq=False)
@@ -56,6 +59,11 @@ class SpatialMesh:
     @property
     def spatial_rank(self) -> int:
         return self.rank % self.n_spatial
+
+    def capturable(self) -> bool:
+        """Whether a CUDA graph can record this mesh's collectives: every
+        group on NCCL."""
+        return nccl_groups(self.world_group, self.spatial_group, self.data_group)
 
 
 def sharded(mesh) -> bool:

@@ -18,21 +18,31 @@ Port of `aclgan_tpu/trainer.py` (`to_model_range`, `ACLGAN`: `init_state`,
   `jax.checkpoint`; `tpu.grad_accum` runs the strided micro-batches one after
   another, summing gradients, where the JAX step scans them;
   `tpu.moment_dtype: bfloat16` keeps `optim.Adam`'s first moments in bf16.
-- Where the JAX package jits `train_step`, the port records it on a CUDA
-  device into one CUDA graph per (do_dis, do_gen, batch shapes, z injected
-  or drawn) and replays it (`graphs.StepGraphs`); `step_increment` stays on
-  the host, which writes the learning rate of the step into the optimizers'
-  lr tensors before each call. The step body reads nothing back to the host.
-  It runs eagerly on the CPU, under a data-parallel or spatial mesh (gloo's
-  host-staged all-reduce cannot be captured; NCCL capture is not done), under
-  `tpu.check_nans` (anomaly mode cannot be captured), or when built with
-  `graphs=False`; the model prints which when it is built.
+- Where the JAX package jits `train_step` and `sample`, the port records
+  them on a CUDA device into one CUDA graph per key and replays them
+  (`graphs.StepGraphs`): the step by (do_dis, do_gen, batch shapes, z
+  injected or drawn), `sample` by its inputs' shapes and dtypes.
+  `step_increment` stays on the host, which writes the learning rate of the
+  step into the optimizers' lr tensors before each call. The step body reads
+  nothing back to the host and holds every collective of the step under a
+  mesh: the gradients' and the metrics' all-reduces, the focus sums, bn's
+  statistics, and under a `SpatialMesh` the halos and the split kernels'
+  all-reduces. A mesh of one NCCL rank (`torchrun --nproc_per_node 1`;
+  `mesh.capturable()`) replays it as a graph; the capture checks the key
+  and its success across the mesh's ranks and raises on every rank when the
+  keys differ or a rank's capture fails. A mesh of more ranks stays eager:
+  2-rank runs with the graph hung on four H100s, for a cause not yet found.
+  The steps also run eagerly on the CPU, under a gloo mesh
+  (gloo stages its collectives through the host), under `tpu.check_nans`
+  (anomaly mode cannot be captured), or when built with `graphs=False`; the
+  model prints which when it is built. `sample` is graphed where the step
+  is, outside a `SpatialMesh`.
 - Data parallelism (`mesh`, one process a GPU; `parallel/mesh.py`): each
   rank steps on its rows of the global batch and draws the global z, keeping
   its rows; bn's batch statistics and the focus loss's batch sums are
   all-reduced in the forward, so every loss is the global batch's; after the
   backward each network's gradient is averaged over the ranks in one flat
-  all-reduce, and the metrics are averaged before they return. The step
+  all-reduce, and the metrics are averaged inside the step. The step
   equals the single-process step on the gathered batch, as GSPMD makes the
   JAX one.
 - Spatial sharding (a `parallel.spatial.SpatialMesh`, n_data x n_spatial
@@ -174,8 +184,12 @@ class ACLGAN:
             return "graphs=False"
         if self.device.type != "cuda":
             return f"no CUDA graphs on {self.device.type}"
-        if self.mesh is not None:
-            return (f"a {type(self.mesh).__name__}: its all-reduces are not captured")
+        if self.mesh is not None and not self.mesh.capturable():
+            return (f"a {type(self.mesh).__name__} over gloo: its collectives are staged "
+                    f"through the host")
+        if self.mesh is not None and self.mesh.world > 1:
+            return (f"a {type(self.mesh).__name__} of {self.mesh.world} ranks: a CUDA graph "
+                    f"across ranks is not enabled (2-rank runs with it hung on four H100s)")
         if self.cfg.tpu.check_nans:
             return "tpu.check_nans: anomaly mode cannot be captured"
         return None
@@ -519,18 +533,17 @@ class ACLGAN:
         else:
             key = ("train", do_dis, do_gen, tuple(x_a.shape), x_a.dtype, tuple(x_b.shape),
                    x_b.dtype, z is None)
-            values = self.graphs.run(key, (x_a, x_b, *zs), body, (self.z_gen,))
+            values = self.graphs.run(key, (x_a, x_b, *zs), body, (self.z_gen,), self.mesh)
         self.step += 1
-        if self.mesh is not None:
-            all_reduce_mean([values], self.mesh)
         return dict(zip(self._metric_names[(do_dis, do_gen)], values.unbind()))
 
     def _step(self, x_a: torch.Tensor, x_b: torch.Tensor, do_dis: bool, do_gen: bool,
               b: int, rows, zs: Sequence[torch.Tensor]) -> torch.Tensor:
         """The step body on device batches: the updates, on the z triples in
         `zs` (D's then G's) or on draws from `z_gen` when it is empty; returns
-        the metrics stacked, their names kept in `_metric_names`. Device work
-        only: this is what a CUDA graph records."""
+        the metrics stacked (averaged over the mesh's ranks), their names kept
+        in `_metric_names`. Device work only: this is what a CUDA graph
+        records."""
         x_a, x_b = self._nchw(x_a), self._nchw(x_b)
         triples = iter([tuple(zs[i:i + 3]) for i in range(0, len(zs), 3)])
 
@@ -545,7 +558,10 @@ class ACLGAN:
         if do_gen:
             metrics.update(self.gen_update(x_a, x_b, noise()))
         self._metric_names[(do_dis, do_gen)] = list(metrics)
-        return torch.stack([v.detach() for v in metrics.values()])
+        values = torch.stack([v.detach() for v in metrics.values()])
+        if self.mesh is not None:
+            all_reduce_mean([values], self.mesh)
+        return values
 
     # ------------------------------------------------------------------
     @torch.no_grad()
@@ -577,10 +593,19 @@ class ACLGAN:
         the live generators and the train-time blend. Returns NHWC float32:
         (x_a, x_A_fake, mask_A, x_B_fake, mask_B, x_A2_fake, mask_A2,
         x_A_recon, mask_recon) with focus masks, else (x_a, x_A_fake,
-        x_B_fake, x_A2_fake, x_A_recon, x_b, x_B_recon)."""
+        x_B_fake, x_A2_fake, x_A_recon, x_b, x_B_recon). With `graphs`, one
+        CUDA graph per input shapes and dtypes, outside a `SpatialMesh`."""
+        inputs = tuple(torch.as_tensor(t).to(self.device) for t in (x_a, x_b, z1, z2, z3))
+        if self.graphs is None or isinstance(self.mesh, SpatialMesh):
+            return self._sample(*inputs)
+        key = ("sample",) + tuple((tuple(t.shape), t.dtype) for t in inputs)
+        return self.graphs.run(key, inputs, self._sample)
+
+    def _sample(self, x_a, x_b, z1, z2, z3) -> Tuple[torch.Tensor, ...]:
+        """`sample` on device tensors: device work only."""
         d = self.dtype
-        x_a, x_b = self._images(x_a).to(d), self._images(x_b).to(d)
-        z1, z2, z3 = (torch.as_tensor(z).to(self.device, d) for z in (z1, z2, z3))
+        x_a, x_b = self._nchw(x_a).to(d), self._nchw(x_b).to(d)
+        z1, z2, z3 = (z.to(d) for z in (z1, z2, z3))
         g_ab, g_ba = self.gen_AB, self.gen_BA
         b = x_a.shape[0]
         c_1, s_1 = g_ba.encode(x_a)

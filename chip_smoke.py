@@ -12,10 +12,12 @@ the exported artifact, the HTTP front), the JPEG decode core, data
 parallelism (two ranks on the card, the CLI under torchrun), the
 multi-replica Translator, the VGG perceptual loss and spatial (H) sharding
 (two ranks at 512^2), through the hand-written CUDA kernels, and fails,
-with a non-zero exit, if any phase fails. On the card the single-device
-train step and the Translator's served batch run as CUDA graphs
-(`aclgan_tpu_torch/graphs.py`: each key's first call eager, then captured,
-then replayed), so every phase's launch counts hold for the graphed forms:
+with a non-zero exit, if any phase fails. On the card the train step (on
+one device and under an NCCL mesh of one rank), `sample` and the
+Translator's served batch run as CUDA graphs (`aclgan_tpu_torch/graphs.py`:
+each key's first call eager, then captured, then replayed), so every
+phase's launch counts hold for the graphed forms; gloo meshes (phases 23,
+27) stay eager:
 
 1. device info (torch/CUDA versions, nvidia-smi name and power limit);
 2. build every kernel under aclgan_tpu_torch/csrc with nvcc;
@@ -82,7 +84,7 @@ then replayed), so every phase's launch counts hold for the graphed forms:
    Translator in turns (live, exported, exported, live);
 18. [http] `serving_http.make_server` over a Translator at batch 16 with a
    5 ms window on 127.0.0.1: closed-loop clients (a spawned process) POST
-   256^2 JPEGs at concurrency 1, 8, 32 and 48, then 8 over `--artifact`
+   256^2 JPEGs for 3 s at concurrency 1, 8, 32 and 48, then 8 over `--artifact`
    (exported by `cli.export` at batch 16): img/s, p50 / p99 latency, the
    mean coalesced batch, 0 errors, 19 K1 launches a device batch;
 19. [variants_f32] phase 7's cut (f32, 128^2, batch 2), one D+G iteration on
@@ -93,8 +95,8 @@ then replayed), so every phase's launch counts hold for the graphed forms:
 20. [remat_bf16] the shipped config (bf16, 256^2) at batch 16 under tpu.remat
    none / decode / encode / all: it/s (p50 of windows, CUDA events), peak
    memory, (K1, K2) of a D+G iteration (98 / 114 / 131 / 147, and 49);
-   batch 64 under remat all, under grad_accum 4 and without either (its OOM
-   printed as such); bf16 moments at 16: it/s and the optimizer's bytes;
+   batch 64 under remat all and under grad_accum 4; bf16 moments at 16: it/s
+   and the optimizer's bytes against remat none's float32 moments;
 21. [jax_resume] a bf16 run at batch 16 with EMA written as a JAX-layout set
    (`save_jax_checkpoint`), resumed bit-equal (weights, EMA, moments, step),
    the next step on injected z against the writer's (phase 7's tolerances);
@@ -112,11 +114,14 @@ then replayed), so every phase's launch counts hold for the graphed forms:
    at batch 4: metrics (rel 1e-4), the five networks' updated params (rel-L2
    1e-3; their gradients reported), bn running stats (rel 1e-3 beyond the
    0.2*lr slack), the ranks' params equal, (K1, K2) on each rank;
-24. [ddp_cli] `python -m torch.distributed.run --nproc_per_node 1 -m
-   aclgan_tpu_torch.cli.train` with `tpu.distributed: true` (NCCL) on the
-   shipped config, synthetic, batch 16, bf16: 30 iterations traced at 10..14,
-   then `--resume` to 35: p50 s per iteration against phase 10, the trace's
-   K1 / K2 events (held to the traced steps' count), the records and the
+24. [ddp_cli] `python -m torch.distributed.run --nproc_per_node 1` of the
+   train CLI (`chip_smoke.py --torchrun-cli`, which runs `cli.train.main`
+   and writes its counters) with `tpu.distributed: true` (NCCL: the steps
+   replay CUDA graphs with their all-reduces inside) on the shipped config,
+   synthetic, batch 16, bf16: 30 iterations traced at 10..14, then
+   `--resume` to 35: p50 s per iteration against phase 10, the form that
+   ran, (K1, K2) over the run and under replay against the cadence, the
+   trace's K1 / K2 events (held by `_hold_trace`), the records and the
    snapshot files;
 25. [devices] `Translator(devices=-1)`: outputs equal to phase 6's; devices=2
    raises the JAX message with one card visible;
@@ -165,13 +170,20 @@ then replayed), so every phase's launch counts hold for the graphed forms:
    capture seconds, (K1, K2) against the cadence's count, TFLOP/s from an
    eager step's FLOPs); phase 9's CLI s an iteration; the Translator in bf16
    at 256^2, batch 1, 8 and 32, graphed and eager (img/s, p50 ms a batch,
-   the host's us a call, capture seconds, pool);
-30. K1's and K2's device time a launch at each layer of phases 3-4's mixes
+   the host's us a call, capture seconds, pool); `sample` in f32 at 256^2,
+   4 rows, three calls (eager, captured, replayed) against the eager model:
+   bit-equal, 57 K1 a call, its capture bytes;
+30. [mesh_graphs] the train step under an NCCL mesh as a CUDA graph: a
+   `DataMesh` of one rank in a spawned process, the bare bf16 step at batch
+   3 and 16, graphed and eager (s an iteration, host s, idle share, peak,
+   pool, launches against the cadence). A mesh of more ranks runs eagerly
+   (its graphs hung on four cards);
+31. K1's and K2's device time a launch at each layer of phases 3-4's mixes
    (torch.profiler, or CUDA events behind a queued busy kernel where the
    profiler loses the kernels) beside the library call's; run last so that
    no profiler session precedes the phases that trace;
-31. one JSON line listing every kernel;
-32. last line: {"ok": true, "device": {...}}.
+32. one JSON line listing every kernel;
+33. last line: {"ok": true, "device": {...}}.
 
 Imports nothing of JAX.
 """
@@ -936,10 +948,10 @@ def _img_rates(tr, window, win_styles, windows=7):
     return rates
 
 
-def _train_model(cfg, device, seed=0, graphs=True):
+def _train_model(cfg, device, seed=0, graphs=True, mesh=None):
     from aclgan_tpu_torch.trainer import ACLGAN
 
-    model = ACLGAN(cfg, device=device, seed=seed, graphs=graphs)
+    model = ACLGAN(cfg, device=device, seed=seed, graphs=graphs, mesh=mesh)
     model.init_state()
     return model
 
@@ -1165,6 +1177,19 @@ def _expected_launches(cadence, samples):
             K2_PER_G_STEP * n_gen)
 
 
+def _replayed_launches(cadence):
+    """(K1, K2) of the iterations of `cadence` that replay a graph: each
+    update kind's calls after its eager first and its capturing second."""
+    seen = {}
+    replays = {}
+    for i, kind in sorted(cadence.items()):
+        if any(kind):
+            seen[kind] = seen.get(kind, 0) + 1
+            if seen[kind] > 2:
+                replays[i] = kind
+    return _expected_launches(replays, samples=0)
+
+
 def _cli_seconds(lines, cadence, skip):
     """p50 seconds of the D+G and of the D iterations, read from the CLI's
     `Iteration:` lines, leaving out the iterations in `skip`, and the
@@ -1306,8 +1331,9 @@ def phase_train_cli_b3(cfg, tmp):
     return per_it, launches
 
 
-def _bare_train_step(cfg, graphs=True, windows=5, window=8):
-    """`train_step` alone at cfg.batch_size on device-resident batches, as phase
+def _bare_train_step(cfg, graphs=True, windows=5, window=8, mesh=None):
+    """`train_step` alone at cfg.batch_size (under a `mesh`, this rank's rows)
+    on device-resident batches, as phase
     8 runs it: p50 seconds per iteration over `windows` windows of `window`
     at D1/G2 (CUDA events), the host's seconds to issue one iteration (p50 of
     6 calls, each after a synchronize), the device's idle share over one
@@ -1320,7 +1346,7 @@ def _bare_train_step(cfg, graphs=True, windows=5, window=8):
     b = cfg.batch_size
     gc_collect()
     torch.cuda.reset_peak_memory_stats()
-    model = _train_model(cfg, "cuda", graphs=graphs)
+    model = _train_model(cfg, "cuda", graphs=graphs, mesh=mesh)
     rng = np.random.RandomState(1)
     batches = [tuple(torch.from_numpy(rng.randint(0, 256, (b, 256, 256, 3), dtype=np.uint8))
                      .cuda() for _ in range(2)) for _ in range(4)]
@@ -1680,7 +1706,7 @@ N_BUCKETED = 96
 HTTP_BATCH = 16
 HTTP_WAIT_MS = 5.0
 HTTP_LEVELS = (1, 8, 32, 48)
-HTTP_SECONDS = 5.0
+HTTP_SECONDS = 3.0
 
 
 def _max_lsb(got, want):
@@ -2161,32 +2187,34 @@ def _train_probe(cfg, b, tag):
 
 def phase_remat_bf16(cfg):
     """[remat_bf16] The shipped config (bf16, 256^2) at batch 16 under each
-    tpu.remat family, then BIG_BATCH under remat all, under grad_accum 4 and
-    without either, then bf16 moments at 16. Returns {path: (K1, K2)}."""
+    tpu.remat family (remat none: float32 moments), then BIG_BATCH under remat
+    all and under grad_accum 4, then bf16 moments at 16. Returns {path: (K1,
+    K2)}. (Without either, BIG_BATCH runs out of memory: `tools/torch_graphs.py
+    batch` finds each form's largest batch in a process of its own.)"""
     b = TRAIN_BATCH
-    counts = {}
+    counts, probes = {}, {}
     for remat in ("none", "decode", "encode", "all"):
-        r = _train_probe(dataclasses.replace(cfg, tpu=dataclasses.replace(
+        r = probes[remat] = _train_probe(dataclasses.replace(cfg, tpu=dataclasses.replace(
             cfg.tpu, remat=False if remat == "none" else remat)), b, f"remat {remat}")
         want = (2 * K1_PER_STEP + REMAT_EXTRA[remat], K2_PER_G_STEP)
         if r is None or r["launches"] != want:
             raise AssertionError(f"remat_bf16 {remat}: {r}, expected launches {want}")
         counts[f"remat {remat}"] = r["launches"]
-    for tag, tpu in (("remat all", dict(remat="all")), ("grad_accum 4", dict(grad_accum=4)),
-                     ("remat none", {})):
+    for tag, tpu in (("remat all", dict(remat="all")), ("grad_accum 4", dict(grad_accum=4))):
+        log(f"[remat_bf16] before {tag} at batch {BIG_BATCH}: device memory free "
+            f"{torch.cuda.mem_get_info()[0] / 2**30:.3f} GiB, reserved "
+            f"{torch.cuda.memory_reserved() / 2**30:.3f}")
         r = _train_probe(dataclasses.replace(cfg, tpu=dataclasses.replace(cfg.tpu, **tpu)),
                          BIG_BATCH, tag)
-        if r is not None:
-            accum = tpu.get("grad_accum", 1)
-            want = (accum * (2 * K1_PER_STEP + REMAT_EXTRA["all" if "remat" in tpu else
-                                                           "none"]), accum * K2_PER_G_STEP)
-            if r["launches"] != want:
-                raise AssertionError(f"remat_bf16 {tag} at {BIG_BATCH}: launches "
-                                     f"{r['launches']}")
-            counts[f"{tag}, batch {BIG_BATCH}"] = r["launches"]
-        elif tag != "remat none":  # only the un-remat'ed big batch may not fit
+        if r is None:
             raise AssertionError(f"remat_bf16: {tag} at batch {BIG_BATCH} did not fit")
-    f32 = _train_probe(cfg, b, "moments float32 (for the optimizer bytes)")
+        accum = tpu.get("grad_accum", 1)
+        want = (accum * (2 * K1_PER_STEP + REMAT_EXTRA["all" if "remat" in tpu else "none"]),
+                accum * K2_PER_G_STEP)
+        if r["launches"] != want:
+            raise AssertionError(f"remat_bf16 {tag} at {BIG_BATCH}: launches {r['launches']}")
+        counts[f"{tag}, batch {BIG_BATCH}"] = r["launches"]
+    f32 = probes["none"]  # the shipped config: no remat, float32 moments
     bf16 = _train_probe(dataclasses.replace(cfg, tpu=dataclasses.replace(
         cfg.tpu, moment_dtype="bfloat16")), b, "moments bfloat16")
     log(f"[remat_bf16] optimizer state at batch {b}: bf16 moments {bf16['opt_bytes']} B "
@@ -2551,19 +2579,60 @@ def _trace_launches(trace):
             sum("instance_norm_bwd" in k for k in kernels))
 
 
+TORCHRUN_CLI = "--torchrun-cli"  # chip_smoke.py's own argument: phase 24's rank process
+
+
+def _torchrun_cli(out_json, argv):
+    """A rank that torchrun starts for phase 24: `cli.train.main(argv)`, the
+    train CLI as `-m aclgan_tpu_torch.cli.train` runs it, then its form
+    (graphed or eager), its graphs' keys and the (K1, K2) counters over the
+    run and over the calls that replayed a captured graph, written to
+    `out_json`."""
+    sys.path.insert(0, str(ROOT))
+    from aclgan_tpu_torch import graphs
+    from aclgan_tpu_torch.cli.train import main as train_main
+    from aclgan_tpu_torch.ops.kernels import instance_norm as K
+
+    replayed = [0, 0]
+    run = graphs.StepGraphs.run
+
+    def counted(self, key, *args, **kwargs):
+        captured = key in self._entries
+        before = (K.launches, K.bwd_launches)
+        out = run(self, key, *args, **kwargs)
+        if captured:
+            replayed[0] += K.launches - before[0]
+            replayed[1] += K.bwd_launches - before[1]
+        return out
+
+    graphs.StepGraphs.run = counted
+    model = train_main(argv).model
+    Path(out_json).write_text(json.dumps({
+        "form": "eager" if model.graphs is None else "graphed",
+        "mesh": type(model.mesh).__name__, "launches": [K.launches, K.bwd_launches],
+        "replayed": replayed, "keys": [repr(k) for k in (model.graphs.keys()
+                                                         if model.graphs else ())]}))
+    return 0
+
+
 def phase_ddp_cli(cfg, tmp, cli_s_per_it):
-    """[ddp_cli] `torch.distributed.run --nproc_per_node 1 -m
-    aclgan_tpu_torch.cli.train` with `tpu.distributed: true` (NCCL) on the
-    shipped config, synthetic, batch 16, bf16: 30 iterations traced at
-    10..14, then `--resume` to 35; s/it p50 against phase 10's single process.
-    Returns the (K1, K2) kernel events of the traced window."""
+    """[ddp_cli] `torch.distributed.run --nproc_per_node 1` of the train CLI
+    (through `chip_smoke.py --torchrun-cli`, which runs `cli.train.main` and
+    reads its counters) with `tpu.distributed: true` (NCCL, a `DataMesh` of
+    one rank, so the steps replay CUDA graphs with their all-reduces inside)
+    on the shipped config, synthetic, batch 16, bf16: 30 iterations traced at
+    10..14, then `--resume` to 35; s/it p50 against phase 10's single
+    process; the form that ran and the (K1, K2) counters (over the run and
+    under replay) against the cadence's count. Returns the (K1, K2) kernel
+    events of the traced window."""
     b = TRAIN_BATCH
     derived, path = _cli_config(cfg, tmp, "m2f_ddp", batch_size=b,
                                 tpu=dataclasses.replace(cfg.tpu, distributed=True))
     out, prof_dir = Path(tmp) / "ddp", Path(tmp) / "ddp_trace"
+    counters = Path(tmp) / "ddp_counters.json"
     base = [sys.executable, "-m", "torch.distributed.run", "--standalone",
-            "--nproc_per_node", "1", "-m", "aclgan_tpu_torch.cli.train", "--config", path,
-            "--output_path", str(out)]
+            "--nproc_per_node", "1", str(ROOT / "chip_smoke.py"), TORCHRUN_CLI, str(counters),
+            "--config", path, "--output_path", str(out)]
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         [str(ROOT)] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
 
@@ -2581,6 +2650,14 @@ def phase_ddp_cli(cfg, tmp, cli_s_per_it):
         raise AssertionError("ddp_cli: no 'Training ... 1 device(s)' line")
     epoch_len = max(64, b * 8) // b
     cadence = _cadence(derived, epoch_len, 1, DDP_ITERS)
+    ran = json.loads(counters.read_text())
+    whole = _expected_launches(cadence, samples=0)
+    if ran["form"] != "graphed" or ran["mesh"] != "DataMesh" or tuple(ran["launches"]) != whole:
+        raise AssertionError(f"ddp_cli: the {ran['form']} form under a {ran['mesh']} launched "
+                             f"(K1, K2) {ran['launches']}, the cadence {whole}")
+    if tuple(ran["replayed"]) != _replayed_launches(cadence):
+        raise AssertionError(f"ddp_cli: (K1, K2) under replay {ran['replayed']}, the cadence "
+                             f"{_replayed_launches(cadence)}")
     _check_records(_records(out / "logs" / "m2f_ddp"), range(1, DDP_ITERS + 1), "ddp_cli")
     p50, per_it, counts = _cli_seconds(lines, cadence, {1} | set(range(11, 17)))
     traced = _trace_launches(prof_dir / "trace.json")
@@ -2596,6 +2673,9 @@ def phase_ddp_cli(cfg, tmp, cli_s_per_it):
                         for i in (DDP_ITERS, DDP_RESUME_TO)) + ["optimizer.pt"]
     if ckpts != sorted(want_ckpts):
         raise AssertionError(f"ddp_cli: snapshot files {ckpts}")
+    log(f"[ddp_cli] torchrun --nproc_per_node 1, tpu.distributed (NCCL): the {ran['form']} "
+        f"form under a {ran['mesh']} (graphs {ran['keys']}); (K1, K2) over the run "
+        f"{tuple(ran['launches'])}, under replay {tuple(ran['replayed'])}, the cadence's count")
     log(f"[ddp_cli] torchrun --nproc_per_node 1, tpu.distributed (NCCL), male2female 256^2 "
         f"batch {b} bf16: p50 D+G {p50['D+G']:.4f} s, D {p50['D']:.4f} s ({counts} "
         f"iterations), {per_it:.4f} s per iteration; single process (phase 10) "
@@ -3443,6 +3523,58 @@ def _graph_translator_equality(cfg, ckpt):
     gc_collect()
 
 
+SAMPLE_BATCH, SAMPLE_CALLS = 4, 3   # phase 29's `sample` check: display rows, calls a form
+
+
+def _graph_sample_equality(cfg, train_pool):
+    """`ACLGAN.sample` in f32 (TF32 off) at 256^2 on SAMPLE_CALLS display sets of
+    one shape, eager and graphed (eager, captured, replayed): every output
+    bit-equal, K1_PER_SAMPLE K1 launches a call in both forms. Logs the
+    graph's capture bytes beside `train_pool`, the train step's; returns the
+    graphed calls' (K1, K2)."""
+    from aclgan_tpu_torch.ops.kernels import instance_norm as K
+
+    cfg32 = dataclasses.replace(cfg, tpu=dataclasses.replace(cfg.tpu, compute_dtype="float32"))
+    rng = np.random.RandomState(31)
+    sets = [(torch.from_numpy(rng.randint(0, 256, (SAMPLE_BATCH, 256, 256, 3), dtype=np.uint8)),
+             torch.from_numpy(rng.randint(0, 256, (SAMPLE_BATCH, 256, 256, 3), dtype=np.uint8)),
+             *(torch.from_numpy(rng.randn(SAMPLE_BATCH, cfg.gen.style_dim).astype(np.float32))
+               for _ in range(3))) for _ in range(SAMPLE_CALLS)]
+    outs, counts, total, peak = {}, {}, {}, {}
+    for form in ("eager", "graphed"):
+        gc_collect()
+        torch.cuda.reset_peak_memory_stats()
+        model = _train_model(cfg32, "cuda", graphs=form == "graphed")
+        outs[form], counts[form] = [], []
+        for args in sets:
+            k1, k2 = K.launches, K.bwd_launches
+            outs[form].append([o.cpu() for o in model.sample(*args)])
+            counts[form].append((K.launches - k1, K.bwd_launches - k2))
+        total[form] = tuple(map(sum, zip(*counts[form])))
+        peak[form] = torch.cuda.max_memory_allocated()
+        if form == "graphed":
+            keys = model.graphs.keys()
+            capture = sum(model.graphs.capture_bytes.values())
+        del model
+        gc_collect()
+    same = all(torch.equal(a, b) for ga, ea in zip(outs["graphed"], outs["eager"])
+               for a, b in zip(ga, ea))
+    if counts["graphed"] != counts["eager"] or any(c != (K1_PER_SAMPLE, 0)
+                                                   for c in counts["graphed"]):
+        raise AssertionError(f"graphs: sample (K1, K2) a call graphed {counts['graphed']}, "
+                             f"eager {counts['eager']}, expected ({K1_PER_SAMPLE}, 0)")
+    if not same or len(keys) != 1 or keys[0][0] != "sample":
+        raise AssertionError(f"graphs: the graphed sample's outputs differ from eager "
+                             f"(bit-equal {same}) or its graphs are {keys}")
+    log(f"[graphs] sample f32 256^2, {SAMPLE_BATCH} display rows, {SAMPLE_CALLS} calls (eager, "
+        f"captured, replayed): outputs bit-equal to eager; (K1, K2) a call {counts['graphed'][0]} "
+        f"in both forms; the graph's capture {capture / 2**30:.3f} GiB ({capture} B) beside "
+        f"the train step's pool at batch 3 {train_pool}; peak memory graphed "
+        f"{peak['graphed'] / 2**30:.3f} GiB against eager {peak['eager'] / 2**30:.3f} (the "
+        f"model's state included)")
+    return total["graphed"]
+
+
 def _step_flops(cfg):
     """FLOPs of the aten ops of one eager D+G and one D iteration at
     cfg.batch_size (convolutions forward and backward, matmuls; the
@@ -3522,6 +3654,9 @@ def phase_graphs(cfg, ckpt, smi, cli_b3_s):
         derived = dataclasses.replace(cfg, batch_size=b)
         res = {form: _bare_train_step(derived, form == "graphed", windows, window)
                for form in ("graphed", "eager")}
+        if b == cfg.batch_size:
+            paths[f"graphs: sample at 256^2, {SAMPLE_BATCH} rows, {SAMPLE_CALLS} calls, "
+                  "graphed (phase 29)"] = _graph_sample_equality(cfg, res["graphed"]["pool"])
         paths[f"graphs: bare train_step at batch {b}, D1/G2, {sum(res['graphed']['iterations'].values())} "
               "iterations, graphed (phase 29)"] = res["graphed"]["launches"]
         tflops = ""
@@ -3549,6 +3684,79 @@ def phase_graphs(cfg, ckpt, smi, cli_b3_s):
             f"graph's pool {g['pool']}; peak memory {g['peak'] / 2**30:.3f} against "
             f"{e['peak'] / 2**30:.3f} GiB")
     gc_collect()
+    return paths
+
+
+# ------------------------------------------------------------------ meshes
+MESH_BATCHES = (3, TRAIN_BATCH)      # the world-1 bare step's batches (phase 29's)
+
+
+def _mesh_rank(rank, world, port, jobs, out_dir):
+    """One NCCL rank of [mesh_graphs], on card `rank`, TF32 off: runs each job
+    of `jobs` (name, args of `_job_bare`) and saves their results to
+    out_dir/mesh.<rank>.pt. Ranks other than 0 print nothing."""
+    import torch.distributed as dist
+
+    device = torch.device("cuda", rank)
+    torch.cuda.set_device(device)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    if rank:
+        sys.stdout = open(os.devnull, "w")
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+                            world_size=world)
+    try:
+        out = {name: _job_bare(*args) for name, args in jobs}
+        torch.save(out, Path(out_dir) / f"mesh.{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def _job_bare(cfg, b, graphs):
+    """The bare bf16 step at b rows a rank under a `DataMesh` (`_bare_train_step`)."""
+    from aclgan_tpu_torch.parallel.mesh import make_mesh
+
+    return _bare_train_step(dataclasses.replace(cfg, batch_size=b), graphs, 3, 6,
+                            mesh=make_mesh(-1))
+
+
+def _mesh_spawn(world, jobs, tmp, tag):
+    """Runs `jobs` on `world` NCCL ranks, one a card; returns each rank's
+    results and the seconds the processes took."""
+    import torch.multiprocessing as mp
+
+    out_dir = Path(tmp) / f"mesh_{tag}"
+    out_dir.mkdir()
+    t0 = time.time()
+    mp.start_processes(_mesh_rank, args=(world, _free_port(), jobs, str(out_dir)),
+                       nprocs=world, join=True, start_method="spawn")
+    return ([torch.load(out_dir / f"mesh.{r}.pt", map_location="cpu", weights_only=False)
+             for r in range(world)], time.time() - t0)
+
+
+def phase_mesh_graphs(cfg, tmp, smi):
+    """[mesh_graphs] The train step under a `DataMesh` of one NCCL rank (a
+    spawned process) replayed as a CUDA graph with its all-reduces inside,
+    against the eager form: the bare bf16 step at batch 3 and 16. (A mesh of
+    more ranks runs eagerly: `ACLGAN._eager_reason`.) Returns {path:
+    launches}."""
+    log(f"[mesh_graphs] {smi}; {torch.cuda.device_count()} card(s)")
+    paths = {}
+    one, secs = _mesh_spawn(1, [(f"b{b} {f}", (cfg, b, f == "graphed"))
+                                for b in MESH_BATCHES for f in ("graphed", "eager")], tmp, "w1")
+    res = one[0]
+    for b in MESH_BATCHES:
+        g, e = res[f"b{b} graphed"], res[f"b{b} eager"]
+        log(f"[mesh_graphs] {smi}: DataMesh of 1 rank (NCCL), bare bf16 step 256^2 batch {b}, "
+            f"D1/G2: graphed {g['s']:.4f} s an iteration against eager {e['s']:.4f} s (ratio "
+            f"{g['s'] / e['s']:.4f}); host {g['host_s']:.4f} against {e['host_s']:.4f} s to "
+            f"issue one; device idle {100 * g['idle']:.1f}% against {100 * e['idle']:.1f}%; "
+            f"peak {g['peak'] / 2**30:.3f} against {e['peak'] / 2**30:.3f} GiB; graphs' pool "
+            f"{g['pool']}, capture s {g['capture_s']}; (K1, K2) {g['launches']} over "
+            f"{g['iterations']} = the cadence's count")
+        paths[f"DataMesh of 1 rank (NCCL), bare train_step at batch {b}, graphed "
+              f"(phase 30)"] = g["launches"]
+    log(f"[mesh_graphs] the world-1 process took {secs:.1f} s")
     return paths
 
 
@@ -3771,6 +3979,18 @@ def phase_acceptance_mini(cfg, tmp, inc):
             tuple(map(sum, zip(*ema["counts"])))}
 
 
+def _mark(phases, since):
+    """Log the seconds since `since` of `phases` and the device's memory
+    after them; returns the time now."""
+    now = time.time()
+    free, total = torch.cuda.mem_get_info()
+    log(f"[phase {phases}] {now - since:.1f} s; device memory after it: allocated "
+        f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB, reserved "
+        f"{torch.cuda.memory_reserved() / 2**30:.3f}, free {free / 2**30:.3f} of "
+        f"{total / 2**30:.3f}")
+    return now
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         log("chip_smoke: no CUDA device available")
@@ -3792,10 +4012,13 @@ def main() -> int:
         f"{torch.cuda.device_count()} visible")
     log(smi)
 
+    t = time.time()
     phase_build()
+    t = _mark(2, t)
     k1, k1_device = phase_instance_norm_kernel()
     k2, k2_device = phase_instance_norm_bwd_kernel()
     torch.cuda.empty_cache()
+    t = _mark("3-4", t)
 
     cfg = load_config(CONFIG)
     with tempfile.TemporaryDirectory() as tmp:
@@ -3804,35 +4027,44 @@ def main() -> int:
         outs32 = phase_translator_f32(cfg, ckpt)
         outs16 = phase_translator_bf16(cfg, ckpt, outs32)
         torch.cuda.empty_cache()
+        t = _mark("5-6", t)
         phase_train_f32(cfg)
         torch.cuda.empty_cache()
+        t = _mark(7, t)
         (k1["launches"], k2["launches"]), bare_s_per_it = phase_train_bf16(cfg)
         by_path = {"train_step, one D+G iteration at batch 16 (phase 8)":
                    (k1["launches"], k2["launches"])}
         torch.cuda.empty_cache()
+        t = _mark(8, t)
         cli_b3_s, by_path["train CLI, 40 iterations at batch 3 (phase 9)"] = \
             phase_train_cli_b3(cfg, tmp)
-        torch.cuda.empty_cache()
+        gc_collect()
+        t = _mark(9, t)
         cli16_s_per_it, by_path["train CLI, 30 iterations at batch 16 (phase 10)"] = \
             phase_train_cli_b16(cfg, tmp, bare_s_per_it)
-        torch.cuda.empty_cache()
+        gc_collect()
+        t = _mark(10, t)
         phase_dataset(tmp)
         inc = phase_train_inception(tmp)
         torch.cuda.empty_cache()
+        t = _mark("11-12", t)
         by_path["cli.test, one image x 10 styles, f32 (phase 13)"] = \
             phase_cli_test(cfg, tmp, ckpt)
         by_path[f"cli.test_batch, 64 images at batch {EVAL_BATCH} x {EVAL_STYLES} styles "
                 "(phase 14)"] = phase_cli_test_batch(cfg, tmp, ckpt, inc)
         torch.cuda.empty_cache()
+        t = _mark("13-14", t)
         by_path[f"BucketedTranslator, {N_BUCKETED} requests over buckets {BUCKETS} "
                 "(phase 16)"] = phase_bucketed(cfg, ckpt)
         torch.cuda.empty_cache()
         by_path[f"ExportedTranslator, {N_REQUESTS} requests at batch {BATCH} "
                 "(phase 17)"] = phase_export(cfg, ckpt, tmp, outs16)
         torch.cuda.empty_cache()
+        t = _mark("16-17", t)
         by_path[f"HTTP front, levels {HTTP_LEVELS} + artifact at 8, batch {HTTP_BATCH} "
                 "(phase 18)"] = phase_http(cfg, ckpt, tmp)
-        torch.cuda.empty_cache()
+        gc_collect()
+        t = _mark(18, t)
         for phase, fn in ((19, lambda: phase_variants_f32(cfg)),
                           (20, lambda: phase_remat_bf16(cfg)),
                           (21, lambda: phase_jax_resume(cfg, tmp))):
@@ -3840,7 +4072,7 @@ def main() -> int:
             paths = fn()
             by_path.update({f"{path}, one D+G iteration (phase {phase})" if phase < 21
                             else f"{path} (phase {phase})": c for path, c in paths.items()})
-            log(f"[phase {phase}] {time.time() - t0:.1f} s")
+            _mark(phase, t0)
             gc_collect()
         for phase, fn, label in (
                 (22, lambda: phase_native(cfg, tmp, cli16_s_per_it),
@@ -3861,24 +4093,28 @@ def main() -> int:
                                 for case, c in counts.items()})
             else:
                 by_path[f"{label} (phase {phase})"] = counts
-            log(f"[phase {phase}] {time.time() - t0:.1f} s")
+            _mark(phase, t0)
             gc_collect()
         t0 = time.time()
         split, sp_paths = phase_spatial_two_ranks(cfg, tmp, smi)
         by_path.update(sp_paths)
-        log(f"[phase 27] {time.time() - t0:.1f} s")
+        _mark(27, t0)
         gc_collect()
         t0 = time.time()
         by_path.update(phase_acceptance_mini(cfg, tmp, inc))
-        log(f"[phase 28] {time.time() - t0:.1f} s")
+        _mark(28, t0)
         gc_collect()
         t0 = time.time()
         by_path.update(phase_graphs(cfg, ckpt, smi, cli_b3_s))
-        log(f"[phase 29] {time.time() - t0:.1f} s")
+        _mark(29, t0)
+        gc_collect()
+        t0 = time.time()
+        by_path.update(phase_mesh_graphs(cfg, tmp, smi))
+        _mark(30, t0)
         t0 = time.time()
         for k, device in ((k1, k1_device), (k2, k2_device)):
             k.update(device())
-        log(f"[phase 30] {time.time() - t0:.1f} s")
+        _mark(31, t0)
     for i, k in enumerate((k1, k2)):
         k["launches_by_path"] = {path: counts[i] for path, counts in by_path.items()}
     for i, k in enumerate(split, start=2):  # (K1, K2, K1m, K1a, K2m, K2a) of phase 27
@@ -3893,4 +4129,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == [TORCHRUN_CLI]:
+        sys.exit(_torchrun_cli(sys.argv[2], sys.argv[3:]))
     sys.exit(main())

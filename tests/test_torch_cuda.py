@@ -1080,3 +1080,122 @@ def test_graphed_translator_replicas_on_two_cards_match_eager(cuda, tmp_path):
     for i, replica in enumerate(tr.replicas):
         assert replica.graphs.keys() == [("translate", (2, 16, 16, 3), True)]
         assert replica.graphs.device == torch.device("cuda", i)
+
+
+# ------------------------------------------- CUDA graphs under an NCCL mesh
+def _grid_cfg(size, dis=None):
+    """`_train_cfg` at size^2. Against one process, phase 23 of chip_smoke.py
+    holds its bars at 128^2: smaller crops leave the discriminators' deepest
+    IN / bn layers a few elements a row, whose gradients are float noise
+    that two processes round differently."""
+    raw = {k: dict(v) if isinstance(v, dict) else v for k, v in _TRAIN_RAW.items()}
+    raw.update(crop_image_height=size, crop_image_width=size)
+    raw["dis"].update(dis or {})
+    return from_dict(raw)
+
+
+def _mesh_case(tmp_path, n_data, n_spatial, cfg, size):
+    """Spawns `torch_dp_worker.mesh_graph_steps` over n_data * n_spatial NCCL
+    ranks, one a card, at global batch 2 * n_data; returns (the ranks'
+    results, x_a, x_b, the third iteration's z). Only a mesh of one rank
+    records a graph on the cards."""
+    from tests import torch_dp_worker
+
+    world, b = n_data * n_spatial, 2 * n_data
+    rng = np.random.RandomState(8)
+    x_a, x_b = (rng.randint(0, 256, (b, size, size, 3), dtype=np.uint8) for _ in range(2))
+    zs = [{k: [rng.randn(b, cfg.gen.style_dim).astype(np.float32) for _ in range(3)]
+           for k in ("dis", "gen")} for _ in range(3)]
+    start = ACLGAN(cfg, device="cuda", seed=1)
+    start.init_state()
+    snap_path = tmp_path / "start.pt"
+    torch.save(start.snapshot(), snap_path)
+    case = (n_data, n_spatial, cfg.to_dict(), str(snap_path), torch.from_numpy(x_a),
+            torch.from_numpy(x_b), zs)
+    torch_dp_worker.spawn(torch_dp_worker.mesh_graph_steps, world,
+                          (case, str(tmp_path), "cuda"), timeout=300)
+    ranks = [torch.load(tmp_path / f"mesh.{r}.pt", map_location="cpu", weights_only=False)
+             for r in range(world)]
+    return ranks, x_a, x_b, zs[2]
+
+
+def _assert_like(got, want, what):
+    """Phase 23's bars: metrics rel 1e-4, each network's state rel-L2 1e-3."""
+    assert set(got["metrics"]) == set(want["metrics"]), what
+    for k, w in want["metrics"].items():
+        assert abs(got["metrics"][k] - w) <= 1e-4 * abs(w) + 1e-6, (what, k)
+    for kind in ("gen", "dis"):
+        for n, sd in want[kind].items():
+            ref = torch.cat([v.double().flatten() for v in sd.values()])
+            mine = torch.cat([v.double().flatten() for v in got[kind][n].values()])
+            assert float((mine - ref).norm() / ref.norm()) < 1e-3, (what, kind, n)
+
+
+def _single_from(cfg, state, x_a, x_b, z):
+    """One eager D+G iteration in one process on the first card from a
+    mesh's state, f32 with TF32 off."""
+    single = ACLGAN(cfg, device="cuda", graphs=False)
+    single.init_state()
+    single.restore(state)
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        m = single.train_step(x_a, x_b, True, True, z=z)
+    finally:
+        torch.backends.cudnn.allow_tf32 = True
+    snap = single.snapshot()
+    return {"metrics": {k: float(v) for k, v in m.items()},
+            "gen": {n: {k: v.cpu() for k, v in sd.items()} for n, sd in snap["gen"].items()},
+            "dis": {n: {k: v.cpu() for k, v in sd.items()} for n, sd in snap["dis"].items()}}
+
+
+def _assert_mesh_graphed(ranks, single, shape):
+    """Every rank replayed the D+G key (captured on the second iteration),
+    launched what the eager twin launched, stands within the bars of the
+    eager twin from the same state and of one process, and holds the state
+    of rank 0."""
+    key = ("train", True, True, shape, torch.uint8, shape, torch.uint8, False)
+    for r in ranks:
+        assert r["keys"] == [key] and r["capture_bytes"][key] > 0
+        assert r["graphed"]["launches"] == r["eager"]["launches"]
+        _assert_like(r["graphed"], r["eager"], "replayed against the eager mesh step")
+        _assert_like(r["graphed"], single, "replayed against one process")
+        for kind in ("gen", "dis"):
+            for n, sd in r["graphed"][kind].items():
+                for k, t in sd.items():
+                    assert torch.equal(t, ranks[0]["graphed"][kind][n][k]), (kind, n, k)
+
+
+@pytest.mark.parametrize("world", [1])
+@pytest.mark.parametrize("norm", ["in", "bn"])
+def test_graphed_nccl_step_matches_eager_and_one_process(cuda, tmp_path, world, norm):
+    """The data-parallel D+G step over NCCL at world 1 (a mesh of more ranks
+    runs eagerly), replayed as a CUDA graph with its collectives inside
+    (gradients, focus sums, bn's statistics, metrics): from one state,
+    against the eager step on the same mesh and against one process, at
+    phase 23's 128^2."""
+    cfg = _grid_cfg(128, dis={"norm": norm})
+    ranks, x_a, x_b, z = _mesh_case(tmp_path, world, 1, cfg, 128)
+    single = _single_from(cfg, ranks[0]["state"], x_a, x_b, z)
+    _assert_mesh_graphed(ranks, single, (2, 128, 128, 3))
+    assert ranks[0]["graphed"]["launches"][:2] != (0, 0)
+
+
+@pytest.mark.parametrize("world", [2, 4])
+def test_point_to_point_halo_matches_all_reduce_form(cuda, tmp_path, world):
+    """`halo_rows` over NCCL, forward and backward, at the model's halo
+    geometries: the point-to-point form bit-equal to the all-reduce form on
+    every rank. Needs `world` cards."""
+    if torch.cuda.device_count() < world:
+        pytest.skip(f"needs {world} CUDA devices")
+    from tests import torch_dp_worker
+
+    x = torch.randn(2, 8, 8 * world, 12, generator=torch.Generator().manual_seed(9))
+    cases = [(1, 1, "reflect"), (2, 2, "zero"), (3, 3, "replicate"), (1, 0, "zero")]
+    torch_dp_worker.spawn(torch_dp_worker.halo_forms, world, (x, cases, str(tmp_path), "cuda"),
+                          timeout=300)
+    for r in range(world):
+        got = torch.load(tmp_path / f"halo_forms.{r}.pt", weights_only=False)
+        for top, bottom, pad_type in cases:
+            for a, b in zip(got["point_to_point", top, bottom, pad_type],
+                            got["all_reduce", top, bottom, pad_type]):
+                assert torch.equal(a, b), (r, top, bottom, pad_type)

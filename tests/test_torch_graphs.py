@@ -11,6 +11,13 @@
   `step_increment` 2 across StepLR boundaries.
 - `StepGraphs`' launch bookkeeping with a stand-in graph object: a capture's
   counter increments are taken back, each replay adds the recorded change.
+- Under a data-parallel mesh (two gloo ranks, spawned once): the step body
+  holds every collective of the step, the metrics' all-reduce too, and
+  reads nothing to the host; the step and `sample` through `StepGraphs`
+  with a stand-in graph that records the ops of a capture and replays them
+  (`tests/torch_dp_worker.py::ReplayGraph`) equal the eager forms bit for
+  bit, K1 counted per replay as per eager call; keys that differ across the
+  ranks, and a capture that fails on one rank, raise on every rank.
 - The optimizer's `.pt` and `.msgpack` layouts, and a state written by
   `torch.optim.Adam` (the float32 path before this optimizer) loaded.
 - `chip_smoke._hold_trace`, which holds a replay's kernel events in a
@@ -35,14 +42,17 @@ import jax.numpy as jnp
 import optax
 
 import chip_smoke
+import torch.distributed as dist
 
 from aclgan_tpu.trainer import ACLGAN as JACLGAN
 from aclgan_tpu_torch.config import from_dict
 from aclgan_tpu_torch.graphs import StepGraphs
 from aclgan_tpu_torch.ops.kernels import instance_norm as K
 from aclgan_tpu_torch.optim import Adam
-from aclgan_tpu_torch.trainer import ACLGAN, GEN_NAMES
+from aclgan_tpu_torch.parallel import mesh as pmesh
+from aclgan_tpu_torch.trainer import ACLGAN, DIS_NAMES, GEN_NAMES
 from aclgan_tpu_torch.utils import checkpoint as ckpt
+from tests import torch_dp_worker
 from tests.helpers import tiny_config
 
 
@@ -61,10 +71,11 @@ class _NoHostRead(TorchDispatchMode):
         return func(*args, **(kwargs or {}))
 
 
-def _model(**tpu):
+def _model(mesh=None, dis_norm="none", **tpu):
     jcfg = tiny_config(weight_decay=1e-4)
+    jcfg.dis.norm = dis_norm
     jcfg.tpu = dataclasses.replace(jcfg.tpu, **tpu)
-    m = ACLGAN(from_dict(jcfg.to_dict()), device="cpu", seed=4)
+    m = ACLGAN(from_dict(jcfg.to_dict()), device="cpu", seed=4, mesh=mesh)
     m.init_state()
     return m
 
@@ -82,17 +93,64 @@ def test_dispatch_mode_sees_host_reads():
             read()
 
 
+@pytest.fixture
+def gloo_mesh():
+    """A data-parallel mesh of one gloo rank, this process."""
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{torch_dp_worker.free_port()}",
+                            rank=0, world_size=1)
+    try:
+        yield pmesh.make_mesh(-1)
+    finally:
+        dist.destroy_process_group()
+
+
+class _Collectives:
+    """Counts `dist.all_reduce` calls issued inside `ACLGAN._step` and
+    outside it, and keeps the last one's tensor."""
+
+    def __init__(self, model, monkeypatch):
+        self.inside = self.outside = 0
+        self.last = None
+        self._in_step = False
+        step, all_reduce = model._step, dist.all_reduce
+
+        def in_step(*args, **kwargs):
+            self._in_step = True
+            try:
+                return step(*args, **kwargs)
+            finally:
+                self._in_step = False
+
+        def counted(t, *args, **kwargs):
+            if self._in_step:
+                self.inside += 1
+            else:
+                self.outside += 1
+            self.last = t
+            return all_reduce(t, *args, **kwargs)
+
+        monkeypatch.setattr(model, "_step", in_step)
+        monkeypatch.setattr(dist, "all_reduce", counted)
+
+
 @pytest.mark.parametrize("case,tpu", [
     ("plain", {}),
     ("remat all, accum 2", {"remat": "all", "grad_accum": 2}),
     ("bf16 moments, EMA", {"moment_dtype": "bfloat16", "ema_decay": 0.999}),
+    ("gloo DataMesh, dis bn", {"distributed": True}),
 ], ids=lambda v: v if isinstance(v, str) else "")
-def test_step_body_makes_no_host_sync(case, tpu):
+def test_step_body_makes_no_host_sync(case, tpu, request, monkeypatch):
     """D+G, D-only, then D+G across a StepLR boundary with step_increment 2,
     first calls included (they create the optimizers' state): every metric
-    finite afterwards."""
-    model = _model(**tpu)
+    finite afterwards. Under a data-parallel mesh (one gloo rank, dis bn:
+    the gradients', bn's, the focus sums' and the metrics' all-reduces),
+    every collective of `train_step` is issued inside the step body that a
+    graph records, the metrics' last."""
+    mesh = request.getfixturevalue("gloo_mesh") if tpu.get("distributed") else None
+    model = _model(mesh, "none" if mesh is None else "bn", **tpu)
     model.cfg.step_size = 2
+    if mesh is not None:
+        seen = _Collectives(model, monkeypatch)
     got = []
     with _NoHostRead():
         for i, (do_gen, inc) in enumerate(((True, 1), (False, 1), (True, 2))):
@@ -100,6 +158,9 @@ def test_step_body_makes_no_host_sync(case, tpu):
     assert model.step == 4
     assert all(np.isfinite(float(v)) for m in got for v in m.values())
     assert "loss_gen_total" in got[0] and "loss_gen_total" not in got[1]
+    if mesh is not None:
+        assert seen.outside == 0 and seen.inside > 0
+        assert seen.last.shape == (len(got[0]),)  # the metrics, stacked
 
 
 def _jax_lr(jcfg, step):
@@ -270,6 +331,27 @@ def test_a_failed_capture_raises_with_its_key_and_counts_nothing(monkeypatch):
     assert K.launches == 1 and graphs.keys() == [("train", 3)] and graphs._entries == {}
 
 
+@pytest.mark.parametrize("error", [torch.cuda.OutOfMemoryError("allocator: out of memory"),
+                                   RuntimeError("CUDA error: out of memory")],
+                         ids=["allocator", "runtime"])
+def test_an_out_of_memory_capture_stays_out_of_memory(error):
+    """Out of memory in a capture, the allocator's or the CUDA runtime's (as
+    `cudaGraphInstantiate` raises it), raises `torch.cuda.OutOfMemoryError`
+    with the key, for callers that size batches by it."""
+    calls = []
+
+    def body(x):
+        calls.append(1)
+        if len(calls) == 2:  # the capture
+            raise error
+        return x
+
+    graphs = _CpuGraphs()
+    graphs.run("k", (torch.ones(1),), body)
+    with pytest.raises(torch.cuda.OutOfMemoryError, match="key 'k'.*out of memory"):
+        graphs.run("k", (torch.ones(1),), body)
+
+
 class _SlowGraph(_StandInGraph):
     """Replays x -> 2x from the static input into the static output, slowly
     (the GIL let go before the read): a second thread's copy-in inside
@@ -409,3 +491,116 @@ def test_hold_trace(events, launches, ok, capsys):
     else:
         with pytest.raises(AssertionError, match="the traced work launches"):
             chip_smoke._hold_trace("traced", events, launches)
+
+
+# ------------------------------------------------ under a data-parallel mesh
+DP_WORLD, DP_BATCH = 2, 4
+
+
+@pytest.fixture(scope="module")
+def dp_ranks(tmp_path_factory):
+    """Both gloo ranks' results of `torch_dp_worker.graph_ranks` (dis bn,
+    focus masks, StepLR every 2 steps) from one initial state."""
+    tmp = tmp_path_factory.mktemp("graphs_dp")
+    jcfg = tiny_config(batch_size=DP_BATCH, weight_decay=1e-4, step_size=2)
+    jcfg.dis.norm = "bn"
+    model = ACLGAN(from_dict(jcfg.to_dict()), device="cpu", seed=5)
+    model.init_state()
+    snap_path = tmp / "start.pt"
+    torch.save(model.snapshot(), snap_path)
+    rng = np.random.RandomState(41)
+    n = len(torch_dp_worker.GRAPH_SCHEDULE)
+    x_a, x_b = (torch.from_numpy(rng.randint(0, 256, (n, DP_BATCH, 16, 16, 3), dtype=np.uint8))
+                for _ in range(2))
+    displays = [(torch.from_numpy(rng.randint(0, 256, (2, 16, 16, 3), dtype=np.uint8)),
+                 torch.from_numpy(rng.randint(0, 256, (2, 16, 16, 3), dtype=np.uint8)),
+                 tuple(torch.from_numpy(rng.randn(2, jcfg.gen.style_dim).astype(np.float32))
+                       for _ in range(3)))
+                for _ in range(3)]
+    torch_dp_worker.spawn(torch_dp_worker.graph_ranks, DP_WORLD,
+                          (jcfg.to_dict(), str(snap_path), x_a, x_b, displays, str(tmp)),
+                          timeout=240)
+    return [torch.load(tmp / f"graphs.{r}.pt", weights_only=False) for r in range(DP_WORLD)]
+
+
+def test_dp_step_replayed_equals_eager(dp_ranks):
+    """Five iterations (D+G, D, D+G, D+G, D: both keys eager once, captured
+    once, then replayed) with drawn z: every iteration's metrics, the final
+    networks and the step bit-equal to the eager data-parallel run's, K1
+    counted alike per iteration, on both ranks; the ranks agree."""
+    for r in dp_ranks:
+        eager, graphed = r["eager"], r["graphed"]
+        assert [k for k in r["keys"] if k[0] == "train"] == [
+            ("train", True, gen, (2, 16, 16, 3), torch.uint8, (2, 16, 16, 3), torch.uint8, True)
+            for gen in (True, False)]
+        # D+G captured at iteration 3 and replayed at 4, D captured at 5;
+        # sample captured at its second call and replayed at its third
+        assert r["replays"] == [2, 1, 2]
+        for (m_e, k_e), (m_g, k_g) in zip(eager["steps"], graphed["steps"]):
+            assert k_g == k_e > 0
+            assert m_g.keys() == m_e.keys()
+            for k in m_e:
+                assert torch.equal(m_g[k], m_e[k]), k
+        for kind in ("gen", "dis"):
+            for n, sd in eager[kind].items():
+                for k, t in sd.items():
+                    assert torch.equal(graphed[kind][n][k], t), (kind, n, k)
+        assert graphed["step"] == eager["step"] == len(torch_dp_worker.GRAPH_SCHEDULE)
+    for (m0, _), (m1, _) in zip(dp_ranks[0]["graphed"]["steps"], dp_ranks[1]["graphed"]["steps"]):
+        assert all(torch.equal(m0[k], m1[k]) for k in m0)
+
+
+def test_sample_replayed_equals_eager(dp_ranks):
+    """`sample` on three display sets of one shape: eager, captured, replayed,
+    each equal to the eager model's outputs, with K1 counted per call."""
+    for r in dp_ranks:
+        for (outs_e, k_e), (outs_g, k_g) in zip(r["eager"]["samples"], r["graphed"]["samples"]):
+            assert k_g == k_e > 0
+            assert len(outs_g) == len(outs_e) == 9  # focus masks: nine rows
+            assert all(torch.equal(a, b) for a, b in zip(outs_g, outs_e))
+        assert sum(k[0] == "sample" for k in r["keys"]) == 1
+
+
+def test_capture_under_a_mesh_raises_on_every_rank(dp_ranks):
+    """A key captured differently on each rank raises on both; a capture
+    that fails on rank 1 alone raises there with its cause and on rank 0
+    naming the other rank, both naming the key."""
+    for rank, r in enumerate(dp_ranks):
+        assert "capture different keys" in r["errors"]["mismatch"]
+        assert f"('key of rank', {rank})" in r["errors"]["mismatch"]
+        msg = r["errors"]["failed"]
+        assert "('fails on rank 1',)" in msg
+        assert ("not capturable here" in msg) == (rank == 1)
+        assert ("on another rank" in msg) == (rank == 0)
+
+
+def test_spatial_step_replayed_equals_eager(tmp_path):
+    """The spatial D+G step on a 2 x 2 grid of gloo ranks (halos point to
+    point, the split form's all-reduces, the sharded LN / pools / bn over
+    both groups): the third of three iterations, recorded by the stand-in
+    graph at the second and replayed, bit-equal to the eager step from the
+    same state on every rank."""
+    jcfg = tiny_config(batch_size=4, weight_decay=1e-4)
+    jcfg.dis.norm = "bn"
+    jcfg.data.crop_image_height = jcfg.data.crop_image_width = 32
+    cfg = from_dict(jcfg.to_dict())
+    rng = np.random.RandomState(8)
+    x_a, x_b = (torch.from_numpy(rng.randint(0, 256, (4, 32, 32, 3), dtype=np.uint8))
+                for _ in range(2))
+    zs = [{k: [rng.randn(4, cfg.gen.style_dim).astype(np.float32) for _ in range(3)]
+           for k in ("dis", "gen")} for _ in range(3)]
+    start = ACLGAN(cfg, device="cpu", seed=1)
+    start.init_state()
+    torch.save(start.snapshot(), tmp_path / "start.pt")
+    case = (2, 2, cfg.to_dict(), str(tmp_path / "start.pt"), x_a, x_b, zs)
+    torch_dp_worker.spawn(torch_dp_worker.mesh_graph_steps, 4, (case, str(tmp_path), "cpu"),
+                          timeout=240)
+    for r in range(4):
+        got = torch.load(tmp_path / f"mesh.{r}.pt", weights_only=False)
+        assert got["keys"] == [("train", True, True, (2, 16, 32, 3), torch.uint8,
+                                (2, 16, 32, 3), torch.uint8, False)]
+        g, e = got["graphed"], got["eager"]
+        assert g["metrics"] == e["metrics"]
+        for kind in ("gen", "dis"):
+            for n, sd in e[kind].items():
+                assert all(torch.equal(g[kind][n][k], t) for k, t in sd.items()), (kind, n)

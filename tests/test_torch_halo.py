@@ -2,8 +2,11 @@
 halo.py`, the sharded pools and norms, the split instance norm) against the
 JAX package's unsharded ops and the port's own: four gloo ranks on the CPU,
 spawned once, each holding a quarter of H, as `tests/test_halo.py` shards
-over four virtual devices. Also the split form's plain versions with a row's
-slices summed in one process, and the refusals."""
+over four virtual devices. Every op that moves halo rows runs in both forms
+(`form`): point to point, as the ranks take it over gloo on the CPU and over
+NCCL, and the all-reduce form that gloo with CUDA tensors takes, forced
+here. Also the split form's plain versions with a row's slices summed in
+one process, and the refusals."""
 
 import numpy as np
 import pytest
@@ -24,6 +27,7 @@ from aclgan_tpu_torch.parallel import halo
 from aclgan_tpu_torch.parallel import spatial as psp
 from aclgan_tpu_torch.trainer import ACLGAN
 from tests import torch_dp_worker
+from tests.torch_dp_worker import HALO_FORMS
 from tests.helpers import tiny_config
 from tests.test_halo import _ref_conv
 
@@ -86,32 +90,34 @@ def ranks(inputs, tmp_path_factory):
     outs = [torch.load(tmp / f"halo.{r}.pt", weights_only=True) for r in range(WORLD)]
     gathered = {}
     for key in outs[0]:
-        if key in ("gap", "adain_dscale", "adain_dshift"):
+        if key in ("gap", "adain_dscale", "adain_dshift"):  # replicated, or partial sums
             gathered[key] = [o[key] for o in outs]
         else:
             gathered[key] = torch.cat([o[key] for o in outs], 2)
     return gathered
 
 
+@pytest.mark.parametrize("form", HALO_FORMS)
 @pytest.mark.parametrize("k,stride,padding", GEOMETRIES)
 @pytest.mark.parametrize("pad_type", PAD_TYPES)
-def test_halo_conv_matches_jax_unsharded(inputs, ranks, k, stride, padding, pad_type):
+def test_halo_conv_matches_jax_unsharded(inputs, ranks, k, stride, padding, pad_type, form):
     kernel, bias, *_ = inputs["convs"][_conv_name(k, stride, padding, pad_type)]
     want = np.asarray(_ref_conv(jnp.asarray(inputs["x_nhwc"]), jnp.asarray(kernel),
                                 jnp.asarray(bias), stride, padding, pad_type))
-    got = ranks[_conv_name(k, stride, padding, pad_type)].numpy().transpose(0, 2, 3, 1)
-    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5)
+    got = ranks[f"{form}:{_conv_name(k, stride, padding, pad_type)}"]
+    np.testing.assert_allclose(got.numpy().transpose(0, 2, 3, 1), want, rtol=1e-4, atol=1e-5)
 
 
+@pytest.mark.parametrize("form", HALO_FORMS)
 @pytest.mark.parametrize("pad_type", PAD_TYPES)
-def test_halo_conv_on_two_row_shards(inputs, ranks, pad_type):
+def test_halo_conv_on_two_row_shards(inputs, ranks, pad_type, form):
     """4x4/s2/p1 on shards of 2 rows: the window reads one row below the
     shard, so the bottom rank's reflect pad needs only the row above its last."""
     name = _conv_name(4, 2, 1, pad_type, SHORT)
     kernel, bias, *_ = inputs["convs"][name]
     want = np.asarray(_ref_conv(jnp.asarray(inputs["x_nhwc"][:, :SHORT]), jnp.asarray(kernel),
                                 jnp.asarray(bias), 2, 1, pad_type))
-    got = ranks[name].numpy().transpose(0, 2, 3, 1)
+    got = ranks[f"{form}:{name}"].numpy().transpose(0, 2, 3, 1)
     np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5)
 
 
@@ -121,21 +127,25 @@ def test_sharded_instance_norm_matches_jax(inputs, ranks):
     np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5)
 
 
-def test_sharded_layer_norm_and_pools_match_unsharded(inputs, ranks):
+@pytest.mark.parametrize("form", HALO_FORMS)
+def test_sharded_layer_norm_and_pools_match_unsharded(inputs, ranks, form):
     """LN's Bessel-corrected std over the global count, the 3x3/s2 pool's
-    divisor at the global edges only, and the global pool's global H*W."""
+    divisor at the global edges only (its halo row moved in `form`), and the
+    global pool's global H*W."""
     x = torch.from_numpy(inputs["x"])
     want_ln = norms.sample_layer_norm(x, torch.from_numpy(inputs["gamma"]),
                                       torch.from_numpy(inputs["beta"]))
     torch.testing.assert_close(ranks["ln"], want_ln, rtol=1e-4, atol=1e-5)
-    torch.testing.assert_close(ranks["pool"], pool.avg_pool_3x3_s2(x), rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(ranks[f"{form}:pool"], pool.avg_pool_3x3_s2(x), rtol=1e-5,
+                               atol=1e-6)
     want_gap = pool.global_avg_pool(x)
     for got in ranks["gap"]:  # replicated on every rank
         torch.testing.assert_close(got, want_gap, rtol=1e-5, atol=1e-6)
 
 
+@pytest.mark.parametrize("form", HALO_FORMS)
 @pytest.mark.parametrize("pad_type", PAD_TYPES)
-def test_halo_rows_gradient_is_the_transpose(inputs, ranks, pad_type):
+def test_halo_rows_gradient_is_the_transpose(inputs, ranks, pad_type, form):
     """The ranks' x gradients against one-process autograd of the gathered op:
     every rank's window of pad(x) (the rows its halo exchange builds) against
     the same cotangent."""
@@ -147,7 +157,8 @@ def test_halo_rows_gradient_is_the_transpose(inputs, ranks, pad_type):
     loss = sum((xp[:, :, r * h:r * h + h + top + bottom]
                 * g[:, :, r * h:r * h + h + top + bottom]).sum() for r in range(WORLD))
     loss.backward()
-    torch.testing.assert_close(ranks[f"halo_grad_{pad_type}"], x.grad, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(ranks[f"{form}:halo_grad_{pad_type}"], x.grad, rtol=1e-5,
+                               atol=1e-5)
 
 
 def test_split_adain_over_ranks_matches_one_process(inputs, ranks):

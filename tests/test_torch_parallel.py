@@ -21,6 +21,7 @@ from aclgan_tpu.trainer import ACLGAN as JACLGAN
 from aclgan_tpu_torch.cli import train as cli_train
 from aclgan_tpu_torch.config import from_dict
 from aclgan_tpu_torch.parallel import mesh as pmesh
+from aclgan_tpu_torch.parallel import spatial as psp
 from aclgan_tpu_torch.trainer import ACLGAN, DIS_NAMES, GEN_NAMES
 from tests import torch_dp_worker
 from tests.helpers import tiny_config
@@ -181,3 +182,41 @@ def test_group_mesh_errors():
         assert pmesh.make_mesh(-1) == pmesh.make_mesh(1) == pmesh.DataMesh(0, 1)
     finally:
         dist.destroy_process_group()
+
+
+def test_gloo_meshes_are_not_captured():
+    """A mesh answers `capturable()` from its groups' backend: no for gloo,
+    and without a process group; a model on a CUDA device under a gloo mesh
+    keeps its steps eager and names the reason."""
+    grid = psp.SpatialMesh(1, 1, 0, None, None, None)
+    assert not pmesh.DataMesh(0, 1).capturable() and not grid.capturable()
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{torch_dp_worker.free_port()}",
+                            rank=0, world_size=1)
+    try:
+        for mesh in (pmesh.make_mesh(-1), grid):
+            assert not mesh.capturable()
+            model = ACLGAN(from_dict(_jax_cfg("dis_none").to_dict()), device="cpu", mesh=mesh)
+            model.device = torch.device("cuda")  # the question asked before any CUDA work
+            assert model._eager_reason(True) == (f"a {type(mesh).__name__} over gloo: its "
+                                                 "collectives are staged through the host")
+    finally:
+        dist.destroy_process_group()
+
+
+class _NcclMesh(pmesh.DataMesh):
+    def capturable(self):  # NCCL's answer, without NCCL on the CPU
+        return True
+
+
+@pytest.mark.parametrize("world", [1, 2, 4])
+def test_an_nccl_mesh_of_one_rank_is_captured(world):
+    """On a CUDA device, a capturable (NCCL) mesh of one rank gives no eager
+    reason; a mesh of more ranks stays eager and names why."""
+    model = ACLGAN(from_dict(_jax_cfg("dis_none").to_dict()), device="cpu")
+    model.device = torch.device("cuda")  # the question asked before any CUDA work
+    model.mesh = _NcclMesh(0, world)
+    reason = model._eager_reason(True)
+    assert (reason is None) == (world == 1)
+    if world > 1:
+        assert reason.startswith(f"a _NcclMesh of {world} ranks: a CUDA graph across ranks "
+                                 "is not enabled")

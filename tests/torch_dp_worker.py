@@ -3,6 +3,7 @@ ranks import this module and nothing of JAX: they join a gloo group on the
 CPU (or, in the CUDA tests, an NCCL group of one rank a card) over localhost
 and hand their results back through files."""
 
+import contextlib
 import os
 import socket
 import traceback
@@ -10,6 +11,8 @@ import traceback
 import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
+from torch._C._distributed_c10d import Work
+from torch.utils._python_dispatch import TorchDispatchMode
 
 
 def free_port() -> int:
@@ -123,6 +126,9 @@ def _init(rank, world, port, device_type):
     return torch.device("cpu")
 
 
+HALO_FORMS = {"point_to_point": True, "all_reduce": False}  # form: `_point_to_point`'s answer
+
+
 def halo_ops(rank, world, port, x, g, convs, gamma, beta, scale, shift, out_dir):
     """The spatial ops on this rank's H-slice of the NCHW `x` (H split over all
     `world` ranks of a 1 x world grid): `halo_conv` for each entry of `convs`
@@ -130,31 +136,38 @@ def halo_ops(rank, world, port, x, g, convs, gamma, beta, scale, shift, out_dir)
     rows), the sharded IN, LN,
     pools, the gradient of `halo_rows` against the cotangent `g` of its
     output, and the split AdaIN (`fused_instance_norm` under the mesh) with
-    its gradients; saves them to out_dir/halo.<rank>.pt."""
+    its gradients; saves them to out_dir/halo.<rank>.pt. The ops that move
+    halo rows run in each form of `HALO_FORMS` (the all-reduce form forced
+    on the CPU), under keys "<form>:<op>"."""
     from aclgan_tpu_torch.ops import norms, pool
     from aclgan_tpu_torch.ops.kernels.instance_norm import fused_instance_norm
     from aclgan_tpu_torch.parallel import halo
     from aclgan_tpu_torch.parallel.spatial import make_mesh_2d
 
     _join(rank, world, port)
+    chooser = halo._point_to_point
     try:
         mesh = make_mesh_2d(1, world)
         h = x.shape[2] // world
         xl = x[:, :, rank * h:(rank + 1) * h].contiguous()
         out = {}
-        for name, (w, b, stride, padding, pad_type, rows) in convs.items():
-            hc = rows // world
-            out[name] = halo.halo_conv(x[:, :, rank * hc:(rank + 1) * hc].contiguous(), w, b,
-                                       mesh, stride, padding, pad_type)
+        for form, p2p in HALO_FORMS.items():
+            halo._point_to_point = lambda t, group, p2p=p2p: p2p and chooser(t, group)
+            for name, (w, b, stride, padding, pad_type, rows) in convs.items():
+                hc = rows // world
+                out[f"{form}:{name}"] = halo.halo_conv(
+                    x[:, :, rank * hc:(rank + 1) * hc].contiguous(), w, b, mesh, stride,
+                    padding, pad_type)
+            out[f"{form}:pool"] = pool.avg_pool_3x3_s2(xl, mesh)
+            for pad_type, (top, bottom, gl) in g.items():
+                xg = xl.clone().requires_grad_()
+                gr = gl[:, :, rank * h:rank * h + h + top + bottom]
+                (halo.halo_rows(xg, top, bottom, mesh, pad_type) * gr).sum().backward()
+                out[f"{form}:halo_grad_{pad_type}"] = xg.grad
+        halo._point_to_point = chooser
         out["in"] = halo.sharded_instance_norm(xl, mesh)
         out["ln"] = norms.sample_layer_norm(xl, gamma, beta, mesh=mesh)
-        out["pool"] = pool.avg_pool_3x3_s2(xl, mesh)
         out["gap"] = pool.global_avg_pool(xl, mesh)
-        for pad_type, (top, bottom, gl) in g.items():
-            xg = xl.clone().requires_grad_()
-            gr = gl[:, :, rank * h:rank * h + h + top + bottom]
-            (halo.halo_rows(xg, top, bottom, mesh, pad_type) * gr).sum().backward()
-            out[f"halo_grad_{pad_type}"] = xg.grad
         xg, sg, bg = (t.clone().requires_grad_() for t in (xl, scale, shift))
         y = fused_instance_norm(xg, sg, bg, activ="relu", mesh=mesh)
         (y * torch.cos(xl)).sum().backward()
@@ -162,6 +175,7 @@ def halo_ops(rank, world, port, x, g, convs, gamma, beta, scale, shift, out_dir)
                    adain_dshift=bg.grad)
         torch.save(out, os.path.join(out_dir, f"halo.{rank}.pt"))
     finally:
+        halo._point_to_point = chooser
         dist.destroy_process_group()
 
 
@@ -203,4 +217,295 @@ def spatial_cases(rank, world, port, cases, out_dir, device_type="cpu"):
                           "gen": snap["gen"], "dis": snap["dis"]}
             torch.save(result, os.path.join(out_dir, f"{name}.{rank}.pt"))
     finally:
+        dist.destroy_process_group()
+
+
+# ------------------------------------------------ CUDA graphs' stand-in
+class _Recorder(TorchDispatchMode):
+    """Runs and records every op dispatched while it is on: (op, args,
+    kwargs, output)."""
+
+    def __init__(self, ops):
+        super().__init__()
+        self.ops = ops
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        out = func(*args, **kwargs)
+        self.ops.append((func, args, kwargs, out))
+        return out
+
+
+def _into(recorded, new, pending):
+    """Write a re-run op's result into the tensors its capture produced;
+    collect the c10d works it returned."""
+    if isinstance(recorded, torch.Tensor):
+        same = (new is recorded or (new.data_ptr() == recorded.data_ptr()
+                                    and new.shape == recorded.shape
+                                    and new.stride() == recorded.stride()))
+        if not same:
+            recorded.copy_(new)
+    elif isinstance(recorded, (list, tuple)):
+        for r, n in zip(recorded, new):
+            _into(r, n, pending)
+    elif isinstance(new, torch.ScriptObject):
+        pending.append(Work.unbox(new))
+
+
+class ReplayGraph:
+    """A CUDA graph's interface on the CPU that does what one does: the ops
+    issued between `capture_begin` and `capture_end` (autograd's backward and
+    the c10d collectives among them) are recorded with their tensors, and a
+    replay runs them again on those tensors, each result written where the
+    capture's went, the kernels' counters left as they were (a replay calls
+    no wrapper). The capture runs the body on the CPU, so the replay that
+    follows it at once is skipped: each call runs the step once, as on the
+    card."""
+
+    def __init__(self):
+        self.generators, self.ops, self.replays = [], [], 0
+        self._mode = None
+        self._skip = False
+
+    def register_generator_state(self, gen):
+        self.generators.append(gen)
+
+    def capture_begin(self, pool=None, capture_error_mode="global"):
+        self._mode = _Recorder(self.ops)
+        self._mode.__enter__()
+
+    def capture_end(self):
+        self._mode.__exit__(None, None, None)
+        self._skip = True
+
+    def replay(self):
+        self.replays += 1
+        if self._skip:
+            self._skip = False
+            return
+        from aclgan_tpu_torch.ops.kernels import instance_norm as K
+
+        counts = [getattr(K, c) for c in K.COUNTERS]
+        pending = []
+        with torch.no_grad():
+            for func, args, kwargs, out in self.ops:
+                is_c10d = func.namespace == "c10d"
+                if not is_c10d:  # a collective's result is read by the ops after it
+                    for work in pending:
+                        work.wait()
+                    pending.clear()
+                _into(out, func(*args, **kwargs), pending)
+        for work in pending:
+            work.wait()
+        for c, v in zip(K.COUNTERS, counts):
+            setattr(K, c, v)
+
+    def pool(self):
+        return "the pool"
+
+
+def cpu_graphs(graph=ReplayGraph):
+    """`StepGraphs` on the CPU with `graph` for `torch.cuda.CUDAGraph`."""
+    from aclgan_tpu_torch.graphs import StepGraphs
+
+    class CpuGraphs(StepGraphs):
+        def __init__(self):
+            super().__init__(torch.device("cpu"))
+            self.made = []
+
+        def _new_graph(self):
+            self.made.append(graph())
+            return self.made[-1]
+
+        def _on_device(self):
+            return contextlib.nullcontext()
+
+        def _side(self):
+            return contextlib.nullcontext()
+
+        def _in_order(self):
+            return contextlib.nullcontext()
+
+        def _free_cached(self):
+            return 0
+
+        def _reserved(self):
+            return 0
+
+    return CpuGraphs()
+
+
+def count_plain_launches():
+    """Count each call of the instance norm's plain version (the CPU's K1)
+    in `launches`, as the card's wrapper counts K1."""
+    from aclgan_tpu_torch.ops.kernels import instance_norm as K
+
+    plain = K.instance_norm_plain
+
+    def counted(*args, **kwargs):
+        K.launches += 1
+        return plain(*args, **kwargs)
+
+    K.instance_norm_plain = counted
+
+
+GRAPH_SCHEDULE = ((True, True), (True, False), (True, True), (True, True), (True, False))
+
+
+def graph_ranks(rank, world, port, cfg_dict, snap_path, x_a, x_b, displays, out_dir):
+    """On this rank of a gloo `DataMesh`: `GRAPH_SCHEDULE`'s iterations on its
+    rows of the global batches, drawn z, eager and through `cpu_graphs()`
+    (each iteration's metrics and K1 count, the final state); `sample` on
+    `displays` three times, eager and graphed; then a key captured
+    differently on each rank, and a capture that fails on rank 1 alone.
+    Saves them to out_dir/graphs.<rank>.pt."""
+    from aclgan_tpu_torch.config import from_dict
+    from aclgan_tpu_torch.ops.kernels import instance_norm as K
+    from aclgan_tpu_torch.parallel.mesh import batch_sharding, make_mesh, shard_state
+    from aclgan_tpu_torch.trainer import ACLGAN
+
+    _join(rank, world, port)
+    count_plain_launches()
+    try:
+        mesh = make_mesh(-1)
+        rows = batch_sharding(mesh, x_a.shape[1])
+        out = {}
+        for form in ("eager", "graphed"):
+            model = ACLGAN(from_dict(cfg_dict), device="cpu", mesh=mesh)
+            model.init_state()
+            model.restore(torch.load(snap_path, weights_only=True))
+            shard_state(model, mesh)
+            if form == "graphed":
+                model.graphs = cpu_graphs()
+            steps = []
+            for i, (do_dis, do_gen) in enumerate(GRAPH_SCHEDULE):
+                k1 = K.launches
+                m = model.train_step(x_a[i][rows], x_b[i][rows], do_dis, do_gen)
+                steps.append(({k: v.clone() for k, v in m.items()}, K.launches - k1))
+            samples = []
+            for xa, xb, z in displays:
+                k1 = K.launches
+                outs = model.sample(xa, xb, *z)
+                samples.append(([o.clone() for o in outs], K.launches - k1))
+            snap = model.snapshot()
+            out[form] = {"steps": steps, "samples": samples, "gen": snap["gen"],
+                         "dis": snap["dis"], "step": model.step}
+            if form == "graphed":
+                out["keys"] = model.graphs.keys()
+                out["replays"] = [g.replays for g in model.graphs.made]
+        errors = {}
+        graphs = cpu_graphs()
+        for _ in range(2):  # each rank its own key: eager, then the capture's check
+            try:
+                graphs.run(("key of rank", rank), (torch.ones(1),), lambda t: t * 2, mesh=mesh)
+            except RuntimeError as e:
+                errors["mismatch"] = str(e)
+        calls = []
+
+        def body(t):
+            calls.append(1)
+            if rank == 1 and len(calls) == 2:
+                raise ValueError("not capturable here")
+            return t + 1
+
+        for _ in range(2):
+            try:
+                graphs.run(("fails on rank 1",), (torch.ones(1),), body, mesh=mesh)
+            except RuntimeError as e:
+                errors["failed"] = str(e)
+        out["errors"] = errors
+        torch.save(out, os.path.join(out_dir, f"graphs.{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def mesh_graph_steps(rank, world, port, case, out_dir, device_type="cuda"):
+    """Three D+G iterations on this rank's share (a `DataMesh` when n_spatial
+    is 1, else an n_data x n_spatial grid) of the global NHWC batches, on
+    the injected global z of each: the first eager, the second captured and
+    replayed, the third replayed; then the third from the same state in an
+    eager twin (`graphs=False`); on the CPU through `cpu_graphs()`. `case` =
+    (n_data, n_spatial, config dict,
+    snapshot path, x_a, x_b, [z, z, z]). Saves out_dir/mesh.<rank>.pt: the
+    state before the third iteration (rank 0), the third iteration's
+    metrics, networks and (K1, K2, K1m, K1a, K2m, K2a) in both forms, the
+    graphs' keys and capture bytes."""
+    import copy
+
+    from aclgan_tpu_torch.config import from_dict
+    from aclgan_tpu_torch.ops.kernels import instance_norm as K
+    from aclgan_tpu_torch.parallel.mesh import batch_sharding, make_mesh, shard_state
+    from aclgan_tpu_torch.parallel.spatial import make_mesh_2d, spatial_batch_sharding
+    from aclgan_tpu_torch.trainer import ACLGAN
+
+    n_data, n_spatial, cfg_dict, snap_path, x_a, x_b, zs = case
+    device = _init(rank, world, port, device_type)
+    try:
+        if n_spatial == 1:
+            mesh = make_mesh(-1)
+            rows, hs = batch_sharding(mesh, x_a.shape[0]), slice(None)
+        else:
+            mesh = make_mesh_2d(n_data, n_spatial)
+            rows, hs = spatial_batch_sharding(mesh, x_a.shape[0], x_a.shape[1])
+        xa, xb = x_a[rows, hs], x_b[rows, hs]
+
+        def model_(graphs):
+            m = ACLGAN(from_dict(cfg_dict), device=device, mesh=mesh, graphs=graphs)
+            m.init_state()
+            return m
+
+        def third(m):
+            before = [getattr(K, c) for c in K.COUNTERS]
+            metrics = m.train_step(xa, xb, True, True, z=zs[2])
+            snap = m.snapshot()
+            return {"metrics": {k: float(v) for k, v in metrics.items()},
+                    "launches": tuple(getattr(K, c) - b for c, b in zip(K.COUNTERS, before)),
+                    "gen": {n: {k: v.cpu() for k, v in sd.items()} for n, sd in snap["gen"].items()},
+                    "dis": {n: {k: v.cpu() for k, v in sd.items()} for n, sd in snap["dis"].items()}}
+
+        model = model_(True)
+        if device.type == "cpu":  # the stand-in graph, as the CPU has no CUDA graphs
+            model.graphs = cpu_graphs()
+        model.restore(torch.load(snap_path, map_location="cpu", weights_only=True))
+        shard_state(model, mesh)
+        for z in zs[:2]:
+            model.train_step(xa, xb, True, True, z=z)
+        state = copy.deepcopy(model.snapshot())
+        out = {"graphed": third(model), "keys": model.graphs.keys(),
+               "capture_bytes": dict(model.graphs.capture_bytes)}
+        twin = model_(False)
+        twin.restore(state)
+        out["eager"] = third(twin)
+        if rank == 0:
+            out["state"] = state
+        torch.save(out, os.path.join(out_dir, f"mesh.{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def halo_forms(rank, world, port, x, cases, out_dir, device_type="cuda"):
+    """`halo_rows` forward and backward on this rank's H-slice of the NCHW `x`
+    over a 1 x world grid, for each (top, bottom, pad_type) of `cases`, in
+    both forms of `HALO_FORMS`; the cotangent is cos of the output. Saves
+    out_dir/halo_forms.<rank>.pt."""
+    from aclgan_tpu_torch.parallel import halo
+    from aclgan_tpu_torch.parallel.spatial import make_mesh_2d
+
+    device = _init(rank, world, port, device_type)
+    chooser = halo._point_to_point
+    try:
+        mesh = make_mesh_2d(1, world)
+        h = x.shape[2] // world
+        xl = x[:, :, rank * h:(rank + 1) * h].to(device)
+        out = {}
+        for form, p2p in HALO_FORMS.items():
+            halo._point_to_point = lambda t, group, p2p=p2p: p2p and chooser(t, group)
+            for top, bottom, pad_type in cases:
+                xg = xl.clone().requires_grad_()
+                y = halo.halo_rows(xg, top, bottom, mesh, pad_type)
+                (y * torch.cos(y.detach())).sum().backward()
+                out[form, top, bottom, pad_type] = (y.detach().cpu(), xg.grad.cpu())
+        torch.save(out, os.path.join(out_dir, f"halo_forms.{rank}.pt"))
+    finally:
+        halo._point_to_point = chooser
         dist.destroy_process_group()
