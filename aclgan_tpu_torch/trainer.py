@@ -31,7 +31,9 @@ Port of `aclgan_tpu/trainer.py` (`to_model_range`, `ACLGAN`: `init_state`,
   `mesh.capturable()`) replays it as a graph; the capture checks the key
   and its success across the mesh's ranks and raises on every rank when the
   keys differ or a rank's capture fails. A mesh of more ranks stays eager:
-  2-rank runs with the graph hung on four H100s, for a cause not yet found.
+  on H100s, with a replayed spatial step's graph alive, tearing down the
+  process group hung on every rank of a 1 x 2 grid, and a data-parallel
+  mesh's teardown with its graph alive (as the train CLI ends) is untried.
   The steps also run eagerly on the CPU, under a gloo mesh
   (gloo stages its collectives through the host), under `tpu.check_nans`
   (anomaly mode cannot be captured), or when built with `graphs=False`; the
@@ -188,8 +190,9 @@ class ACLGAN:
             return (f"a {type(self.mesh).__name__} over gloo: its collectives are staged "
                     f"through the host")
         if self.mesh is not None and self.mesh.world > 1:
-            return (f"a {type(self.mesh).__name__} of {self.mesh.world} ranks: a CUDA graph "
-                    f"across ranks is not enabled (2-rank runs with it hung on four H100s)")
+            return (f"a {type(self.mesh).__name__} of {self.mesh.world} ranks: with a replayed "
+                    f"step's graph alive, destroy_process_group hung on every rank of a 1 x 2 "
+                    f"spatial grid of H100s")
         if self.cfg.tpu.check_nans:
             return "tpu.check_nans: anomaly mode cannot be captured"
         return None

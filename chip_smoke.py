@@ -13,7 +13,7 @@ parallelism (two ranks on the card, the CLI under torchrun), the
 multi-replica Translator, the VGG perceptual loss and spatial (H) sharding
 (two ranks at 512^2), through the hand-written CUDA kernels, and fails,
 with a non-zero exit, if any phase fails. On the card the train step (on
-one device and under an NCCL mesh of one rank), `sample` and the
+one device and under an NCCL data-parallel mesh), `sample` and the
 Translator's served batch run as CUDA graphs (`aclgan_tpu_torch/graphs.py`:
 each key's first call eager, then captured, then replayed), so every
 phase's launch counts hold for the graphed forms; gloo meshes (phases 23,
@@ -176,8 +176,15 @@ phase's launch counts hold for the graphed forms; gloo meshes (phases 23,
 30. [mesh_graphs] the train step under an NCCL mesh as a CUDA graph: a
    `DataMesh` of one rank in a spawned process, the bare bf16 step at batch
    3 and 16, graphed and eager (s an iteration, host s, idle share, peak,
-   pool, launches against the cadence). A mesh of more ranks runs eagerly
-   (its graphs hung on four cards);
+   pool, launches against the cadence). On two or more cards also (on one,
+   it logs that this part needs more cards): two NCCL ranks run the
+   data-parallel D+G step for dis in and then dis bn in one process pair
+   (phase 23's cut; the trainer keeps a mesh of more ranks eager, so the
+   ranks force the graph; each replayed iteration held to its eager twin at
+   phase 23's bars and to one process at `MESH_ALONE_BARS`, the ranks
+   bit-equal), and the bare step on 2 and 4 ranks at global batch 16, eager
+   as the trainer runs it, against one card. Every spawn runs under one
+   deadline that dumps each rank's stack and collective log;
 31. K1's and K2's device time a launch at each layer of phases 3-4's mixes
    (torch.profiler, or CUDA events behind a queued busy kernel where the
    profiler loses the kernels) beside the library call's; run last so that
@@ -2438,11 +2445,12 @@ def _dp_rank(rank, world, port, cases, out_dir):
     from aclgan_tpu_torch.ops.kernels import instance_norm as K
     from aclgan_tpu_torch.parallel.mesh import batch_sharding, make_mesh, shard_state
     from aclgan_tpu_torch.trainer import ACLGAN
+    from torch_ranks import group_timeout
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
-                            world_size=world)
+                            world_size=world, timeout=group_timeout())
     try:
         mesh = make_mesh(-1)
         for name, vcfg, xa, xb, z in cases:
@@ -2469,12 +2477,14 @@ def _params(model):
             for n, net in nets}
 
 
-def _free_port():
-    import socket
+def _spawn(fn, world, args, deadline, out_dir):
+    """fn(rank, world, port, *args) in `world` spawned ranks under one
+    deadline (`torch_ranks.spawn`): a rank still running near
+    it writes its Python stack and its collective log under out_dir/dumps and
+    exits, and the phase fails with every rank's."""
+    from torch_ranks import spawn
 
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
+    spawn(fn, world, args, timeout=deadline, dump_dir=Path(out_dir) / "dumps")
 
 
 def _rel(got, want):
@@ -2486,8 +2496,6 @@ def phase_dp_two_ranks(cfg, tmp):
     tensors, one D+G iteration at phase 7's cut (f32, TF32 off, 128^2, global
     batch 4, 2 a rank) for dis in and dis bn, against the single-process step
     at batch 4. Returns {case: (K1, K2) of each rank}."""
-    import torch.multiprocessing as mp
-
     from aclgan_tpu_torch.ops.kernels import instance_norm as K
 
     torch.backends.cudnn.allow_tf32 = False
@@ -2505,8 +2513,7 @@ def phase_dp_two_ranks(cfg, tmp):
     out_dir = Path(tmp) / "dp"
     out_dir.mkdir()
     t0 = time.time()
-    mp.start_processes(_dp_rank, args=(DP_WORLD, _free_port(), cases, str(out_dir)),
-                       nprocs=DP_WORLD, join=True, start_method="spawn")
+    _spawn(_dp_rank, DP_WORLD, (cases, str(out_dir)), 300, out_dir)
     ranks_s = time.time() - t0
     counts = {}
     for name, vcfg, xa, xb, z in cases:
@@ -2587,7 +2594,7 @@ def _torchrun_cli(out_json, argv):
     train CLI as `-m aclgan_tpu_torch.cli.train` runs it, then its form
     (graphed or eager), its graphs' keys and the (K1, K2) counters over the
     run and over the calls that replayed a captured graph, written to
-    `out_json`."""
+    `out_json` (rank r > 0: `out_json`.r)."""
     sys.path.insert(0, str(ROOT))
     from aclgan_tpu_torch import graphs
     from aclgan_tpu_torch.cli.train import main as train_main
@@ -2607,7 +2614,8 @@ def _torchrun_cli(out_json, argv):
 
     graphs.StepGraphs.run = counted
     model = train_main(argv).model
-    Path(out_json).write_text(json.dumps({
+    rank = int(os.environ.get("RANK", "0"))
+    Path(f"{out_json}.{rank}" if rank else out_json).write_text(json.dumps({
         "form": "eager" if model.graphs is None else "graphed",
         "mesh": type(model.mesh).__name__, "launches": [K.launches, K.bwd_launches],
         "replayed": replayed, "keys": [repr(k) for k in (model.graphs.keys()
@@ -2824,11 +2832,12 @@ def _spatial_rank(rank, world, port, vcfg, x, style, xa, xb, z, out_dir):
     from aclgan_tpu_torch.parallel.mesh import shard_state
     from aclgan_tpu_torch.parallel.spatial import make_mesh_2d, spatial_batch_sharding
     from aclgan_tpu_torch.trainer import ACLGAN
+    from torch_ranks import group_timeout
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
-                            world_size=world)
+                            world_size=world, timeout=group_timeout())
     all_reduce, calls = dist.all_reduce, [0]
 
     def counted(*args, **kwargs):  # every collective of the path is an all_reduce
@@ -3245,8 +3254,6 @@ def phase_spatial_two_ranks(cfg, tmp, smi):
     off; one sharded translate and one D+G train_step against one process at
     512^2, batch 2; the split kernels against their plain versions and timed.
     Returns (the split kernels' entries, {path: launches} of each kernel)."""
-    import torch.multiprocessing as mp
-
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     vcfg = _variant_cfg(cfg, SP_SIZE)
@@ -3262,9 +3269,7 @@ def phase_spatial_two_ranks(cfg, tmp, smi):
     out_dir.mkdir()
     torch.cuda.empty_cache()
     t0 = time.time()
-    mp.start_processes(_spatial_rank, args=(SP_WORLD, _free_port(), vcfg, x, style, xa, xb, z,
-                                            str(out_dir)),
-                       nprocs=SP_WORLD, join=True, start_method="spawn")
+    _spawn(_spatial_rank, SP_WORLD, (vcfg, x, style, xa, xb, z, str(out_dir)), 420, out_dir)
     ranks_s = time.time() - t0
     ranks = [torch.load(out_dir / f"spatial.{r}.pt", weights_only=True)
              for r in range(SP_WORLD)]
@@ -3689,6 +3694,9 @@ def phase_graphs(cfg, ckpt, smi, cli_b3_s):
 
 # ------------------------------------------------------------------ meshes
 MESH_BATCHES = (3, TRAIN_BATCH)      # the world-1 bare step's batches (phase 29's)
+MESH_WORLDS = (2, 4)                 # the 2-4 card part's data-parallel worlds
+MESH_DEADLINE = 420                  # s: one spawn of phase 30, every rank dumped and killed after
+MESH_GRAPHS = "--mesh-graphs"        # chip_smoke.py's own argument: phase 30 alone
 
 
 def _mesh_rank(rank, world, port, jobs, out_dir):
@@ -3697,6 +3705,8 @@ def _mesh_rank(rank, world, port, jobs, out_dir):
     out_dir/mesh.<rank>.pt. Ranks other than 0 print nothing."""
     import torch.distributed as dist
 
+    from torch_ranks import group_timeout
+
     device = torch.device("cuda", rank)
     torch.cuda.set_device(device)
     torch.backends.cudnn.allow_tf32 = False
@@ -3704,7 +3714,7 @@ def _mesh_rank(rank, world, port, jobs, out_dir):
     if rank:
         sys.stdout = open(os.devnull, "w")
     dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
-                            world_size=world)
+                            world_size=world, timeout=group_timeout())
     try:
         out = {name: _job_bare(*args) for name, args in jobs}
         torch.save(out, Path(out_dir) / f"mesh.{rank}.pt")
@@ -3713,7 +3723,8 @@ def _mesh_rank(rank, world, port, jobs, out_dir):
 
 
 def _job_bare(cfg, b, graphs):
-    """The bare bf16 step at b rows a rank under a `DataMesh` (`_bare_train_step`)."""
+    """The bare bf16 step at b rows a rank under a `DataMesh` (`_bare_train_step`;
+    `graphs` as the trainer takes it: a mesh of more ranks stays eager)."""
     from aclgan_tpu_torch.parallel.mesh import make_mesh
 
     return _bare_train_step(dataclasses.replace(cfg, batch_size=b), graphs, 3, 6,
@@ -3721,43 +3732,230 @@ def _job_bare(cfg, b, graphs):
 
 
 def _mesh_spawn(world, jobs, tmp, tag):
-    """Runs `jobs` on `world` NCCL ranks, one a card; returns each rank's
-    results and the seconds the processes took."""
-    import torch.multiprocessing as mp
-
+    """Runs `jobs` on `world` NCCL ranks, one a card, under one deadline;
+    returns each rank's results and the seconds the processes took."""
     out_dir = Path(tmp) / f"mesh_{tag}"
     out_dir.mkdir()
     t0 = time.time()
-    mp.start_processes(_mesh_rank, args=(world, _free_port(), jobs, str(out_dir)),
-                       nprocs=world, join=True, start_method="spawn")
+    _spawn(_mesh_rank, world, (jobs, str(out_dir)), MESH_DEADLINE, out_dir)
     return ([torch.load(out_dir / f"mesh.{r}.pt", map_location="cpu", weights_only=False)
              for r in range(world)], time.time() - t0)
 
 
+def _log_bare(smi, what, g, e):
+    log(f"[mesh_graphs] {smi}: {what}, bare bf16 step 256^2, D1/G2: graphed {g['s']:.4f} s an "
+        f"iteration against eager {e['s']:.4f} s (ratio {g['s'] / e['s']:.4f}); host "
+        f"{g['host_s']:.4f} against {e['host_s']:.4f} s to issue one; device idle "
+        f"{100 * g['idle']:.1f}% against {100 * e['idle']:.1f}%; peak {g['peak'] / 2**30:.3f} "
+        f"against {e['peak'] / 2**30:.3f} GiB; graphs' pool {g['pool']}, capture s "
+        f"{g['capture_s']}; (K1, K2) {g['launches']} over {g['iterations']} = the cadence's "
+        f"count")
+
+
+MESH_CASES = (("dp_dis_in", 2, 1, "in"), ("dp_dis_bn", 2, 1, "bn"))  # name, grid, dis norm
+# The replayed third iteration against one process: the metrics that do not
+# read the D this iteration moved (rel) and each network after it (rel-L2).
+# From its second step on Adam's update is linear in the gradient over its
+# running RMS (the first step is sign-like, so phase 23 holds 1e-3), so the
+# float noise in the gradients of the D's deepest convs moves those weights
+# by up to 0.4 lr: gloo ranks on the CPU against one CPU process read
+# 1.13e-3 (dis in) and 8.71e-4 (dis bn), two NCCL ranks on H100s 1.13e-3
+# (dis in). The G step's adversarial losses read the D this iteration moved,
+# through its norms, and are logged only: 3.19e-3 (in) and 1.36e-1 (bn,
+# loss_gen_adv_2) on the CPU, 2.85e-3 (in) on the cards.
+MESH_ALONE_BARS = (1e-4, 3e-3)
+MESH_AFTER_D_STEP = ("loss_gen_adv_", "loss_gen_total")  # metrics that read the moved D
+
+
+def _mesh_cases(cfg, tmp, device_type="cuda", specs=MESH_CASES, deadline=MESH_DEADLINE):
+    """The 2-card correctness part of phase 30, in one pair of NCCL ranks
+    (`torch_ranks.mesh_graph_steps`): the data-parallel D+G step for dis in
+    and then dis bn (the first case's models dropped before the second is
+    built), each at phase 23's cut (f32, TF32 off, 128^2, two rows a data
+    index) from one state, replayed and in an eager twin. The trainer keeps
+    a mesh of more than one rank eager, so the ranks give the replayed
+    model a `StepGraphs` themselves: this checks the path the trainer holds
+    back. The replay is held to its twin and to one process on the first
+    card: to its twin at phase 23's bars (metrics rel 1e-4, each network's
+    rel-L2 1e-3), to one process at `MESH_ALONE_BARS` (the G step's
+    adversarial metrics, which read the D the iteration moved, logged), the
+    ranks to each other bit for bit. Returns {case: (K1, K2, K1m, K1a,
+    K2m, K2a) of a replayed iteration on rank 0}. `specs` may name a
+    spatial grid (n_data, n_spatial); with `device_type` "cpu", gloo ranks
+    and the tests' stand-in graph (a rehearsal of the checks)."""
+    from aclgan_tpu_torch.trainer import ACLGAN
+    from torch_ranks import mesh_graph_steps
+
+    size, world = 128, 2
+    cases, inputs = [], {}
+    out_dir = Path(tmp) / "mesh_cases"
+    out_dir.mkdir()
+    for name, n_data, n_spatial, norm in specs:
+        vcfg = _variant_cfg(cfg, size, dis=dict(norm=norm))
+        b = 2 * n_data
+        rng = np.random.RandomState(8)
+        xa, xb = (torch.from_numpy(rng.randint(0, 256, (b, size, size, 3), dtype=np.uint8))
+                  for _ in range(2))
+        zs = [{k: [rng.randn(b, vcfg.gen.style_dim).astype(np.float32) for _ in range(3)]
+               for k in ("dis", "gen")} for _ in range(3)]
+        start = ACLGAN(vcfg, device=device_type, seed=1)
+        start.init_state()
+        snap = out_dir / f"start.{name}.pt"
+        torch.save(start.snapshot(), snap)
+        del start
+        cases.append((name, n_data, n_spatial, vcfg.to_dict(), str(snap), xa, xb, zs))
+        inputs[name] = (vcfg, xa, xb, zs[2])
+    gc_collect()
+    t0 = time.time()
+    _spawn(mesh_graph_steps, world, (cases, str(out_dir), device_type, True), deadline,
+           out_dir)
+    secs = time.time() - t0
+    counts = {}
+    for name, n_data, n_spatial, _ in specs:
+        vcfg, xa, xb, z = inputs[name]
+        ranks = [torch.load(out_dir / f"mesh.{name}.{r}.pt", map_location="cpu",
+                            weights_only=False) for r in range(world)]
+        single = _train_model(vcfg, device_type, graphs=False)
+        single.restore(ranks[0]["state"])
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        m = {k: float(v) for k, v in single.train_step(xa, xb, True, True, z=z).items()}
+        one = {"metrics": m, **{kind: {n: {k: v.cpu() for k, v in sd.items()}
+                                       for n, sd in single.snapshot()[kind].items()}
+                                for kind in ("gen", "dis")}}
+        del single
+        shape = (2, size // n_spatial, size, 3)  # a rank's rows and H-slice
+        key = ("train", True, True, shape, torch.uint8, shape, torch.uint8, False)
+        twin, alone = [], []
+        for r in ranks:
+            g = r["graphed"]
+            if r["keys"] != [key]:
+                raise AssertionError(f"mesh_graphs {name}: graphs' keys {r['keys']}, not "
+                                     f"[{key}]")
+            if g["launches"] != r["eager"]["launches"]:
+                raise AssertionError(f"mesh_graphs {name}: replayed launches {g['launches']}, "
+                                     f"eager {r['eager']['launches']}")
+            twin.append(_mesh_gap(g, r["eager"]))
+            if twin[-1][0] > 1e-4 or twin[-1][2] > 1e-3:
+                raise AssertionError(f"mesh_graphs {name}: replayed against its eager twin: "
+                                     f"metrics rel {twin[-1][0]:.2e} ({twin[-1][1]}; bar 1e-4), "
+                                     f"params rel-L2 {twin[-1][2]:.2e} (bar 1e-3)")
+            alone.append(_mesh_gap(g, one, MESH_AFTER_D_STEP))
+            moved = max((abs(g["metrics"][k] - w) / max(abs(w), 1e-12), k)
+                        for k, w in one["metrics"].items() if k.startswith(MESH_AFTER_D_STEP))
+            if alone[-1][0] > MESH_ALONE_BARS[0] or alone[-1][2] > MESH_ALONE_BARS[1]:
+                raise AssertionError(f"mesh_graphs {name}: replayed against one process: "
+                                     f"metrics rel {alone[-1][0]:.2e} ({alone[-1][1]}; bar "
+                                     f"{MESH_ALONE_BARS[0]}), params rel-L2 {alone[-1][2]:.2e} "
+                                     f"(bar {MESH_ALONE_BARS[1]})")
+            for kind in ("gen", "dis"):
+                for n, sd in g[kind].items():
+                    if not all(torch.equal(t, ranks[0]["graphed"][kind][n][k])
+                               for k, t in sd.items()):
+                        raise AssertionError(f"mesh_graphs {name}: the ranks' {kind} {n} differ")
+        counts[name] = ranks[0]["graphed"]["launches"]
+        tw, al = max(twin), max(alone)
+        log(f"[mesh_graphs] {name} ({n_data} x {n_spatial} NCCL ranks, male2female full width, "
+            f"{size}^2, f32, global batch {2 * n_data}): the replayed D+G iteration against its "
+            f"eager twin: metrics rel {tw[0]:.2e} ({tw[1]}), params rel-L2 {tw[2]:.2e} (bars "
+            f"1e-4, 1e-3); against one process: the metrics that do not read the moved D "
+            f"{al[0]:.2e} ({al[1]}), params {al[2]:.2e} (bars {MESH_ALONE_BARS[0]}, "
+            f"{MESH_ALONE_BARS[1]}), the G step's adversarial metrics (logged) "
+            f"{moved[0]:.2e} ({moved[1]}); ranks equal; (K1, K2, K1m, K1a, K2m, K2a) a replay "
+            f"{counts[name]} = eager; capture bytes "
+            f"{list(ranks[0]['capture_bytes'].values())}")
+    log(f"[mesh_graphs] the {len(specs)} cases in one pair of rank processes took {secs:.1f} s")
+    return counts
+
+
+def _mesh_gap(got, want, skip=()):
+    """(metrics max rel, that metric, networks max rel-L2) of one rank's step
+    against another's, the metrics whose names start with one of `skip`
+    left out."""
+    name, met = max(((k, abs(got["metrics"][k] - w) / max(abs(w), 1e-12))
+                     for k, w in want["metrics"].items() if not k.startswith(tuple(skip))),
+                    key=lambda kv: kv[1])
+    par = 0.0
+    for kind in ("gen", "dis"):
+        for n, sd in want[kind].items():
+            ref = torch.cat([v.double().flatten() for v in sd.values()])
+            mine = torch.cat([v.double().flatten() for v in got[kind][n].values()])
+            par = max(par, float((mine - ref).norm() / ref.norm().clamp_min(1e-30)))
+    return met, name, par
+
+
 def phase_mesh_graphs(cfg, tmp, smi):
-    """[mesh_graphs] The train step under a `DataMesh` of one NCCL rank (a
-    spawned process) replayed as a CUDA graph with its all-reduces inside,
-    against the eager form: the bare bf16 step at batch 3 and 16. (A mesh of
-    more ranks runs eagerly: `ACLGAN._eager_reason`.) Returns {path:
-    launches}."""
-    log(f"[mesh_graphs] {smi}; {torch.cuda.device_count()} card(s)")
+    """[mesh_graphs] The train step under an NCCL `DataMesh` replayed as a
+    CUDA graph with its collectives inside, against the eager form: a mesh
+    of one rank (a spawned process), the bare bf16 step at batch 3 and 16;
+    on two or more cards also the 2-card correctness cases (`_mesh_cases`,
+    the graph forced where the trainer keeps the mesh eager) and the bare
+    step on 2 and 4 ranks (one a card) at global batch 16, eager as the
+    trainer runs it. Returns {path: launches}."""
+    n_cards = torch.cuda.device_count()
+    log(f"[mesh_graphs] {smi}; {n_cards} card(s)")
     paths = {}
     one, secs = _mesh_spawn(1, [(f"b{b} {f}", (cfg, b, f == "graphed"))
                                 for b in MESH_BATCHES for f in ("graphed", "eager")], tmp, "w1")
     res = one[0]
     for b in MESH_BATCHES:
-        g, e = res[f"b{b} graphed"], res[f"b{b} eager"]
-        log(f"[mesh_graphs] {smi}: DataMesh of 1 rank (NCCL), bare bf16 step 256^2 batch {b}, "
-            f"D1/G2: graphed {g['s']:.4f} s an iteration against eager {e['s']:.4f} s (ratio "
-            f"{g['s'] / e['s']:.4f}); host {g['host_s']:.4f} against {e['host_s']:.4f} s to "
-            f"issue one; device idle {100 * g['idle']:.1f}% against {100 * e['idle']:.1f}%; "
-            f"peak {g['peak'] / 2**30:.3f} against {e['peak'] / 2**30:.3f} GiB; graphs' pool "
-            f"{g['pool']}, capture s {g['capture_s']}; (K1, K2) {g['launches']} over "
-            f"{g['iterations']} = the cadence's count")
+        _log_bare(smi, f"DataMesh of 1 rank (NCCL), batch {b}", res[f"b{b} graphed"],
+                  res[f"b{b} eager"])
         paths[f"DataMesh of 1 rank (NCCL), bare train_step at batch {b}, graphed "
-              f"(phase 30)"] = g["launches"]
+              f"(phase 30)"] = res[f"b{b} graphed"]["launches"]
     log(f"[mesh_graphs] the world-1 process took {secs:.1f} s")
+    if n_cards < 2:
+        log(f"[mesh_graphs] the 2-4 card part (graphed steps across ranks) needs two or more "
+            f"cards; {n_cards} visible: not run here")
+        return paths
+    for name, c in _mesh_cases(cfg, tmp).items():
+        paths[f"2 NCCL ranks, {name}, a replayed D+G iteration at 128^2, f32, graph "
+              f"forced (phase 30)"] = c
+    for world in MESH_WORLDS:
+        if world > n_cards:
+            log(f"[mesh_graphs] world {world} needs {world} cards; {n_cards} visible: not run")
+            continue
+        b = TRAIN_BATCH // world
+        ranks, secs = _mesh_spawn(world, [("eager", (cfg, b, False))], tmp, f"w{world}")
+        e, one = ranks[0]["eager"], res[f"b{TRAIN_BATCH} graphed"]
+        log(f"[mesh_graphs] {smi}: DataMesh of {world} ranks (NCCL), {b} rows a rank (global "
+            f"{TRAIN_BATCH}), bare bf16 step 256^2, D1/G2, eager (the trainer's form for a mesh "
+            f"of more ranks): {e['s']:.4f} s an iteration, host {e['host_s']:.4f} s to issue "
+            f"one, device idle {100 * e['idle']:.1f}%, peak {e['peak'] / 2**30:.3f} GiB; "
+            f"(K1, K2) {e['launches']} over {e['iterations']} = the cadence's count; one card "
+            f"at batch {TRAIN_BATCH} graphed {one['s']:.4f} s: {one['s'] / e['s']:.3f}x the "
+            f"iteration rate")
+        for r, got in enumerate(ranks):
+            if got["eager"]["launches"] != e["launches"]:
+                raise AssertionError(f"mesh_graphs world {world}: rank {r} launched "
+                                     f"{got['eager']['launches']}, rank 0 {e['launches']}")
+        paths[f"DataMesh of {world} ranks (NCCL), bare train_step at {b} rows a rank, "
+              f"eager, a rank (phase 30)"] = e["launches"]
+        log(f"[mesh_graphs] the world-{world} processes took {secs:.1f} s")
     return paths
+
+
+def mesh_graphs_alone() -> int:
+    """`python3 chip_smoke.py --mesh-graphs`: the kernels' build and phase 30
+    alone (on 2-4 cards, its multi-rank part), for a call that needs only
+    it; prints its paths' launches as one JSON line."""
+    if not torch.cuda.is_available():
+        log("chip_smoke: no CUDA device available")
+        return 2
+    sys.path.insert(0, str(ROOT))
+    from aclgan_tpu_torch.config import load_config
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         check=True).stdout.strip().splitlines()[0]
+    log(smi)
+    t0 = time.time()
+    phase_build()
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = phase_mesh_graphs(load_config(CONFIG), tmp, smi)
+    print(json.dumps({"mesh_graphs": paths}), flush=True)
+    log(f"[done] {time.time() - t0:.1f} s")
+    return 0
 
 
 # ------------------------------------------------------------------ acceptance
@@ -4131,4 +4329,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == [TORCHRUN_CLI]:
         sys.exit(_torchrun_cli(sys.argv[2], sys.argv[3:]))
+    if sys.argv[1:2] == [MESH_GRAPHS]:
+        sys.exit(mesh_graphs_alone())
     sys.exit(main())

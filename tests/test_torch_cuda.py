@@ -1094,29 +1094,36 @@ def _grid_cfg(size, dis=None):
     return from_dict(raw)
 
 
-def _mesh_case(tmp_path, n_data, n_spatial, cfg, size):
-    """Spawns `torch_dp_worker.mesh_graph_steps` over n_data * n_spatial NCCL
-    ranks, one a card, at global batch 2 * n_data; returns (the ranks'
-    results, x_a, x_b, the third iteration's z). Only a mesh of one rank
-    records a graph on the cards."""
+def _mesh_cases(tmp_path, world, specs, force_graphs=False):
+    """Spawns `torch_dp_worker.mesh_graph_steps` once over `world` NCCL ranks,
+    one a card, under the spawn's deadline, for every case of `specs` (name,
+    n_data, n_spatial, cfg, size) in turn, each at global batch 2 * n_data,
+    with `force_graphs` (a graph where the trainer keeps the mesh eager);
+    returns {name: (the ranks' results, x_a, x_b, the third iteration's z)}."""
     from tests import torch_dp_worker
 
-    world, b = n_data * n_spatial, 2 * n_data
-    rng = np.random.RandomState(8)
-    x_a, x_b = (rng.randint(0, 256, (b, size, size, 3), dtype=np.uint8) for _ in range(2))
-    zs = [{k: [rng.randn(b, cfg.gen.style_dim).astype(np.float32) for _ in range(3)]
-           for k in ("dis", "gen")} for _ in range(3)]
-    start = ACLGAN(cfg, device="cuda", seed=1)
-    start.init_state()
-    snap_path = tmp_path / "start.pt"
-    torch.save(start.snapshot(), snap_path)
-    case = (n_data, n_spatial, cfg.to_dict(), str(snap_path), torch.from_numpy(x_a),
-            torch.from_numpy(x_b), zs)
+    cases, inputs = [], {}
+    for name, n_data, n_spatial, cfg, size in specs:
+        b = 2 * n_data
+        rng = np.random.RandomState(8)
+        x_a, x_b = (rng.randint(0, 256, (b, size, size, 3), dtype=np.uint8) for _ in range(2))
+        zs = [{k: [rng.randn(b, cfg.gen.style_dim).astype(np.float32) for _ in range(3)]
+               for k in ("dis", "gen")} for _ in range(3)]
+        start = ACLGAN(cfg, device="cuda", seed=1)
+        start.init_state()
+        snap_path = tmp_path / f"start.{name}.pt"
+        torch.save(start.snapshot(), snap_path)
+        del start
+        cases.append((name, n_data, n_spatial, cfg.to_dict(), str(snap_path),
+                      torch.from_numpy(x_a), torch.from_numpy(x_b), zs))
+        inputs[name] = (x_a, x_b, zs[2])
+    torch.cuda.empty_cache()  # the ranks share the first card with this process
     torch_dp_worker.spawn(torch_dp_worker.mesh_graph_steps, world,
-                          (case, str(tmp_path), "cuda"), timeout=300)
-    ranks = [torch.load(tmp_path / f"mesh.{r}.pt", map_location="cpu", weights_only=False)
-             for r in range(world)]
-    return ranks, x_a, x_b, zs[2]
+                          (cases, str(tmp_path), "cuda", force_graphs), timeout=240,
+                          dump_dir=tmp_path / "dumps")
+    return {name: ([torch.load(tmp_path / f"mesh.{name}.{r}.pt", map_location="cpu",
+                               weights_only=False) for r in range(world)], *inputs[name])
+            for name in inputs}
 
 
 def _assert_like(got, want, what):
@@ -1165,19 +1172,66 @@ def _assert_mesh_graphed(ranks, single, shape):
                     assert torch.equal(t, ranks[0]["graphed"][kind][n][k]), (kind, n, k)
 
 
-@pytest.mark.parametrize("world", [1])
+def _needs_cards(n):
+    if torch.cuda.device_count() < n:
+        pytest.skip(f"needs {n} CUDA devices")
+
+
+@pytest.mark.parametrize("world", [1, 2, 4])
 @pytest.mark.parametrize("norm", ["in", "bn"])
 def test_graphed_nccl_step_matches_eager_and_one_process(cuda, tmp_path, world, norm):
-    """The data-parallel D+G step over NCCL at world 1 (a mesh of more ranks
-    runs eagerly), replayed as a CUDA graph with its collectives inside
-    (gradients, focus sums, bn's statistics, metrics): from one state,
-    against the eager step on the same mesh and against one process, at
-    phase 23's 128^2."""
+    """The data-parallel D+G step over `world` NCCL ranks, one a card,
+    replayed as a CUDA graph with its collectives inside (gradients, focus
+    sums, bn's statistics, metrics): from one state, against the eager step
+    on the same mesh and against one process, at phase 23's 128^2. The
+    trainer keeps a mesh of more ranks eager, so the graph is forced there:
+    the path it holds back."""
+    _needs_cards(world)
     cfg = _grid_cfg(128, dis={"norm": norm})
-    ranks, x_a, x_b, z = _mesh_case(tmp_path, world, 1, cfg, 128)
+    ranks, x_a, x_b, z = _mesh_cases(tmp_path, world, [("dp", world, 1, cfg, 128)],
+                                     force_graphs=True)["dp"]
     single = _single_from(cfg, ranks[0]["state"], x_a, x_b, z)
     _assert_mesh_graphed(ranks, single, (2, 128, 128, 3))
     assert ranks[0]["graphed"]["launches"][:2] != (0, 0)
+
+
+@pytest.mark.parametrize("n_data,n_spatial", [(1, 2), (2, 2)])
+def test_spatial_grid_of_nccl_ranks_stays_eager(cuda, tmp_path, n_data, n_spatial):
+    """An n_data x n_spatial grid of NCCL ranks, one a card, keeps its steps
+    eager, as every mesh of more ranks (with a spatial graph alive, tearing
+    the groups down hung on every rank): no graph is recorded, the split kernels launch and K1 / K2 do not,
+    the step stands within phase 23's bars of a second eager model from the
+    same state, every rank holds the same state, and the spawn ends inside
+    its deadline."""
+    world = n_data * n_spatial
+    _needs_cards(world)
+    cfg = _grid_cfg(128, dis={"norm": "bn"})
+    ranks, *_ = _mesh_cases(tmp_path, world, [("grid", n_data, n_spatial, cfg, 128)])["grid"]
+    for r in ranks:
+        assert r["keys"] == [] and r["capture_bytes"] == {}
+        assert r["graphed"]["launches"] == r["eager"]["launches"]
+        _assert_like(r["graphed"], r["eager"], "eager against a second eager model")
+        for kind in ("gen", "dis"):
+            for n, sd in r["graphed"][kind].items():
+                for k, t in sd.items():
+                    assert torch.equal(t, ranks[0]["graphed"][kind][n][k]), (kind, n, k)
+    launches = ranks[0]["graphed"]["launches"]
+    assert launches[:2] == (0, 0) and all(n > 0 for n in launches[2:]), launches
+
+
+def test_two_graphed_cases_in_one_spawn_match_eager(cuda, tmp_path):
+    """Two data-parallel cases (dis in, then dis bn) in one pair of NCCL
+    ranks, the first case's models and graphs dropped before the second is
+    built: each replayed step (forced: the trainer keeps the mesh eager)
+    within the bars of its eager twin and of one process. Needs two cards."""
+    _needs_cards(2)
+    specs = [(f"dis_{norm}", 2, 1, _grid_cfg(128, dis={"norm": norm}), 128)
+             for norm in ("in", "bn")]
+    got = _mesh_cases(tmp_path, 2, specs, force_graphs=True)
+    for name, n_data, n_spatial, cfg, size in specs:
+        ranks, x_a, x_b, z = got[name]
+        single = _single_from(cfg, ranks[0]["state"], x_a, x_b, z)
+        _assert_mesh_graphed(ranks, single, (2, 128, 128, 3))
 
 
 @pytest.mark.parametrize("world", [2, 4])
@@ -1185,8 +1239,7 @@ def test_point_to_point_halo_matches_all_reduce_form(cuda, tmp_path, world):
     """`halo_rows` over NCCL, forward and backward, at the model's halo
     geometries: the point-to-point form bit-equal to the all-reduce form on
     every rank. Needs `world` cards."""
-    if torch.cuda.device_count() < world:
-        pytest.skip(f"needs {world} CUDA devices")
+    _needs_cards(world)
     from tests import torch_dp_worker
 
     x = torch.randn(2, 8, 8 * world, 12, generator=torch.Generator().manual_seed(9))

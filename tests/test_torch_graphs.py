@@ -574,6 +574,41 @@ def test_capture_under_a_mesh_raises_on_every_rank(dp_ranks):
         assert ("on another rank" in msg) == (rank == 0)
 
 
+def test_two_cases_in_one_spawn_replay_equal_eager(tmp_path):
+    """Two data-parallel cases (dis in, then dis bn) in one pair of gloo
+    ranks, the first case's model and graphs dropped before the second is
+    built, as a process that trains a second model does: each case's
+    replayed third iteration, recorded by the stand-in graph at the second,
+    bit-equal to its eager twin from the same state on both ranks."""
+    cases = []
+    for norm in ("in", "bn"):
+        jcfg = tiny_config(batch_size=4, weight_decay=1e-4)
+        jcfg.dis.norm = norm
+        cfg = from_dict(jcfg.to_dict())
+        rng = np.random.RandomState(9)
+        x_a, x_b = (torch.from_numpy(rng.randint(0, 256, (4, 16, 16, 3), dtype=np.uint8))
+                    for _ in range(2))
+        zs = [{k: [rng.randn(4, cfg.gen.style_dim).astype(np.float32) for _ in range(3)]
+               for k in ("dis", "gen")} for _ in range(3)]
+        start = ACLGAN(cfg, device="cpu", seed=1)
+        start.init_state()
+        torch.save(start.snapshot(), tmp_path / f"start.{norm}.pt")
+        cases.append((f"dis_{norm}", 2, 1, cfg.to_dict(), str(tmp_path / f"start.{norm}.pt"),
+                      x_a, x_b, zs))
+    torch_dp_worker.spawn(torch_dp_worker.mesh_graph_steps, 2, (cases, str(tmp_path), "cpu"),
+                          timeout=240)
+    key = ("train", True, True, (2, 16, 16, 3), torch.uint8, (2, 16, 16, 3), torch.uint8, False)
+    for name in ("dis_in", "dis_bn"):
+        for r in range(2):
+            got = torch.load(tmp_path / f"mesh.{name}.{r}.pt", weights_only=False)
+            assert got["keys"] == [key]
+            g, e = got["graphed"], got["eager"]
+            assert g["metrics"] == e["metrics"] and g["launches"] == e["launches"]
+            for kind in ("gen", "dis"):
+                for n, sd in e[kind].items():
+                    assert all(torch.equal(g[kind][n][k], t) for k, t in sd.items()), (kind, n)
+
+
 def test_spatial_step_replayed_equals_eager(tmp_path):
     """The spatial D+G step on a 2 x 2 grid of gloo ranks (halos point to
     point, the split form's all-reduces, the sharded LN / pools / bn over
@@ -592,11 +627,11 @@ def test_spatial_step_replayed_equals_eager(tmp_path):
     start = ACLGAN(cfg, device="cpu", seed=1)
     start.init_state()
     torch.save(start.snapshot(), tmp_path / "start.pt")
-    case = (2, 2, cfg.to_dict(), str(tmp_path / "start.pt"), x_a, x_b, zs)
-    torch_dp_worker.spawn(torch_dp_worker.mesh_graph_steps, 4, (case, str(tmp_path), "cpu"),
+    case = ("grid", 2, 2, cfg.to_dict(), str(tmp_path / "start.pt"), x_a, x_b, zs)
+    torch_dp_worker.spawn(torch_dp_worker.mesh_graph_steps, 4, ([case], str(tmp_path), "cpu"),
                           timeout=240)
     for r in range(4):
-        got = torch.load(tmp_path / f"mesh.{r}.pt", weights_only=False)
+        got = torch.load(tmp_path / f"mesh.grid.{r}.pt", weights_only=False)
         assert got["keys"] == [("train", True, True, (2, 16, 32, 3), torch.uint8,
                                 (2, 16, 32, 3), torch.uint8, False)]
         g, e = got["graphed"], got["eager"]

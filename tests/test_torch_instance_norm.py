@@ -30,9 +30,25 @@ def _nhwc(t: torch.Tensor) -> np.ndarray:
     return t.float().permute(0, 2, 3, 1).numpy()
 
 
+def _float64_in(x, scale, shift, eps, activ):
+    """The same function in float64 numpy, NHWC: which side of a failed
+    comparison moved."""
+    x = x.astype(np.float64)
+    mean = x.mean(axis=(1, 2), keepdims=True)
+    var = ((x - mean) ** 2).mean(axis=(1, 2), keepdims=True)
+    y = (x - mean) / np.sqrt(var + eps)
+    if scale is not None:
+        y = y * scale[:, None, None, :] + shift[:, None, None, :]
+    return {"none": y, "relu": np.maximum(y, 0), "lrelu": np.where(y >= 0, y, 0.2 * y),
+            "tanh": np.tanh(y)}[activ]
+
+
 @pytest.mark.parametrize("activ", ["none", "relu", "lrelu", "tanh"])
 @pytest.mark.parametrize("affine", [False, True])
 def test_plain_matches_pallas_kernel(activ, affine):
+    """The plain version against the Pallas kernel in interpret mode, and
+    each against a float64 reference at the same bar, so that a failure
+    names the side that moved."""
     rng = np.random.RandomState(0)
     x = (rng.randn(2, 8, 16, 32) * 2 + 0.5).astype(np.float32)  # NHWC
     scale = rng.randn(2, 32).astype(np.float32) if affine else None
@@ -45,6 +61,11 @@ def test_plain_matches_pallas_kernel(activ, affine):
         _nchw(x), None if scale is None else torch.from_numpy(scale),
         None if shift is None else torch.from_numpy(shift), 1e-5, activ)
     assert K.launches == before  # a CPU tensor never reaches the kernel
+    exact = _float64_in(x, scale, shift, 1e-5, activ)
+    np.testing.assert_allclose(_nhwc(got), exact, rtol=1e-5, atol=1e-5,
+                               err_msg="the port's plain version against float64")
+    np.testing.assert_allclose(np.asarray(want), exact, rtol=1e-5, atol=1e-5,
+                               err_msg="the Pallas kernel (interpret mode) against float64")
     np.testing.assert_allclose(_nhwc(got), np.asarray(want), rtol=1e-5, atol=1e-5)
 
 

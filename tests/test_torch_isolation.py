@@ -13,9 +13,9 @@ from aclgan_tpu import config as jconfig
 from aclgan_tpu_torch import config
 
 ROOT = Path(__file__).resolve().parents[1]
-PORT_FILES = sorted((ROOT / "aclgan_tpu_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "tools" / "torch_synthfaces_hard.py",
-    ROOT / "tools" / "torch_graphs.py"]
+PORT_FILES = (sorted((ROOT / "aclgan_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+              + sorted((ROOT / "tools").glob("torch_*.py"))
+              + [ROOT / "torch_ranks.py", ROOT / "tests" / "torch_dp_worker.py"])
 CONFIGS = sorted((ROOT / "configs").glob("*.yaml"))
 # msgpack too: the GPU host has no msgpack package (utils/msgpack.py reads the format)
 _FORBIDDEN_ROOTS = {"jax", "jaxlib", "flax", "optax", "msgpack"}

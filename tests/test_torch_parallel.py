@@ -7,6 +7,8 @@ against the JAX loader's, and the mesh's errors."""
 
 import copy
 import dataclasses
+import tempfile
+import time
 
 import numpy as np
 import pytest
@@ -203,20 +205,55 @@ def test_gloo_meshes_are_not_captured():
         dist.destroy_process_group()
 
 
+def test_spawn_kills_a_hung_rank_at_its_deadline(tmp_path):
+    """A rank that sleeps past the spawn's one deadline: `spawn` raises within
+    the deadline and a small margin, with the sleeping rank's Python stack
+    and both ranks' collective logs (the flight recorder) in its message; the
+    waiting rank's collective ends at its group's timeout first."""
+    t0 = time.time()
+    with pytest.raises(RuntimeError) as raised:
+        torch_dp_worker.spawn(torch_dp_worker.hang_one_rank, 2, (600,), timeout=10,
+                              dump_dir=tmp_path)
+    took = time.time() - t0
+    msg = str(raised.value)
+    assert took < 10 + 5, took
+    assert "rank 1: stack" in msg and "_sleep_past_the_deadline" in msg
+    assert "rank 0: traceback" in msg
+    for rank in (0, 1):
+        assert f"rank {rank}: collective log" in msg
+    assert "all_reduce" in msg.split("rank 1: collective log")[1]
+
+
+def test_spawn_removes_its_own_dump_directory_after_a_clean_run(tmp_path, monkeypatch):
+    """A spawn given no dump directory makes a temporary one and removes it
+    once every rank has ended cleanly."""
+    monkeypatch.setattr(tempfile, "tempdir", str(tmp_path))
+    torch_dp_worker.spawn(torch_dp_worker.hang_one_rank, 2, (0,), timeout=120)
+    assert list(tmp_path.iterdir()) == []
+
+
 class _NcclMesh(pmesh.DataMesh):
     def capturable(self):  # NCCL's answer, without NCCL on the CPU
+        return True
+
+
+class _NcclGrid(psp.SpatialMesh):
+    def capturable(self):
         return True
 
 
 @pytest.mark.parametrize("world", [1, 2, 4])
 def test_an_nccl_mesh_of_one_rank_is_captured(world):
     """On a CUDA device, a capturable (NCCL) mesh of one rank gives no eager
-    reason; a mesh of more ranks stays eager and names why."""
+    reason, data-parallel or a spatial grid; a mesh of more ranks stays
+    eager and names why (its teardown with a replayed graph alive hung)."""
     model = ACLGAN(from_dict(_jax_cfg("dis_none").to_dict()), device="cpu")
     model.device = torch.device("cuda")  # the question asked before any CUDA work
-    model.mesh = _NcclMesh(0, world)
-    reason = model._eager_reason(True)
-    assert (reason is None) == (world == 1)
-    if world > 1:
-        assert reason.startswith(f"a _NcclMesh of {world} ranks: a CUDA graph across ranks "
-                                 "is not enabled")
+    for mesh in (_NcclMesh(0, world), _NcclGrid(1, world, 0, None, None, None)):
+        model.mesh = mesh
+        reason = model._eager_reason(True)
+        assert (reason is None) == (world == 1)
+        if world > 1:
+            assert reason == (f"a {type(mesh).__name__} of {world} ranks: with a replayed "
+                              "step's graph alive, destroy_process_group hung on every rank "
+                              "of a 1 x 2 spatial grid of H100s")

@@ -1,62 +1,44 @@
 """Processes of the port's data-parallel tests (not a test module). Spawned
 ranks import this module and nothing of JAX: they join a gloo group on the
 CPU (or, in the CUDA tests, an NCCL group of one rank a card) over localhost
-and hand their results back through files."""
+and hand their results back through files.
+
+Every spawn runs under one deadline (`torch_ranks.spawn`)."""
 
 import contextlib
 import os
-import socket
-import traceback
+import time
 
 import torch
 import torch.distributed as dist
-import torch.multiprocessing as mp
 from torch._C._distributed_c10d import Work
 from torch.utils._python_dispatch import TorchDispatchMode
 
-
-def free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
-
-
-def spawn(fn, world: int, args: tuple, timeout: float = 300.0) -> None:
-    """Run fn(rank, world, port, *args) in `world` spawned processes; raise
-    with each failed rank's traceback."""
-    ctx = mp.get_context("spawn")
-    port = free_port()
-    errors = ctx.Queue()
-    procs = [ctx.Process(target=_guarded, args=(fn, rank, world, port, args, errors))
-             for rank in range(world)]
-    for p in procs:
-        p.start()
-    for p in procs:
-        p.join(timeout)
-    alive = [p for p in procs if p.is_alive()]
-    for p in alive:
-        p.kill()
-        p.join(10)
-    failures = []
-    while not errors.empty():
-        failures.append(errors.get())
-    if alive or failures or any(p.exitcode for p in procs):
-        raise RuntimeError(f"ranks alive after {timeout} s: {len(alive)}; exit codes "
-                           f"{[p.exitcode for p in procs]}\n" + "\n".join(failures))
-
-
-def _guarded(fn, rank, world, port, args, errors):
-    torch.set_num_threads(1)
-    try:
-        fn(rank, world, port, *args)
-    except BaseException:
-        errors.put(f"rank {rank}:\n{traceback.format_exc()}")
-        raise
+from torch_ranks import (free_port, group_timeout, init_rank,  # noqa: F401 (the tests' names)
+                         mesh_graph_steps, spawn)
 
 
 def _join(rank, world, port):
     dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
-                            rank=rank, world_size=world)
+                            rank=rank, world_size=world, timeout=group_timeout())
+
+
+def hang_one_rank(rank, world, port, seconds):
+    """One all-reduce on every rank, then rank 1 sleeps `seconds` while the
+    others wait for it in a second all-reduce: a hung rank, for the deadline."""
+    _join(rank, world, port)
+    try:
+        t = torch.ones(4)
+        dist.all_reduce(t)
+        if rank == 1:
+            _sleep_past_the_deadline(seconds)
+        dist.all_reduce(t)
+    finally:
+        dist.destroy_process_group()
+
+
+def _sleep_past_the_deadline(seconds):
+    time.sleep(seconds)
 
 
 def dp_steps(rank, world, port, cases, out_dir, device_type="cpu"):
@@ -68,15 +50,7 @@ def dp_steps(rank, world, port, cases, out_dir, device_type="cpu"):
     from aclgan_tpu_torch.parallel.mesh import batch_sharding, make_mesh, shard_state
     from aclgan_tpu_torch.trainer import ACLGAN
 
-    if device_type == "cuda":
-        device = torch.device("cuda", rank)
-        torch.cuda.set_device(device)
-        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
-        dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
-                                rank=rank, world_size=world)
-    else:
-        device = torch.device("cpu")
-        _join(rank, world, port)
+    device = init_rank(rank, world, port, device_type)
     try:
         mesh = make_mesh(-1)
         for name, cfg_dict, snap_path, x_a, x_b, z in cases:
@@ -110,20 +84,6 @@ def cli_run(rank, world, port, argv, resume_argv, port2, out_dir):
                     "ema": snap["ema"], "gen_opt": snap["gen_opt"],
                     "step": snap["step"], "iterations": run.iterations},
                    os.path.join(out_dir, f"{tag}.{rank}.pt"))
-
-
-def _init(rank, world, port, device_type):
-    """Join the group: gloo on the CPU, or NCCL with this rank on card `rank`
-    (TF32 off). Returns the rank's device."""
-    if device_type == "cuda":
-        device = torch.device("cuda", rank)
-        torch.cuda.set_device(device)
-        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
-        dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
-                                rank=rank, world_size=world)
-        return device
-    _join(rank, world, port)
-    return torch.device("cpu")
 
 
 HALO_FORMS = {"point_to_point": True, "all_reduce": False}  # form: `_point_to_point`'s answer
@@ -192,7 +152,7 @@ def spatial_cases(rank, world, port, cases, out_dir, device_type="cpu"):
     from aclgan_tpu_torch.parallel.spatial import make_mesh_2d, spatial_batch_sharding
     from aclgan_tpu_torch.trainer import ACLGAN
 
-    device = _init(rank, world, port, device_type)
+    device = init_rank(rank, world, port, device_type)
     meshes = {}
     try:
         for name, kind, n_data, n_spatial, cfg_dict, snap_path, x_a, x_b, z in cases:
@@ -419,70 +379,6 @@ def graph_ranks(rank, world, port, cfg_dict, snap_path, x_a, x_b, displays, out_
         dist.destroy_process_group()
 
 
-def mesh_graph_steps(rank, world, port, case, out_dir, device_type="cuda"):
-    """Three D+G iterations on this rank's share (a `DataMesh` when n_spatial
-    is 1, else an n_data x n_spatial grid) of the global NHWC batches, on
-    the injected global z of each: the first eager, the second captured and
-    replayed, the third replayed; then the third from the same state in an
-    eager twin (`graphs=False`); on the CPU through `cpu_graphs()`. `case` =
-    (n_data, n_spatial, config dict,
-    snapshot path, x_a, x_b, [z, z, z]). Saves out_dir/mesh.<rank>.pt: the
-    state before the third iteration (rank 0), the third iteration's
-    metrics, networks and (K1, K2, K1m, K1a, K2m, K2a) in both forms, the
-    graphs' keys and capture bytes."""
-    import copy
-
-    from aclgan_tpu_torch.config import from_dict
-    from aclgan_tpu_torch.ops.kernels import instance_norm as K
-    from aclgan_tpu_torch.parallel.mesh import batch_sharding, make_mesh, shard_state
-    from aclgan_tpu_torch.parallel.spatial import make_mesh_2d, spatial_batch_sharding
-    from aclgan_tpu_torch.trainer import ACLGAN
-
-    n_data, n_spatial, cfg_dict, snap_path, x_a, x_b, zs = case
-    device = _init(rank, world, port, device_type)
-    try:
-        if n_spatial == 1:
-            mesh = make_mesh(-1)
-            rows, hs = batch_sharding(mesh, x_a.shape[0]), slice(None)
-        else:
-            mesh = make_mesh_2d(n_data, n_spatial)
-            rows, hs = spatial_batch_sharding(mesh, x_a.shape[0], x_a.shape[1])
-        xa, xb = x_a[rows, hs], x_b[rows, hs]
-
-        def model_(graphs):
-            m = ACLGAN(from_dict(cfg_dict), device=device, mesh=mesh, graphs=graphs)
-            m.init_state()
-            return m
-
-        def third(m):
-            before = [getattr(K, c) for c in K.COUNTERS]
-            metrics = m.train_step(xa, xb, True, True, z=zs[2])
-            snap = m.snapshot()
-            return {"metrics": {k: float(v) for k, v in metrics.items()},
-                    "launches": tuple(getattr(K, c) - b for c, b in zip(K.COUNTERS, before)),
-                    "gen": {n: {k: v.cpu() for k, v in sd.items()} for n, sd in snap["gen"].items()},
-                    "dis": {n: {k: v.cpu() for k, v in sd.items()} for n, sd in snap["dis"].items()}}
-
-        model = model_(True)
-        if device.type == "cpu":  # the stand-in graph, as the CPU has no CUDA graphs
-            model.graphs = cpu_graphs()
-        model.restore(torch.load(snap_path, map_location="cpu", weights_only=True))
-        shard_state(model, mesh)
-        for z in zs[:2]:
-            model.train_step(xa, xb, True, True, z=z)
-        state = copy.deepcopy(model.snapshot())
-        out = {"graphed": third(model), "keys": model.graphs.keys(),
-               "capture_bytes": dict(model.graphs.capture_bytes)}
-        twin = model_(False)
-        twin.restore(state)
-        out["eager"] = third(twin)
-        if rank == 0:
-            out["state"] = state
-        torch.save(out, os.path.join(out_dir, f"mesh.{rank}.pt"))
-    finally:
-        dist.destroy_process_group()
-
-
 def halo_forms(rank, world, port, x, cases, out_dir, device_type="cuda"):
     """`halo_rows` forward and backward on this rank's H-slice of the NCHW `x`
     over a 1 x world grid, for each (top, bottom, pad_type) of `cases`, in
@@ -491,7 +387,7 @@ def halo_forms(rank, world, port, x, cases, out_dir, device_type="cuda"):
     from aclgan_tpu_torch.parallel import halo
     from aclgan_tpu_torch.parallel.spatial import make_mesh_2d
 
-    device = _init(rank, world, port, device_type)
+    device = init_rank(rank, world, port, device_type)
     chooser = halo._point_to_point
     try:
         mesh = make_mesh_2d(1, world)

@@ -1,0 +1,330 @@
+#!/usr/bin/env python3
+"""The port's train step replayed as CUDA graphs across NCCL ranks, on 2-4
+cards: the smallest reproduction of a hang, run outside `chip_smoke.py`.
+
+    python3 tools/torch_mesh_graphs.py repro [--level LEVEL] [--runs N]
+        [--deadline S] [--world N] [--device cuda|cpu] [--out DIR]
+
+`repro` runs one reproduction `--runs` times in a row, each in `--world`
+fresh rank processes (NCCL, one a card, TF32 off) under one deadline
+(`torch_ranks.spawn`: a rank still running shortly before it writes its
+Python stack and its flight-recorder log and exits; each group's timeout is
+half the time left, so an eager collective that waits on a hung peer writes
+its log first). The trainer keeps a mesh of more than one rank eager, so
+every level gives its models a `StepGraphs` itself. A run does two cases in
+one process pair, as the trainer's users do when they build a second model
+in a process:
+
+- `model`: `configs/male2female.yaml` at full width, 128^2, f32, two rows a
+  rank, dis in then dis bn; each case a graphed model (an eager D+G
+  iteration, one captured and replayed, one replayed) then its eager twin
+  (`graphs=False`) on the third iteration's state;
+- `tiny`: the same at gen / dis dim 8, mlp_dim 16, n_res 1, dis n_layer 2
+  and 2 scales, 32^2;
+- `micro`: no model: a body of a few all-reduces and a matmul through
+  `StepGraphs` (eager, captured and replayed, replayed) then the same body
+  eagerly; the second case a body of other sizes;
+- `p30_dp`, `p30_spatial`: phase 30's cases of `chip_smoke.py` run from
+  this process as the script runs them (`chip_smoke._mesh_cases`, its
+  snapshots made on this process's first card): the data-parallel pair
+  (dis in, then dis bn), or one 1 x 2 spatial grid (dis bn), at full width,
+  128^2, f32, under a 150 s deadline.
+
+Between the cases the first case's models are dropped where Python drops
+them. Each run's NCCL log (`NCCL_DEBUG=INFO`, subsystems INIT,REG,COLL,GRAPH)
+and dumps go to DIR/<level>.<run>/; one JSON line a run and a last line for
+the reproduction go to stdout and DIR/results.jsonl. `--device cpu` runs
+gloo ranks and the tests' stand-in graph: a rehearsal of the control flow.
+Two reproductions run side by side on four cards as two commands, each with
+its own `CUDA_VISIBLE_DEVICES` pair. The numbers of the steps across ranks
+come from phase 30 alone: `python3 chip_smoke.py --mesh-graphs`.
+
+Import no JAX.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import os
+import sys
+import tempfile
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+OUT = os.path.join(tempfile.gettempdir(), "torch_mesh_graphs")  # --out's default
+LEVELS = ("micro", "tiny", "model")
+# phase 30's cases (`chip_smoke._mesh_cases`: name, n_data, n_spatial, dis
+# norm), run from this process as the script runs them, the snapshots made on
+# the first card, their graphs forced (the trainer keeps such meshes eager)
+CASE_LEVELS = {"p30_dp": (("dp_dis_in", 2, 1, "in"), ("dp_dis_bn", 2, 1, "bn")),
+               "p30_spatial": (("spatial_1x2", 1, 2, "bn"),)}
+DEADLINE = {"micro": 90.0, "tiny": 150.0, "model": 200.0, "p30_dp": 150.0,
+            "p30_spatial": 150.0}
+
+
+def _setup():
+    sys.path.insert(0, str(ROOT))
+
+
+def _nccl_log_env(run_dir: Path) -> dict:
+    return {"NCCL_DEBUG": "INFO", "NCCL_DEBUG_SUBSYS": "INIT,REG,COLL,GRAPH",
+            "NCCL_DEBUG_FILE": str(run_dir / "nccl.%h.%p.log")}
+
+
+# ------------------------------------------------------------------ the ranks
+def _cfg(level: str, norm: str):
+    import chip_smoke
+    from aclgan_tpu_torch.config import load_config
+
+    cfg = chip_smoke._variant_cfg(load_config(chip_smoke.CONFIG), 128 if level == "model" else 32,
+                                  dis=dict(norm=norm))
+    if level == "tiny":
+        cfg = dataclasses.replace(
+            cfg, gen=dataclasses.replace(cfg.gen, dim=8, mlp_dim=16, n_res=1),
+            dis=dataclasses.replace(cfg.dis, dim=8, n_layer=2, num_scales=2))
+    return cfg
+
+
+def _graphs(device):
+    """`StepGraphs` on a card; on the CPU (a rehearsal) its stand-in graph."""
+    from aclgan_tpu_torch.graphs import StepGraphs
+
+    if device.type == "cpu":
+        from tests.torch_dp_worker import cpu_graphs
+
+        return cpu_graphs()
+    return StepGraphs(device)
+
+
+def _model_case(level, norm, mesh, device, mark):
+    """One case of `model` / `tiny`: the graphed model's three D+G iterations
+    (eager, captured and replayed, replayed), then its eager twin on the
+    third's state. Returns what the case keeps alive and the third
+    iteration's metrics in both forms."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from aclgan_tpu_torch.parallel.mesh import batch_sharding, shard_state
+    from aclgan_tpu_torch.trainer import ACLGAN
+
+    cfg = _cfg(level, norm)
+    size, b = cfg.data.crop_image_height, 2 * mesh.world
+    rng = np.random.RandomState(8)
+    x_a, x_b = (torch.from_numpy(rng.randint(0, 256, (b, size, size, 3), dtype=np.uint8))
+                for _ in range(2))
+    zs = [{k: [rng.randn(b, cfg.gen.style_dim).astype(np.float32) for _ in range(3)]
+           for k in ("dis", "gen")} for _ in range(3)]
+    rows = batch_sharding(mesh, b)
+    xa, xb = x_a[rows].to(device), x_b[rows].to(device)
+
+    def build(graphs):
+        m = ACLGAN(cfg, device=device, mesh=mesh, seed=1, graphs=graphs)
+        if graphs:  # the trainer keeps a mesh of more ranks eager
+            m.graphs = _graphs(device)
+        m.init_state()
+        return m
+
+    mark(f"dis {norm}: graphed model")
+    model = build(True)
+    shard_state(model, mesh)
+    for i, z in enumerate(zs[:2]):
+        mark(f"dis {norm}: iteration {i} ({'eager' if i == 0 else 'capture and replay'})")
+        model.train_step(xa, xb, True, True, z=z)
+    state = copy.deepcopy(model.snapshot())
+    mark(f"dis {norm}: iteration 2 (replay)")
+    graphed = {k: float(v) for k, v in model.train_step(xa, xb, True, True, z=zs[2]).items()}
+    mark(f"dis {norm}: eager twin")
+    twin = build(False)
+    twin.restore(state)
+    eager = {k: float(v) for k, v in twin.train_step(xa, xb, True, True, z=zs[2]).items()}
+    mark(f"dis {norm}: eager twin done")
+    return [model, twin], {"graphed": graphed, "eager": eager}
+
+
+def _micro_case(name, mesh, device, mark):
+    """One case of `micro`: a body of all-reduces around a matmul through
+    `StepGraphs` three times (eager, captured and replayed, replayed), then
+    eagerly on the default stream."""
+    import torch
+    import torch.distributed as dist
+
+    n, k = (256, 3) if name == "first" else (512, 5)
+    gen = torch.Generator(device=device).manual_seed(3)
+    w = torch.randn(n, n, device=device, generator=gen) / n ** 0.5
+    x = torch.randn(8, n, device=device, generator=gen)
+
+    def body(t):
+        y = t @ w
+        for i in range(k):
+            s = y.sum(0)
+            dist.all_reduce(s, group=mesh.world_group)
+            y = torch.tanh(y + 1e-3 * s)
+        out = y.mean().reshape(1)
+        dist.all_reduce(out, group=mesh.world_group)
+        return out
+
+    graphs = _graphs(device)
+    for i in range(3):
+        mark(f"{name}: call {i}")
+        got = graphs.run(("micro", name), (x,), body, mesh=mesh)
+    graphed = float(got)
+    mark(f"{name}: eager twin")
+    eager = float(body(x))
+    mark(f"{name}: eager twin done")
+    return [graphs], {"graphed": graphed, "eager": eager}
+
+
+def repro_rank(rank, world, port, level, out_dir, device_type):
+    """Rank `rank` of one reproduction run: both cases, then its metrics to
+    out_dir/result.<rank>.json; progress (one line a stage) to
+    out_dir/progress.<rank>.txt."""
+    import torch.distributed as dist
+
+    from aclgan_tpu_torch.parallel.mesh import make_mesh
+    from torch_ranks import init_rank
+
+    progress = open(Path(out_dir) / f"progress.{rank}.txt", "a", buffering=1)
+
+    def mark(msg):
+        progress.write(f"{time.time():.3f} {msg}\n")
+
+    mark("init_process_group")
+    device = init_rank(rank, world, port, device_type)
+    try:
+        mesh = make_mesh(-1)
+        results = {}
+        for case in (("first", "second") if level == "micro" else ("in", "bn")):
+            if level == "micro":
+                alive, results[case] = _micro_case(case, mesh, device, mark)
+            else:
+                alive, results[case] = _model_case(level, case, mesh, device, mark)
+            del alive  # freed at Python's next collection (a model holds cycles)
+        mark("done")
+        with open(Path(out_dir) / f"result.{rank}.json", "w") as f:
+            json.dump(results, f)
+    finally:
+        dist.destroy_process_group()
+
+
+# ------------------------------------------------------------------ running them
+def run_repro(level: str, runs: int, deadline: float, out: Path, device_type: str = "cuda",
+              world: int = 2) -> dict:
+    """`runs` runs of one reproduction, each in `world` fresh rank processes
+    under `deadline` (gloo ranks and the stand-in graph with `device_type`
+    "cpu"); one JSON line a run. Returns the summary."""
+    from torch_ranks import spawn
+
+    if device_type == "cuda":
+        from aclgan_tpu_torch.ops.kernels import build
+
+        build.build_all(sorted(p.name for p in build.CSRC.glob("*.cu")))
+    outcomes = []
+    for run in range(runs):
+        run_dir = out / f"{level}.{run}"
+        run_dir.mkdir(parents=True, exist_ok=True)
+        saved = {k: os.environ.get(k) for k in _nccl_log_env(run_dir)}
+        os.environ.update(_nccl_log_env(run_dir))
+        t0 = time.time()
+        error = None
+        try:
+            if level in CASE_LEVELS:
+                _phase30_cases(level, run_dir, deadline, device_type)
+            else:
+                spawn(repro_rank, world, (level, str(run_dir), device_type), timeout=deadline,
+                      dump_dir=run_dir)
+        except (RuntimeError, AssertionError) as e:
+            error = f"{type(e).__name__}: {e}"
+        finally:
+            for k, v in saved.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+        stages = {}
+        for r in range(world):
+            p = run_dir / f"progress.{r}.txt"
+            lines = p.read_text().splitlines() if p.exists() else []
+            stages[r] = lines[-1].split(" ", 1)[1] if lines else "(not started)"
+        line = {"level": level, "world": world, "run": run, "ok": error is None,
+                "seconds": round(time.time() - t0, 1), "last_stage": stages}
+        if error is not None:
+            (run_dir / "error.txt").write_text(error)
+            line["error_head"] = error[:400]
+        elif level not in CASE_LEVELS:
+            line["graphed_vs_eager"] = _digest(
+                [json.loads((run_dir / f"result.{r}.json").read_text()) for r in range(world)])
+        outcomes.append(line)
+        print(json.dumps(line), flush=True)
+        with open(out / "results.jsonl", "a") as f:
+            f.write(json.dumps(line) + "\n")
+    ok = sum(o["ok"] for o in outcomes)
+    return {"level": level, "world": world, "runs": len(outcomes), "ok": ok,
+            "clean_in_a_row": len(outcomes) if ok == len(outcomes) else 0}
+
+
+def _phase30_cases(level, run_dir, deadline, device_type):
+    """`chip_smoke._mesh_cases` for the cases of `level`, from this process.
+    Its snapshots and the ranks' states (full width: hundreds of MB) go to a
+    temporary directory, never under `run_dir`, so that a run cut from
+    outside leaves nothing large in an output directory; the ranks' dumps
+    are moved to run_dir/dumps after it."""
+    import shutil
+
+    import chip_smoke
+    from aclgan_tpu_torch.config import load_config
+
+    with tempfile.TemporaryDirectory() as tmp:
+        try:
+            chip_smoke._mesh_cases(load_config(chip_smoke.CONFIG), tmp, device_type,
+                                   CASE_LEVELS[level], deadline)
+        finally:
+            dumps = Path(tmp) / "mesh_cases" / "dumps"
+            if dumps.exists():
+                shutil.move(str(dumps), str(run_dir / "dumps"))
+
+
+def _digest(results):
+    """The largest relative gap between a case's replayed and eager metrics,
+    over the ranks."""
+    out = {}
+    for res in results:
+        for case, r in res.items():
+            g, e = r["graphed"], r["eager"]
+            pairs = [(g[k], e[k]) for k in g] if isinstance(g, dict) else [(g, e)]
+            gap = max(abs(a - b) / max(abs(b), 1e-12) for a, b in pairs)
+            out[case] = max(out.get(case, 0.0), gap)
+    return out
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    sub = ap.add_subparsers(dest="cmd", required=True)
+    r = sub.add_parser("repro")
+    r.add_argument("--level", choices=LEVELS + tuple(CASE_LEVELS), default="micro")
+    r.add_argument("--runs", type=int, default=1)
+    r.add_argument("--deadline", type=float, default=None)
+    r.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
+    r.add_argument("--world", type=int, default=2)
+    r.add_argument("--out", default=OUT)
+    args = ap.parse_args(argv)
+    _setup()
+    out = Path(args.out)
+    out.mkdir(parents=True, exist_ok=True)
+    import torch
+
+    if args.device == "cuda" and torch.cuda.device_count() < args.world:
+        print(f"torch_mesh_graphs: needs {args.world} CUDA devices", file=sys.stderr)
+        return 2
+    summary = run_repro(args.level, args.runs, args.deadline or DEADLINE[args.level], out,
+                        args.device, args.world)
+    print(json.dumps(summary), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,275 @@
+"""The spawn harness of the port's multi-rank runs: `spawn` starts one process
+a rank over localhost and bounds them all by one deadline. A rank still
+running shortly before it writes its Python stack and its collective log
+(PyTorch's flight recorder) into the spawn's dump directory and exits, each
+group's timeout (`group_timeout`) ends a collective that waits on a hung peer
+before that, and the spawn raises with every rank's exit code, traceback,
+stack and log. `mesh_graph_steps` is the rank body of the graphed mesh
+step's checks. The CPU tests, `chip_smoke.py` and
+`tools/torch_mesh_graphs.py` share both. Imports nothing of JAX."""
+
+import contextlib
+import datetime
+import faulthandler
+import glob
+import json
+import multiprocessing.connection
+import os
+import shutil
+import socket
+import tempfile
+import threading
+import time
+import traceback
+
+import torch
+import torch.distributed as dist
+import torch.multiprocessing as mp
+
+_DEADLINE = "ACLGAN_SPAWN_DEADLINE"  # the spawn's deadline (time.time()), set in each rank
+_FR_PREFIX = "collectives."          # the flight recorder's dump files: <prefix><rank>
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def dump_margin(timeout: float) -> float:
+    """The seconds before a spawn's deadline at which a live rank dumps and exits."""
+    return min(10.0, 0.25 * timeout)
+
+
+def spawn(fn, world: int, args: tuple, timeout: float = 300.0, dump_dir=None) -> None:
+    """Run fn(rank, world, port, *args) in `world` spawned processes, all under
+    one deadline `timeout` s away. A rank still running `dump_margin` s before
+    it writes its collective log and its Python stack (every thread) into
+    `dump_dir` (a new temporary directory when None, removed after a
+    clean run) and exits; at the
+    deadline the ranks left are killed. Raises if a rank failed or was cut,
+    with each rank's exit code, traceback, stack and collective log."""
+    ctx = mp.get_context("spawn")
+    made = dump_dir is None
+    dump_dir = str(dump_dir or tempfile.mkdtemp(prefix="spawn_dumps_"))
+    os.makedirs(dump_dir, exist_ok=True)
+    deadline = time.time() + timeout
+    port = free_port()
+    procs = [ctx.Process(target=_guarded, args=(fn, rank, world, port, args, dump_dir,
+                                                deadline, timeout))
+             for rank in range(world)]
+    for p in procs:
+        p.start()
+    pending = list(procs)
+    while pending and time.time() < deadline:
+        multiprocessing.connection.wait([p.sentinel for p in pending],
+                                        deadline - time.time())
+        pending = [p for p in pending if p.is_alive()]
+    for p in pending:
+        p.kill()
+    for p in procs:
+        p.join(10)
+    codes = [p.exitcode for p in procs]
+    if pending or any(codes):
+        raise RuntimeError(f"spawn of {world} ranks of {getattr(fn, '__name__', fn)}: "
+                           f"{len(pending)} alive at the {timeout:.0f} s deadline (killed); "
+                           f"exit codes {codes}\n" + rank_dumps(dump_dir, world))
+    if made:
+        shutil.rmtree(dump_dir, ignore_errors=True)
+
+
+def rank_dumps(dump_dir: str, world: int) -> str:
+    """Each rank's traceback, Python stack dump and collective log, as text."""
+    parts = []
+    for rank in range(world):
+        for what, name in (("traceback", f"error.{rank}.txt"),
+                           ("stack at the deadline or a crash", f"stack.{rank}.txt")):
+            path = os.path.join(dump_dir, name)
+            if os.path.exists(path) and os.path.getsize(path):
+                with open(path, errors="replace") as f:
+                    parts.append(f"--- rank {rank}: {what}\n{f.read()}")
+        for path in sorted(glob.glob(os.path.join(dump_dir, f"{_FR_PREFIX}{rank}*"))):
+            parts.append(f"--- rank {rank}: collective log {os.path.basename(path)}\n"
+                         + collective_log(path))
+    return "\n".join(parts)
+
+
+def collective_log(path: str) -> str:
+    """A flight-recorder dump as one line a collective: sequence ids, name,
+    state, sizes (the JSON form; a pickled one from a timeout as its entries)."""
+    with open(path, "rb") as f:
+        raw = f.read()
+    try:
+        doc = json.loads(raw)
+    except ValueError:
+        import pickle
+
+        try:
+            doc = pickle.loads(raw)  # the dump a timeout writes; ours, from this spawn
+        except Exception as e:  # a partial file: say so, keep the rest of the report
+            return f"(unreadable: {type(e).__name__}: {e})"
+    lines = []
+    for e in doc.get("entries", []):
+        lines.append(f"  seq {e.get('collective_seq_id')} p2p {e.get('p2p_seq_id')} "
+                     f"pg {e.get('process_group')} {e.get('profiling_name')} "
+                     f"{e.get('state')} in {e.get('input_sizes')} "
+                     f"retired {e.get('retired')}")
+    return "\n".join(lines) or "  (no entries)"
+
+
+def flight_recorder_env(dump_dir: str) -> dict:
+    """PyTorch's flight recorder, on for the groups a rank makes after this:
+    its buffer, its dump on a collective's timeout, and the dump files'
+    prefix (both names the torch versions read)."""
+    prefix = os.path.join(dump_dir, _FR_PREFIX)
+    return {"TORCH_NCCL_TRACE_BUFFER_SIZE": "4000", "TORCH_FR_BUFFER_SIZE": "4000",
+            "TORCH_NCCL_DUMP_ON_TIMEOUT": "1", "TORCH_NCCL_DEBUG_INFO_TEMP_FILE": prefix,
+            "TORCH_FR_DUMP_TEMP_FILE": prefix}
+
+
+def group_timeout() -> datetime.timedelta:
+    """A process group's timeout inside a spawn: half the time left before
+    the dump, so that a collective waiting on a hung peer times out (and its
+    log is written) first; 30 min outside a spawn."""
+    deadline = os.environ.get(_DEADLINE)
+    if deadline is None:
+        return datetime.timedelta(minutes=30)
+    margin = float(os.environ.get(_DEADLINE + "_MARGIN", 0.0))
+    return datetime.timedelta(seconds=max(2.0, 0.5 * (float(deadline) - margin - time.time())))
+
+
+def dump_collectives(path: str) -> None:
+    """Write this process's flight-recorder entries (JSON) to `path`."""
+    import torch._C._distributed_c10d as c10d
+
+    for name in ("_dump_nccl_trace_json", "_dump_fr_trace_json"):
+        dump = getattr(c10d, name, None)
+        if dump is not None:
+            with contextlib.suppress(RuntimeError):  # no group made yet
+                raw = dump(True, False)
+                with open(path, "wb") as f:
+                    f.write(raw if isinstance(raw, bytes) else raw.encode())
+                return
+
+
+def _guarded(fn, rank, world, port, args, dump_dir, deadline, timeout):
+    torch.set_num_threads(1)
+    margin = dump_margin(timeout)
+    os.environ.update(flight_recorder_env(dump_dir))
+    os.environ[_DEADLINE], os.environ[_DEADLINE + "_MARGIN"] = str(deadline), str(margin)
+    left = max(0.5, deadline - margin - time.time())
+    stack = open(os.path.join(dump_dir, f"stack.{rank}.txt"), "w")
+    faulthandler.enable(stack)
+    faulthandler.dump_traceback_later(left, exit=True, file=stack)
+    log = threading.Timer(max(0.1, left - min(3.0, margin / 2)), dump_collectives,
+                          (os.path.join(dump_dir, f"{_FR_PREFIX}{rank}.at_deadline.json"),))
+    log.daemon = True
+    log.start()
+    try:
+        fn(rank, world, port, *args)
+    except BaseException:
+        with open(os.path.join(dump_dir, f"error.{rank}.txt"), "w") as f:
+            f.write(traceback.format_exc())
+        dump_collectives(os.path.join(dump_dir, f"{_FR_PREFIX}{rank}.at_error.json"))
+        raise
+    finally:
+        log.cancel()
+        faulthandler.cancel_dump_traceback_later()
+
+
+def init_rank(rank, world, port, device_type):
+    """Join the group: gloo on the CPU, or NCCL with this rank on card `rank`
+    (TF32 off). Returns the rank's device."""
+    if device_type == "cuda":
+        device = torch.device("cuda", rank)
+        torch.cuda.set_device(device)
+        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+        dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
+                                rank=rank, world_size=world, timeout=group_timeout())
+        return device
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=rank, world_size=world, timeout=group_timeout())
+    return torch.device("cpu")
+
+
+def mesh_graph_steps(rank, world, port, cases, out_dir, device_type="cuda",
+                     force_graphs=False):
+    """For each case, in one process group: three D+G iterations on this
+    rank's share (a `DataMesh` when n_spatial is 1, else an n_data x
+    n_spatial grid) of the global NHWC batches, on the injected global z of
+    each: the first eager, the second captured and replayed, the third
+    replayed; then the third from the same state in an eager twin
+    (`graphs=False`); on the CPU through `cpu_graphs()`. Each case =
+    (name, n_data, n_spatial, config dict, snapshot path, x_a, x_b,
+    [z, z, z]); its models are dropped before the next case. A mesh the
+    trainer keeps eager runs eagerly in both forms (no keys), unless
+    `force_graphs` gives its model a `StepGraphs` anyway (a reproduction of
+    what the trainer refuses). Saves
+    out_dir/mesh.<name>.<rank>.pt: the state before the third iteration
+    (rank 0), the third iteration's metrics, networks and (K1, K2, K1m,
+    K1a, K2m, K2a) in both forms, the graphs' keys and capture bytes."""
+    import copy
+
+    from aclgan_tpu_torch.config import from_dict
+    from aclgan_tpu_torch.ops.kernels import instance_norm as K
+    from aclgan_tpu_torch.parallel.mesh import batch_sharding, make_mesh, shard_state
+    from aclgan_tpu_torch.parallel.spatial import make_mesh_2d, spatial_batch_sharding
+    from aclgan_tpu_torch.trainer import ACLGAN
+
+    device = init_rank(rank, world, port, device_type)
+    meshes = {}
+    try:
+        for name, n_data, n_spatial, cfg_dict, snap_path, x_a, x_b, zs in cases:
+            if (n_data, n_spatial) not in meshes:  # every rank makes every grid
+                meshes[n_data, n_spatial] = (make_mesh(-1) if n_spatial == 1
+                                             else make_mesh_2d(n_data, n_spatial))
+            mesh = meshes[n_data, n_spatial]
+            if n_spatial == 1:
+                rows, hs = batch_sharding(mesh, x_a.shape[0]), slice(None)
+            else:
+                rows, hs = spatial_batch_sharding(mesh, x_a.shape[0], x_a.shape[1])
+            xa, xb = x_a[rows, hs], x_b[rows, hs]
+
+            def model_(graphs):
+                m = ACLGAN(from_dict(cfg_dict), device=device, mesh=mesh, graphs=graphs)
+                m.init_state()
+                return m
+
+            def third(m):
+                before = [getattr(K, c) for c in K.COUNTERS]
+                metrics = m.train_step(xa, xb, True, True, z=zs[2])
+                snap = m.snapshot()
+                return {"metrics": {k: float(v) for k, v in metrics.items()},
+                        "launches": tuple(getattr(K, c) - b
+                                          for c, b in zip(K.COUNTERS, before)),
+                        "gen": {n: {k: v.cpu() for k, v in sd.items()}
+                                for n, sd in snap["gen"].items()},
+                        "dis": {n: {k: v.cpu() for k, v in sd.items()}
+                                for n, sd in snap["dis"].items()}}
+
+            model = model_(True)
+            if device.type == "cpu":  # the tests' stand-in graph: the CPU has no CUDA graphs
+                from tests.torch_dp_worker import cpu_graphs
+
+                model.graphs = cpu_graphs()
+            elif force_graphs and model.graphs is None:
+                from aclgan_tpu_torch.graphs import StepGraphs
+
+                model.graphs = StepGraphs(device)
+            model.restore(torch.load(snap_path, map_location="cpu", weights_only=True))
+            shard_state(model, mesh)
+            for z in zs[:2]:
+                model.train_step(xa, xb, True, True, z=z)
+            state = copy.deepcopy(model.snapshot())
+            out = {"graphed": third(model),
+                   "keys": model.graphs.keys() if model.graphs else [],
+                   "capture_bytes": dict(model.graphs.capture_bytes) if model.graphs else {}}
+            twin = model_(False)
+            twin.restore(state)
+            out["eager"] = third(twin)
+            if rank == 0:
+                out["state"] = state
+            torch.save(out, os.path.join(out_dir, f"mesh.{name}.{rank}.pt"))
+            del model, twin
+    finally:
+        dist.destroy_process_group()
