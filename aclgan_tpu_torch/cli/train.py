@@ -25,7 +25,10 @@ batch_size / N samples with seed `cfg.seed + rank`, steps on them as its
 share of the global batch, and holds the same state; rank 0 alone writes
 files (scalars, grids, HTML, snapshots, the config), and its display batches
 are broadcast to every rank. `--resume` reads the snapshot on every rank,
-then broadcasts rank 0's state. A single process with `tpu.mesh_data > 1`
+then broadcasts rank 0's state. On CUDA every rank replays its steps as CUDA
+graphs with their NCCL collectives inside, and destroys them before the
+process group goes (`ACLGAN.release_graphs`): after the last barrier, or
+alone on a rank that raised. A single process with `tpu.mesh_data > 1`
 raises.
 """
 
@@ -144,14 +147,20 @@ def main(argv=None):
     joined = cfg.tpu.distributed and not dist.is_initialized()
     if cfg.tpu.distributed:
         device = init_distributed(device.type)
+    built: List[ACLGAN] = []  # the model, once `_train` has made it
     try:
-        return _train(opts, cfg, device)
+        return _train(opts, cfg, device, built)
     finally:
         if joined:
+            # a live graph's collectives hold the group's communicators, and
+            # its destroy waits for them: a rank that raised releases here,
+            # alone (no collective), the others after the last barrier
+            for model in built:
+                model.release_graphs()
             dist.destroy_process_group()
 
 
-def _train(opts, cfg: Config, device: torch.device) -> TrainRun:
+def _train(opts, cfg: Config, device: torch.device, built: List[ACLGAN]) -> TrainRun:
     mesh = make_mesh(cfg.tpu.mesh_data)
     # file IO on rank 0 only: every rank holds the same state and metrics,
     # and concurrent writers would race on a shared filesystem
@@ -174,6 +183,7 @@ def _train(opts, cfg: Config, device: torch.device) -> TrainRun:
         image_directory = os.path.join(output_directory, "images")
 
     model = ACLGAN(cfg, device=device, mesh=mesh)
+    built.append(model)
     model.init_state()
     shard_state(model, mesh)
 
@@ -274,6 +284,8 @@ def _train(opts, cfg: Config, device: torch.device) -> TrainRun:
                             if is_main:
                                 save_checkpoint(checkpoint_directory, model, iterations - 1)
                             coordination_barrier("snapshot-written")
+                            if mesh is not None:  # every rank is past its last step
+                                model.release_graphs()
                             print("Finish training")
                             return TrainRun(model, displays, iterations)
                 finally:

@@ -9,8 +9,9 @@ launches each. `StepGraphs` gives the port the same on a CUDA device: a
 step is recorded once per key into a `torch.cuda.CUDAGraph` and replayed, one
 host call in place of the few thousand launches (98 K1 and 49 K2 among them
 in a D+G iteration) that Python issues one at a time when eager. The train
-step replays on one device and under an NCCL mesh of one rank; gloo meshes
-and meshes of more ranks keep it eager (`trainer.py`).
+step replays on one device and under an NCCL data-parallel mesh of any
+size; gloo meshes and spatial grids of more ranks keep it eager
+(`trainer.py`).
 
 `run(key, inputs, body)`:
 
@@ -49,7 +50,9 @@ key, and after it whether every rank's capture succeeded (two small
 all-reduces, outside the graph); a mismatch or a failure anywhere raises on
 every rank, naming the key, rather than leaving a rank to replay
 collectives that its peers never issue. A key run by one rank alone (the
-display grid's `sample` on rank 0) is given no mesh.
+display grid's `sample` on rank 0) is given no mesh. A graph holds its
+collectives' communicators until it is destroyed, so each rank calls
+`release` before its process group is destroyed (see there).
 
 All graphs of one `StepGraphs` share one memory pool; `pool_bytes` is the
 reserved memory their captures added, `capture_bytes` and `capture_seconds`
@@ -118,15 +121,30 @@ class StepGraphs:
         """Every key called so far: warmed (one call), or captured."""
         return list(self._warmed)
 
-    def clear(self) -> None:
-        """Drop every graph (their memory returns to the allocator): for a
-        model whose state tensors were replaced, which a graph would not see."""
+    def release(self) -> None:
+        """Destroy every graph (`CUDAGraph.reset`), drop the static buffers,
+        the warm set and the pool, and wait for the device. A graph whose
+        body holds NCCL collectives keeps a reference on their communicator
+        until it is destroyed, and NCCL's destroy of a communicator waits for
+        every graph that references it: a graph left alive at
+        `destroy_process_group` blocks it on every rank. Dropping the model
+        does not destroy its graphs, since a model holds reference cycles
+        that only Python's next collection frees, so every rank releases
+        before its group goes (`ACLGAN.release_graphs`). `restore` and
+        `init_state` release too: their graphs hold the replaced state's
+        tensors and are never replayed again, and destroying them at once
+        returns their pool to the allocator rather than at a collection. The
+        object stays usable: the next call of a key is eager again."""
+        for entry in self._entries.values():
+            entry.graph.reset()
         self._warmed.clear()
         self._entries.clear()
         self._pool = None
         self.pool_bytes = 0
         self.capture_bytes.clear()
         self.capture_seconds.clear()
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
 
     def run(self, key: Hashable, inputs: Sequence[torch.Tensor], body: Callable[..., Any],
             generators: Sequence[torch.Generator] = (), mesh=None) -> Any:

@@ -27,13 +27,16 @@ Port of `aclgan_tpu/trainer.py` (`to_model_range`, `ACLGAN`: `init_state`,
   nothing back to the host and holds every collective of the step under a
   mesh: the gradients' and the metrics' all-reduces, the focus sums, bn's
   statistics, and under a `SpatialMesh` the halos and the split kernels'
-  all-reduces. A mesh of one NCCL rank (`torchrun --nproc_per_node 1`;
-  `mesh.capturable()`) replays it as a graph; the capture checks the key
-  and its success across the mesh's ranks and raises on every rank when the
-  keys differ or a rank's capture fails. A mesh of more ranks stays eager:
-  on H100s, with a replayed spatial step's graph alive, tearing down the
-  process group hung on every rank of a 1 x 2 grid, and a data-parallel
-  mesh's teardown with its graph alive (as the train CLI ends) is untried.
+  all-reduces. An NCCL `DataMesh` of any size (`torchrun --nproc_per_node
+  N`; `mesh.capturable()`) and a spatial grid of one rank replay it as a
+  graph; the capture checks the key and its success across the mesh's
+  ranks and raises on every rank when the keys differ or a rank's capture
+  fails. A graph holds its collectives' communicators until it is
+  destroyed, so a rank calls `release_graphs` before its process group
+  goes (the train CLI does, on every exit path). A spatial grid of more
+  ranks stays eager: on H100s, after a replayed spatial step, tearing down
+  the spatial group hung on every rank of a 1 x 2 grid, its graphs
+  destroyed before it or not.
   The steps also run eagerly on the CPU, under a gloo mesh
   (gloo stages its collectives through the host), under `tpu.check_nans`
   (anomaly mode cannot be captured), or when built with `graphs=False`; the
@@ -189,13 +192,22 @@ class ACLGAN:
         if self.mesh is not None and not self.mesh.capturable():
             return (f"a {type(self.mesh).__name__} over gloo: its collectives are staged "
                     f"through the host")
-        if self.mesh is not None and self.mesh.world > 1:
-            return (f"a {type(self.mesh).__name__} of {self.mesh.world} ranks: with a replayed "
-                    f"step's graph alive, destroy_process_group hung on every rank of a 1 x 2 "
-                    f"spatial grid of H100s")
+        if isinstance(self.mesh, SpatialMesh) and self.mesh.world > 1:
+            return (f"a SpatialMesh of {self.mesh.world} ranks: after a replayed step, the "
+                    f"spatial group's teardown hung on every rank of a 1 x 2 grid of H100s, "
+                    f"the step's graphs destroyed before it")
         if self.cfg.tpu.check_nans:
             return "tpu.check_nans: anomaly mode cannot be captured"
         return None
+
+    def release_graphs(self) -> None:
+        """Destroy the steps' CUDA graphs (`StepGraphs.release`; nothing
+        without graphs). A rank calls it before its process group is
+        destroyed: a live graph's collectives hold their communicators, and
+        the group's destroy waits for them. The model stays usable: its
+        next steps capture again."""
+        if self.graphs is not None:
+            self.graphs.release()
 
     # ------------------------------------------------------------------
     def init_state(self, seed: Optional[int] = None) -> None:
@@ -232,7 +244,7 @@ class ACLGAN:
         self.step = 0
         self.z_gen = torch.Generator(device=self.device).manual_seed(seed)
         if self.graphs is not None:  # they hold the replaced state's tensors
-            self.graphs.clear()
+            self.graphs.release()
 
     def _set_mesh(self, name: str, net: torch.nn.Module) -> None:
         """Set the mesh on the layers that read one (bn: the global batch's
@@ -655,7 +667,7 @@ class ACLGAN:
         an absent "rng" keeps the z stream as seeded. The CUDA graphs are
         dropped: the optimizers' state tensors are replaced."""
         if self.graphs is not None:
-            self.graphs.clear()
+            self.graphs.release()
         for n in GEN_NAMES:
             self.gen(n).load_state_dict(snap["gen"][n])
         for n in DIS_NAMES:

@@ -116,13 +116,14 @@ phase's launch counts hold for the graphed forms; gloo meshes (phases 23,
    0.2*lr slack), the ranks' params equal, (K1, K2) on each rank;
 24. [ddp_cli] `python -m torch.distributed.run --nproc_per_node 1` of the
    train CLI (`chip_smoke.py --torchrun-cli`, which runs `cli.train.main`
-   and writes its counters) with `tpu.distributed: true` (NCCL: the steps
+   and writes its counters; `torch_ranks.torchrun`, one deadline that dumps
+   every rank's stack) with `tpu.distributed: true` (NCCL: the steps
    replay CUDA graphs with their all-reduces inside) on the shipped config,
-   synthetic, batch 16, bf16: 30 iterations traced at 10..14, then
-   `--resume` to 35: p50 s per iteration against phase 10, the form that
-   ran, (K1, K2) over the run and under replay against the cadence, the
-   trace's K1 / K2 events (held by `_hold_trace`), the records and the
-   snapshot files;
+   synthetic, batch 16, bf16: 30 iterations traced at 10..14 with grids at
+   10, 20, 30, then `--resume` to 35: p50 s per iteration against phase 10,
+   the form that ran, (K1, K2) over the run and under replay against the
+   cadence, the graphs destroyed before the group, the trace's K1 / K2
+   events (held by `_hold_trace`), the records, grids and snapshot files;
 25. [devices] `Translator(devices=-1)`: outputs equal to phase 6's; devices=2
    raises the JAX message with one card visible;
 26. [vgg] `compute_vgg_loss` at 256^2, batch 16, f32: loss and image
@@ -162,8 +163,8 @@ phase's launch counts hold for the graphed forms; gloo meshes (phases 23,
    training iterations at 128^2, batch 2 (D+G, D, step_increment 2, a StepLR
    boundary, EMA: metrics, the five networks, moments, EMA, z stream, against
    three eager runs' spread, reported, then one D+G iteration from one state,
-   replayed and eager twice: pre-update metrics bit-equal, the replayed
-   state no further from eager than two eager copies are from each other;
+   replayed and eager in three copies: pre-update metrics bit-equal, the
+   replayed state within 2x the widest distance between two eager copies;
    `graph_train_check`); the bare bf16 step at 256^2, batch 3 and 16,
    graphed and eager in turns (s an iteration, the host's s to issue one, the
    device's idle share over a traced D+G + D, peak memory, the graphs' pool,
@@ -175,15 +176,16 @@ phase's launch counts hold for the graphed forms; gloo meshes (phases 23,
    bit-equal, 57 K1 a call, its capture bytes;
 30. [mesh_graphs] the train step under an NCCL mesh as a CUDA graph: a
    `DataMesh` of one rank in a spawned process, the bare bf16 step at batch
-   3 and 16, graphed and eager (s an iteration, host s, idle share, peak,
+   3 (and 16 on two or more cards), graphed and eager (s an iteration, host s, idle share, peak,
    pool, launches against the cadence). On two or more cards also (on one,
    it logs that this part needs more cards): two NCCL ranks run the
    data-parallel D+G step for dis in and then dis bn in one process pair
-   (phase 23's cut; the trainer keeps a mesh of more ranks eager, so the
-   ranks force the graph; each replayed iteration held to its eager twin at
+   (phase 23's cut; each replayed iteration held to its eager twin at
    phase 23's bars and to one process at `MESH_ALONE_BARS`, the ranks
-   bit-equal), and the bare step on 2 and 4 ranks at global batch 16, eager
-   as the trainer runs it, against one card. Every spawn runs under one
+   bit-equal); then at 2 and at 4 ranks where the host has the cards, the
+   bare step at global batch 16 graphed and eager against one card, and
+   phase 24's train CLI under torchrun at that world (`phase_ddp_cli`,
+   every rank held to the cadence). Every spawn and torchrun runs under one
    deadline that dumps each rank's stack and collective log;
 31. K1's and K2's device time a launch at each layer of phases 3-4's mixes
    (torch.profiler, or CUDA events behind a queued busy kernel where the
@@ -1411,6 +1413,7 @@ def _bare_train_step(cfg, graphs=True, windows=5, window=8, mesh=None):
         f"over a traced D+G + D; peak memory {out['peak'] / 2**30:.3f} GiB ({out['peak']} B); "
         f"graphs' pool {out['pool']}, capture s {out['capture_s']}; (K1, K2) {launches} over "
         f"{kinds} = the cadence's count")
+    model.release_graphs()
     del model, batches
     gc_collect()
     return out
@@ -2587,111 +2590,181 @@ def _trace_launches(trace):
 
 
 TORCHRUN_CLI = "--torchrun-cli"  # chip_smoke.py's own argument: phase 24's rank process
+KEEP_GRAPHS = "--keep-graphs"    # after it: the CLI's release of its graphs taken out
+DDP_DEADLINE = 300               # s: one torchrun run of the CLI, ranks dumped and killed after
+DDP_GRIDS = (10, DDP_ITERS)      # image_display_iter, image_save_iter of phase 24's runs
 
 
 def _torchrun_cli(out_json, argv):
     """A rank that torchrun starts for phase 24: `cli.train.main(argv)`, the
-    train CLI as `-m aclgan_tpu_torch.cli.train` runs it, then its form
-    (graphed or eager), its graphs' keys and the (K1, K2) counters over the
-    run and over the calls that replayed a captured graph, written to
-    `out_json` (rank r > 0: `out_json`.r)."""
+    train CLI as `-m aclgan_tpu_torch.cli.train` runs it, armed to dump its
+    stack and exit near the run's deadline (`torch_ranks.torchrun`); then
+    its form (graphed or eager), the keys its graphs ran, the (K1, K2)
+    counters over the run and over the calls that replayed a captured
+    train step, its `sample` calls, and the graphs left alive after `main`,
+    written to `out_json` (rank r > 0: `out_json`.r). `KEEP_GRAPHS` first in
+    `argv` takes the CLI's release of its graphs out (a reproduction of the
+    teardown with graphs alive)."""
     sys.path.insert(0, str(ROOT))
     from aclgan_tpu_torch import graphs
     from aclgan_tpu_torch.cli.train import main as train_main
     from aclgan_tpu_torch.ops.kernels import instance_norm as K
+    from aclgan_tpu_torch.trainer import ACLGAN
+    from torch_ranks import watch_torchrun_rank
 
-    replayed = [0, 0]
-    run = graphs.StepGraphs.run
+    watch_torchrun_rank()
+    if argv[:1] == [KEEP_GRAPHS]:
+        argv = argv[1:]
+        ACLGAN.release_graphs = lambda self: None
+    replayed, samples, keys = [0, 0], [0], []
+    run, sample = graphs.StepGraphs.run, ACLGAN.sample
 
     def counted(self, key, *args, **kwargs):
         captured = key in self._entries
+        keys.extend([key] if key not in keys else [])
         before = (K.launches, K.bwd_launches)
         out = run(self, key, *args, **kwargs)
-        if captured:
+        if captured and key[0] == "train":
             replayed[0] += K.launches - before[0]
             replayed[1] += K.bwd_launches - before[1]
         return out
 
-    graphs.StepGraphs.run = counted
+    def counted_sample(self, *args):
+        samples[0] += 1
+        return sample(self, *args)
+
+    graphs.StepGraphs.run, ACLGAN.sample = counted, counted_sample
     model = train_main(argv).model
     rank = int(os.environ.get("RANK", "0"))
     Path(f"{out_json}.{rank}" if rank else out_json).write_text(json.dumps({
         "form": "eager" if model.graphs is None else "graphed",
         "mesh": type(model.mesh).__name__, "launches": [K.launches, K.bwd_launches],
-        "replayed": replayed, "keys": [repr(k) for k in (model.graphs.keys()
-                                                         if model.graphs else ())]}))
+        "replayed": replayed, "samples": samples[0], "keys": [repr(k) for k in keys],
+        "left": len(model.graphs._entries) if model.graphs else 0}))
     return 0
 
 
-def phase_ddp_cli(cfg, tmp, cli_s_per_it):
-    """[ddp_cli] `torch.distributed.run --nproc_per_node 1` of the train CLI
-    (through `chip_smoke.py --torchrun-cli`, which runs `cli.train.main` and
-    reads its counters) with `tpu.distributed: true` (NCCL, a `DataMesh` of
-    one rank, so the steps replay CUDA graphs with their all-reduces inside)
-    on the shipped config, synthetic, batch 16, bf16: 30 iterations traced at
-    10..14, then `--resume` to 35; s/it p50 against phase 10's single
-    process; the form that ran and the (K1, K2) counters (over the run and
-    under replay) against the cadence's count. Returns the (K1, K2) kernel
-    events of the traced window."""
-    b = TRAIN_BATCH
-    derived, path = _cli_config(cfg, tmp, "m2f_ddp", batch_size=b,
+def _hold_ranks(what, ranks, cadence, samples, release=True):
+    """Each rank's counters of one torchrun run of the CLI (`_torchrun_cli`)
+    against the cadence: graphed under a `DataMesh`, (K1, K2) over the run
+    the cadence's count (rank 0 adds its `samples` calls of `sample`, the
+    others none), those of the replayed train steps the cadence's replays,
+    and no graph left alive after `main` (all of them with `release` False)."""
+    steps, replays = _expected_launches(cadence, samples=0), _replayed_launches(cadence)
+    for r, ran in enumerate(ranks):
+        want = _expected_launches(cadence, samples) if r == 0 else steps
+        n = samples if r == 0 else 0
+        if (ran["form"], ran["mesh"], tuple(ran["launches"]), ran["samples"]) != \
+                ("graphed", "DataMesh", want, n):
+            raise AssertionError(f"{what} rank {r}: the {ran['form']} form under a "
+                                 f"{ran['mesh']} launched (K1, K2) {ran['launches']} with "
+                                 f"{ran['samples']} samples; the cadence {want} with {n}")
+        if tuple(ran["replayed"]) != replays:
+            raise AssertionError(f"{what} rank {r}: (K1, K2) under replay {ran['replayed']}, "
+                                 f"the cadence {replays}")
+        if (ran["left"] == 0) != release:
+            raise AssertionError(f"{what} rank {r}: {ran['left']} graphs alive after main")
+
+
+def phase_ddp_cli(cfg, tmp, cli_s_per_it=None, world=1, release=True, resume=True,
+                  deadline=DDP_DEADLINE):
+    """[ddp_cli] The train CLI under `torch.distributed.run --nproc_per_node
+    world` (through `chip_smoke.py --torchrun-cli`, which runs
+    `cli.train.main` and reads its counters; `torch_ranks.torchrun`, one
+    deadline with every rank's dumps) with `tpu.distributed: true` (NCCL, a
+    `DataMesh` of `world` ranks, one a card: the steps replay CUDA graphs
+    with their all-reduces inside) on the shipped config, synthetic, global
+    batch 16, bf16: 30 iterations traced at 10..14 with rank 0's grids at 10,
+    20, 30 (`DDP_GRIDS`) and the final snapshot, then `--resume` to 35; s/it
+    p50 against phase 10's single process when given; on every rank the
+    form, the (K1, K2) counters (over the run and under replay) against the
+    cadence's count and the graphs destroyed before the group (`_hold_ranks`,
+    both runs); the scalars, grids and snapshot files. `release` False takes
+    the CLI's release of its graphs out (a reproduction of the teardown with
+    graphs alive); `resume` False leaves the resumed run out; `deadline`
+    bounds each torchrun launch. Returns what it measured."""
+    from torch_ranks import torchrun
+
+    b, local = TRAIN_BATCH, TRAIN_BATCH // world
+    derived, path = _cli_config(cfg, tmp, "m2f_ddp", batch_size=b, image_display_iter=DDP_GRIDS[0],
+                                image_save_iter=DDP_GRIDS[1],
                                 tpu=dataclasses.replace(cfg.tpu, distributed=True))
-    out, prof_dir = Path(tmp) / "ddp", Path(tmp) / "ddp_trace"
-    counters = Path(tmp) / "ddp_counters.json"
-    base = [sys.executable, "-m", "torch.distributed.run", "--standalone",
-            "--nproc_per_node", "1", str(ROOT / "chip_smoke.py"), TORCHRUN_CLI, str(counters),
-            "--config", path, "--output_path", str(out)]
-    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
-        [str(ROOT)] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    run_dir = Path(tempfile.mkdtemp(prefix=f"ddp_w{world}_", dir=tmp))
+    out, prof_dir = run_dir / "out", run_dir / "trace"
+    env = {"PYTHONPATH": os.pathsep.join([str(ROOT)] + [p for p in
+                                                        [os.environ.get("PYTHONPATH")] if p])}
 
-    def run(extra):
-        t0 = time.time()
-        proc = subprocess.run(base + extra, cwd=ROOT, env=env, capture_output=True, text=True,
-                              timeout=600)
-        if proc.returncode:
-            raise RuntimeError(f"ddp_cli {extra}: exit {proc.returncode}\n"
-                               f"{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
-        return proc.stdout.splitlines(), time.time() - t0
+    def run(tag, extra):
+        counters = run_dir / f"counters.{tag}.json"
+        argv = [ROOT / "chip_smoke.py", TORCHRUN_CLI, counters] + ([] if release
+                                                                   else [KEEP_GRAPHS])
+        lines, secs = torchrun(argv + ["--config", path, "--output_path", out] + extra, world,
+                               deadline, run_dir / f"dumps.{tag}", env)
+        ranks = [json.loads(Path(f"{counters}.{r}" if r else counters).read_text())
+                 for r in range(world)]
+        return lines, secs, ranks
 
-    lines, first_s = run(["--max_iter", str(DDP_ITERS), "--profile_dir", str(prof_dir)])
-    if not any("1 device(s)" in line for line in lines):
-        raise AssertionError("ddp_cli: no 'Training ... 1 device(s)' line")
-    epoch_len = max(64, b * 8) // b
+    lines, first_s, ranks = run("first", ["--max_iter", str(DDP_ITERS), "--profile_dir",
+                                          str(prof_dir)])
+    if not any(f"{world} device(s)" in line for line in lines):
+        raise AssertionError(f"ddp_cli world {world}: no 'Training ... {world} device(s)' line")
+    if any("steps run eagerly" in line for line in lines):
+        raise AssertionError(f"ddp_cli world {world}: a rank ran its steps eagerly")
+    epoch_len = max(64, local * 8) // local
     cadence = _cadence(derived, epoch_len, 1, DDP_ITERS)
-    ran = json.loads(counters.read_text())
-    whole = _expected_launches(cadence, samples=0)
-    if ran["form"] != "graphed" or ran["mesh"] != "DataMesh" or tuple(ran["launches"]) != whole:
-        raise AssertionError(f"ddp_cli: the {ran['form']} form under a {ran['mesh']} launched "
-                             f"(K1, K2) {ran['launches']}, the cadence {whole}")
-    if tuple(ran["replayed"]) != _replayed_launches(cadence):
-        raise AssertionError(f"ddp_cli: (K1, K2) under replay {ran['replayed']}, the cadence "
-                             f"{_replayed_launches(cadence)}")
+    n_samples = DDP_ITERS // DDP_GRIDS[0] + 2 * (DDP_ITERS // DDP_GRIDS[1])
+    _hold_ranks(f"ddp_cli world {world}", ranks, cadence, n_samples, release)
     _check_records(_records(out / "logs" / "m2f_ddp"), range(1, DDP_ITERS + 1), "ddp_cli")
-    p50, per_it, counts = _cli_seconds(lines, cadence, {1} | set(range(11, 17)))
+    grids = sorted(p.stem for p in (out / "outputs" / "m2f_ddp" / "images").iterdir())
+    if grids != [f"gen_a2b_{g}" for g in ("test_%08d" % DDP_ITERS, "train_%08d" % DDP_ITERS,
+                                          "train_current")]:
+        raise AssertionError(f"ddp_cli world {world}: grids {grids}")
+    # set-up; the traced window (profiler on) and the iteration after it; an
+    # iteration after a grid (its time holds the sampling)
+    skip = {1} | set(range(11, 17)) | {g + 1 for g in range(DDP_GRIDS[0], DDP_ITERS,
+                                                            DDP_GRIDS[0])}
+    p50, per_it, counts = _cli_seconds(lines, cadence, skip)
+    timed = sum(float(m[2]) for m in map(_ITERATION.match, lines) if m)
     traced = _trace_launches(prof_dir / "trace.json")
     window = _expected_launches({i: cadence[i] for i in range(11, 16)}, samples=0)
-    _hold_trace("ddp_cli, iterations 11..15", traced, window)
-    resumed, resume_s = run(["--max_iter", str(DDP_RESUME_TO), "--resume"])
-    if not any(line == f"Resume from iteration {DDP_ITERS}" for line in resumed):
-        raise AssertionError("ddp_cli: --resume did not start from the snapshot")
-    _check_records(_records(out / "logs" / "m2f_ddp"), range(1, DDP_RESUME_TO + 1),
-                   "ddp_cli resumed")
+    _hold_trace(f"ddp_cli world {world}, iterations 11..15", traced, window)
+    resume_s, again, ends = 0.0, None, (DDP_ITERS,)
+    if resume:
+        resumed, resume_s, again = run("resumed", ["--max_iter", str(DDP_RESUME_TO),
+                                                   "--resume"])
+        if not any(line == f"Resume from iteration {DDP_ITERS}" for line in resumed):
+            raise AssertionError("ddp_cli: --resume did not start from the snapshot")
+        _hold_ranks(f"ddp_cli world {world}, resumed", again,
+                    _cadence(derived, epoch_len, DDP_ITERS + 1, DDP_RESUME_TO), 0, release)
+        _check_records(_records(out / "logs" / "m2f_ddp"), range(1, DDP_RESUME_TO + 1),
+                       "ddp_cli resumed")
+        ends += (DDP_RESUME_TO,)
     ckpts = sorted(p.name for p in (out / "outputs" / "m2f_ddp" / "checkpoints").iterdir())
-    want_ckpts = sorted(f"{k}_{i:08d}.pt" for k in ("gen", "dis")
-                        for i in (DDP_ITERS, DDP_RESUME_TO)) + ["optimizer.pt"]
-    if ckpts != sorted(want_ckpts):
+    want_ckpts = sorted(f"{k}_{i:08d}.pt" for k in ("gen", "dis") for i in ends)
+    if ckpts != sorted(want_ckpts + ["optimizer.pt"]):
         raise AssertionError(f"ddp_cli: snapshot files {ckpts}")
-    log(f"[ddp_cli] torchrun --nproc_per_node 1, tpu.distributed (NCCL): the {ran['form']} "
-        f"form under a {ran['mesh']} (graphs {ran['keys']}); (K1, K2) over the run "
-        f"{tuple(ran['launches'])}, under replay {tuple(ran['replayed'])}, the cadence's count")
-    log(f"[ddp_cli] torchrun --nproc_per_node 1, tpu.distributed (NCCL), male2female 256^2 "
-        f"batch {b} bf16: p50 D+G {p50['D+G']:.4f} s, D {p50['D']:.4f} s ({counts} "
-        f"iterations), {per_it:.4f} s per iteration; single process (phase 10) "
-        f"{cli_s_per_it:.4f} s: ratio {per_it / cli_s_per_it:.4f}; traced (K1, K2) kernel "
-        f"events over iterations 11..15 {traced} (their steps launch {window}); "
-        f"{DDP_ITERS} iterations {first_s:.1f} s and --resume to {DDP_RESUME_TO} "
-        f"{resume_s:.1f} s wall with start-up; files {ckpts}")
-    return traced
+    ran = ranks[0]
+    log(f"[ddp_cli] torchrun --nproc_per_node {world}, tpu.distributed (NCCL): the "
+        f"{ran['form']} form under a {ran['mesh']} on every rank (graphs {ran['keys']}); "
+        f"(K1, K2) over the run rank 0 {tuple(ran['launches'])} ({ran['samples']} samples), "
+        + "".join(f"rank {r} {tuple(x['launches'])}, " for r, x in enumerate(ranks[1:], 1))
+        + f"under replay {tuple(ran['replayed'])} a rank, the cadence's count; "
+        + (f"resumed {tuple(again[0]['launches'])}, under replay "
+           f"{tuple(again[0]['replayed'])}; " if resume else "not resumed; ")
+        + f"graphs left after main {[x['left'] for x in ranks]}")
+    ratio = "" if cli_s_per_it is None else (
+        f"; single process (phase 10) {cli_s_per_it:.4f} s: ratio {per_it / cli_s_per_it:.4f}")
+    log(f"[ddp_cli] torchrun --nproc_per_node {world}, tpu.distributed (NCCL), male2female "
+        f"256^2 global batch {b} ({local} a rank) bf16: p50 D+G {p50['D+G']:.4f} s, D "
+        f"{p50['D']:.4f} s ({counts} iterations), {per_it:.4f} s per iteration{ratio}; traced "
+        f"(K1, K2) kernel events over iterations 11..15 {traced} (their steps launch "
+        f"{window}); {DDP_ITERS} iterations {first_s:.1f} s ({first_s - timed:.1f} s of it "
+        f"outside the iterations' timers: start-up and teardown)"
+        + (f" and --resume to {DDP_RESUME_TO} {resume_s:.1f} s wall" if resume else "")
+        + f"; files {ckpts}")
+    return {"world": world, "traced": traced, "p50": p50, "per_it": per_it,
+            "launches": [x["launches"] for x in ranks], "replayed": ran["replayed"],
+            "first_s": first_s, "resume_s": resume_s}
 
 
 def phase_devices(cfg, ckpt, outs16):
@@ -3396,38 +3469,56 @@ def _flat_rel(a, b):
     return float((fa - fb).norm() / fb.norm().clamp_min(1e-30))
 
 
+ONE_STEP_COPIES = 3  # eager copies of the state that `one_step_spread` steps
+
+
+def one_step_spread(cfg, model, batch):
+    """One D+G iteration on `batch` from the graphed `model`'s state: replayed
+    on `model`, and eager in `ONE_STEP_COPIES` copies of that state. Returns
+    the metrics of each (the replay's first), their states after it
+    (`_train_state`), the replayed state's rel-L2 from the first eager
+    copy, and the rel-L2 of each pair of eager copies (the second's from
+    the first first)."""
+    import copy
+
+    snap = model.snapshot()
+    twins = []
+    for _ in range(ONE_STEP_COPIES):
+        twins.append(_train_model(cfg, "cuda", graphs=False))
+        twins[-1].restore(copy.deepcopy(snap))  # no tensor shared with the source
+    same = [{k: float(v) for k, v in m.train_step(*batch, True, True).items()}
+            for m in (model, *twins)]
+    after = [_train_state(m)[0] for m in (model, *twins)]
+    del twins
+    pairs = [_flat_rel(after[i], after[j]) for i in range(2, len(after)) for j in range(1, i)]
+    return same, after, _flat_rel(after[0], after[1]), pairs
+
+
 def graph_train_check(cfg, batches, reseed_at=None):
     """GRAPH_SCHEDULE on `batches` (one more than its iterations), eager three
     times and graphed (`reseed_z` before iteration `reseed_at` when given),
     then one D+G iteration on the last batch from the graphed model's state:
-    replayed, and eager in two copies of that state. Two eager runs differ
-    from the first update on (atomic adds in the backward, e.g. the reflect
-    pad's, sum in any order), and over six iterations that difference grows
-    by amounts that vary several-fold from run to run, so the six-iteration
-    spread is reported, not held to a ratio. Bars: the same launch counts;
-    iteration 0's pre-update metrics bit-equal; every metric within the
-    card-against-CPU bar (1e-3 relative + 1e-6: a focus term can sit near
-    0) and each owner's state (a network, its EMA, an optimizer: a
-    conv bias in front of a norm takes float-noise gradients, so single
-    tensors can differ wholly) within its gradient bar rel-L2 1e-2; the z
-    stream's next draw equal; and from one state, the metrics taken before
-    the D update bit-equal in all three, and the replayed state's rel-L2
-    from the first eager copy no wider than two times the two eager copies'
-    (bit-equal where theirs is). Raises AssertionError naming what missed;
-    returns what it measured (also the tests' check)."""
-    import copy
-
+    replayed, and eager in three copies of that state (`one_step_spread`).
+    Two eager runs differ from the first update on (atomic adds in the
+    backward, e.g. the reflect pad's, sum in any order), and over six
+    iterations that difference grows by amounts that vary several-fold from
+    run to run, so the six-iteration spread is reported, not held to a
+    ratio. Bars: the same launch counts; iteration 0's pre-update metrics
+    bit-equal; every metric within the card-against-CPU bar (1e-3 relative +
+    1e-6: a focus term can sit near 0) and each owner's state (a network,
+    its EMA, an optimizer: a conv bias in front of a norm takes float-noise
+    gradients, so single tensors can differ wholly) within its gradient bar
+    rel-L2 1e-2; the z stream's next draw equal; and from one state, the
+    metrics taken before the D update bit-equal in all four, and the
+    replayed state's rel-L2 from the first eager copy no wider than two
+    times the widest of the eager copies' pairwise rel-L2 (a spread read
+    from three copies, not from one pair's single rounding draw; bit-equal
+    where theirs is). Raises AssertionError naming what missed; returns
+    what it measured (also the tests' check)."""
     runs = [_graph_train_run(cfg, g, batches, reseed_at) for g in (False, False, False, True)]
     (_, e1, c1), (_, e2, c2), _, (model, g, cg) = runs
     states = [_train_state(r[0]) for r in runs]
-    snap = model.snapshot()
-    twins = []
-    for _ in range(2):
-        twins.append(_train_model(cfg, "cuda", graphs=False))
-        twins[-1].restore(copy.deepcopy(snap))  # no tensor shared with the source
-    same = [{k: float(v) for k, v in m.train_step(*batches[-1], True, True).items()}
-            for m in (model, *twins)]
-    after = [_train_state(m)[0] for m in (model, *twins)]
+    same, after, step_graphed, pairs = one_step_spread(cfg, model, batches[-1])
 
     def worst(x, y):
         return max(abs(x[k] - y[k]) / max(abs(y[k]), 1e-12) for k in y)
@@ -3445,11 +3536,11 @@ def graph_train_check(cfg, batches, reseed_at=None):
         widest=max(_flat_rel(s2, s1), _flat_rel(s3, s1), _flat_rel(s3, s2)),
         z_equal=torch.equal(zg, z1) and torch.equal(z2, z1), n_state=len(s1),
         pre=[k for k in same[0] if k.startswith(PRE_UPDATE)],
-        step_graphed=_flat_rel(after[0], after[1]), step_eager=_flat_rel(after[2], after[1]),
+        step_graphed=step_graphed, step_eager=max(pairs),
         step_bit_equal={pair: sum(torch.equal(x[k], y[k]) for k in x) for pair, (x, y) in
                         {"replayed-eager": (after[0], after[1]),
                          "eager-eager": (after[2], after[1])}.items()})
-    out["pre_bad"] = [k for k in out["pre"] if not same[0][k] == same[1][k] == same[2][k]]
+    out["pre_bad"] = [k for k in out["pre"] if len({m[k] for m in same}) > 1]
     bad = [(i, k) for i, (gi, ei) in enumerate(zip(g, e1)) for k in ei
            if abs(gi[k] - ei[k]) > 1e-3 * abs(ei[k]) + 1e-6]
     bad_t = [o for o, r in out["by_owner"].items() if r > 1e-2]
@@ -3463,16 +3554,17 @@ def graph_train_check(cfg, batches, reseed_at=None):
             f"graphs: graphed training off eager: iteration 0 {out['first']}, metrics {bad}, "
             f"owners {bad_t}, pre-update {out['pre_bad']} of {len(out['pre'])}, z equal "
             f"{out['z_equal']}; from one state, state rel-L2 replayed-vs-eager "
-            f"{out['step_graphed']:.3e} against eager-vs-eager {out['step_eager']:.3e}")
-    del runs, model, twins
+            f"{out['step_graphed']:.3e} against the widest eager-vs-eager "
+            f"{out['step_eager']:.3e}")
+    del runs, model
     gc_collect()
     return out
 
 
-def _graph_train_equality(cfg):
-    """`graph_train_check` at phase 7's cut (f32, 128^2, batch 2, smooth focus
-    terms) with EMA 0.999 and StepLR every 4. Returns the graphed run's
-    (K1, K2) a training iteration."""
+def graph_cut(cfg):
+    """Phase 29's training cut: phase 7's (f32, 128^2, batch 2, smooth focus
+    terms) with EMA 0.999 and StepLR every 4, and GRAPH_SCHEDULE's batches
+    and one more on the card. Returns (config, batches)."""
     size, b = 128, 2
     cfg = dataclasses.replace(
         cfg, focus_delta=0.0, focus_epsilon=10.0, step_size=4,
@@ -3481,6 +3573,14 @@ def _graph_train_equality(cfg):
     rng = np.random.RandomState(29)
     batches = [tuple(torch.from_numpy(rng.randint(0, 256, (b, size, size, 3), dtype=np.uint8))
                      .cuda() for _ in range(2)) for _ in range(len(GRAPH_SCHEDULE) + 1)]
+    return cfg, batches
+
+
+def _graph_train_equality(cfg):
+    """`graph_train_check` at `graph_cut`. Returns the graphed run's (K1, K2)
+    a training iteration."""
+    cfg, batches = graph_cut(cfg)
+    size, b = cfg.data.crop_image_height, batches[0][0].shape[0]
     r = graph_train_check(cfg, batches)
     log(f"[graphs] training f32 {size}^2 batch {b}, six iterations {GRAPH_SCHEDULE}: (K1, K2) "
         f"per iteration {r['counts']} in both forms; iteration 0's pre-update metrics "
@@ -3492,7 +3592,8 @@ def _graph_train_equality(cfg):
         + ", ".join(f"{o} {x:.2e}" for o, x in r["by_owner"].items())
         + f"; z stream's next draw equal {r['z_equal']}; from one state, one D+G iteration: "
         f"its {len(r['pre'])} pre-update metrics bit-equal, state rel-L2 replayed-vs-eager "
-        f"{r['step_graphed']:.3e} against eager-vs-eager {r['step_eager']:.3e}, tensors "
+        f"{r['step_graphed']:.3e} against the widest of {ONE_STEP_COPIES} eager copies' "
+        f"pairs {r['step_eager']:.3e}, tensors "
         f"bit-equal {r['step_bit_equal']}. Not bit-equal after an update: two eager runs "
         f"differ there too (atomic adds in the backward, e.g. the reflect pad's, sum in any "
         f"order)")
@@ -3693,7 +3794,7 @@ def phase_graphs(cfg, ckpt, smi, cli_b3_s):
 
 
 # ------------------------------------------------------------------ meshes
-MESH_BATCHES = (3, TRAIN_BATCH)      # the world-1 bare step's batches (phase 29's)
+MESH_BATCHES = (3, TRAIN_BATCH)      # the world-1 bare step's batches (phase 29's; 16 on 2+ cards)
 MESH_WORLDS = (2, 4)                 # the 2-4 card part's data-parallel worlds
 MESH_DEADLINE = 420                  # s: one spawn of phase 30, every rank dumped and killed after
 MESH_GRAPHS = "--mesh-graphs"        # chip_smoke.py's own argument: phase 30 alone
@@ -3705,7 +3806,7 @@ def _mesh_rank(rank, world, port, jobs, out_dir):
     out_dir/mesh.<rank>.pt. Ranks other than 0 print nothing."""
     import torch.distributed as dist
 
-    from torch_ranks import group_timeout
+    from torch_ranks import group_timeout, teardown
 
     device = torch.device("cuda", rank)
     torch.cuda.set_device(device)
@@ -3719,12 +3820,12 @@ def _mesh_rank(rank, world, port, jobs, out_dir):
         out = {name: _job_bare(*args) for name, args in jobs}
         torch.save(out, Path(out_dir) / f"mesh.{rank}.pt")
     finally:
-        dist.destroy_process_group()
+        teardown()  # `_bare_train_step` destroys each model's graphs
 
 
 def _job_bare(cfg, b, graphs):
-    """The bare bf16 step at b rows a rank under a `DataMesh` (`_bare_train_step`;
-    `graphs` as the trainer takes it: a mesh of more ranks stays eager)."""
+    """The bare bf16 step at b rows a rank under a `DataMesh`
+    (`_bare_train_step`; `graphs` as the trainer takes it)."""
     from aclgan_tpu_torch.parallel.mesh import make_mesh
 
     return _bare_train_step(dataclasses.replace(cfg, batch_size=b), graphs, 3, 6,
@@ -3767,22 +3868,24 @@ MESH_ALONE_BARS = (1e-4, 3e-3)
 MESH_AFTER_D_STEP = ("loss_gen_adv_", "loss_gen_total")  # metrics that read the moved D
 
 
-def _mesh_cases(cfg, tmp, device_type="cuda", specs=MESH_CASES, deadline=MESH_DEADLINE):
+def _mesh_cases(cfg, tmp, device_type="cuda", specs=MESH_CASES, deadline=MESH_DEADLINE,
+                rank_opts=(False, True, True)):
     """The 2-card correctness part of phase 30, in one pair of NCCL ranks
     (`torch_ranks.mesh_graph_steps`): the data-parallel D+G step for dis in
-    and then dis bn (the first case's models dropped before the second is
-    built), each at phase 23's cut (f32, TF32 off, 128^2, two rows a data
-    index) from one state, replayed and in an eager twin. The trainer keeps
-    a mesh of more than one rank eager, so the ranks give the replayed
-    model a `StepGraphs` themselves: this checks the path the trainer holds
-    back. The replay is held to its twin and to one process on the first
-    card: to its twin at phase 23's bars (metrics rel 1e-4, each network's
-    rel-L2 1e-3), to one process at `MESH_ALONE_BARS` (the G step's
-    adversarial metrics, which read the D the iteration moved, logged), the
-    ranks to each other bit for bit. Returns {case: (K1, K2, K1m, K1a,
-    K2m, K2a) of a replayed iteration on rank 0}. `specs` may name a
-    spatial grid (n_data, n_spatial); with `device_type` "cpu", gloo ranks
-    and the tests' stand-in graph (a rehearsal of the checks)."""
+    and then dis bn (the first case's graphs destroyed and its models
+    dropped before the second is built), each at phase 23's cut (f32, TF32
+    off, 128^2, two rows a data index) from one state, replayed and in an
+    eager twin. The replay is held to its twin and to one process on the
+    first card: to its twin at phase 23's bars (metrics rel 1e-4, each
+    network's rel-L2 1e-3), to one process at `MESH_ALONE_BARS` (the G
+    step's adversarial metrics, which read the D the iteration moved,
+    logged), the ranks to each other bit for bit. Returns {case: (K1, K2,
+    K1m, K1a, K2m, K2a) of a replayed iteration on rank 0}. `specs` may
+    name a spatial grid (n_data, n_spatial), which the trainer keeps eager;
+    `rank_opts` are `mesh_graph_steps`' (force_graphs, release, halo_p2p),
+    which `tools/torch_mesh_graphs.py` sets to reproduce what the trainer
+    or the harness does not do; with `device_type` "cpu", gloo ranks and the
+    tests' stand-in graph (a rehearsal of the checks)."""
     from aclgan_tpu_torch.trainer import ACLGAN
     from torch_ranks import mesh_graph_steps
 
@@ -3807,7 +3910,7 @@ def _mesh_cases(cfg, tmp, device_type="cuda", specs=MESH_CASES, deadline=MESH_DE
         inputs[name] = (vcfg, xa, xb, zs[2])
     gc_collect()
     t0 = time.time()
-    _spawn(mesh_graph_steps, world, (cases, str(out_dir), device_type, True), deadline,
+    _spawn(mesh_graph_steps, world, (cases, str(out_dir), device_type, *rank_opts), deadline,
            out_dir)
     secs = time.time() - t0
     counts = {}
@@ -3884,61 +3987,87 @@ def _mesh_gap(got, want, skip=()):
     return met, name, par
 
 
-def phase_mesh_graphs(cfg, tmp, smi):
+def phase_mesh_graphs(cfg, tmp, smi, cli_s_per_it=None, worlds=MESH_WORLDS, cli_runs=1,
+                      pair=True):
     """[mesh_graphs] The train step under an NCCL `DataMesh` replayed as a
     CUDA graph with its collectives inside, against the eager form: a mesh
-    of one rank (a spawned process), the bare bf16 step at batch 3 and 16;
-    on two or more cards also the 2-card correctness cases (`_mesh_cases`,
-    the graph forced where the trainer keeps the mesh eager) and the bare
-    step on 2 and 4 ranks (one a card) at global batch 16, eager as the
-    trainer runs it. Returns {path: launches}."""
+    of one rank (a spawned process), the bare bf16 step at batch 3 (and 16
+    where the 2-4 card part runs, its reference). On two or more cards, the
+    2-4 card part: the 2-card correctness cases
+    (`_mesh_cases`), then at each world of `worlds` the host has, the bare
+    step at global batch 16 (16 / world rows a rank, one rank a card) in
+    both forms against one card, and the train CLI under torchrun
+    (`phase_ddp_cli`) `cli_runs` times in a row, the first resumed to 35.
+    `pair` False leaves the correctness cases out. Returns {path:
+    launches}."""
     n_cards = torch.cuda.device_count()
     log(f"[mesh_graphs] {smi}; {n_cards} card(s)")
     paths = {}
+    # batch 16 is the reference of the 2-4 card part, run only with it
+    batches = MESH_BATCHES if n_cards >= 2 else MESH_BATCHES[:1]
     one, secs = _mesh_spawn(1, [(f"b{b} {f}", (cfg, b, f == "graphed"))
-                                for b in MESH_BATCHES for f in ("graphed", "eager")], tmp, "w1")
+                                for b in batches for f in ("graphed", "eager")], tmp, "w1")
     res = one[0]
-    for b in MESH_BATCHES:
+    for b in batches:
         _log_bare(smi, f"DataMesh of 1 rank (NCCL), batch {b}", res[f"b{b} graphed"],
                   res[f"b{b} eager"])
         paths[f"DataMesh of 1 rank (NCCL), bare train_step at batch {b}, graphed "
               f"(phase 30)"] = res[f"b{b} graphed"]["launches"]
     log(f"[mesh_graphs] the world-1 process took {secs:.1f} s")
     if n_cards < 2:
-        log(f"[mesh_graphs] the 2-4 card part (graphed steps across ranks) needs two or more "
-            f"cards; {n_cards} visible: not run here")
+        log(f"[mesh_graphs] the 2-4 card part (graphed steps and the train CLI across ranks) "
+            f"needs two or more cards; {n_cards} visible: not run here")
         return paths
-    for name, c in _mesh_cases(cfg, tmp).items():
-        paths[f"2 NCCL ranks, {name}, a replayed D+G iteration at 128^2, f32, graph "
-              f"forced (phase 30)"] = c
-    for world in MESH_WORLDS:
+    for name, c in (_mesh_cases(cfg, tmp) if pair else {}).items():
+        paths[f"2 NCCL ranks, {name}, a replayed D+G iteration at 128^2, f32 "
+              f"(phase 30)"] = c
+    one = res[f"b{TRAIN_BATCH} graphed"]
+    for world in worlds:
         if world > n_cards:
             log(f"[mesh_graphs] world {world} needs {world} cards; {n_cards} visible: not run")
             continue
         b = TRAIN_BATCH // world
-        ranks, secs = _mesh_spawn(world, [("eager", (cfg, b, False))], tmp, f"w{world}")
-        e, one = ranks[0]["eager"], res[f"b{TRAIN_BATCH} graphed"]
-        log(f"[mesh_graphs] {smi}: DataMesh of {world} ranks (NCCL), {b} rows a rank (global "
-            f"{TRAIN_BATCH}), bare bf16 step 256^2, D1/G2, eager (the trainer's form for a mesh "
-            f"of more ranks): {e['s']:.4f} s an iteration, host {e['host_s']:.4f} s to issue "
-            f"one, device idle {100 * e['idle']:.1f}%, peak {e['peak'] / 2**30:.3f} GiB; "
-            f"(K1, K2) {e['launches']} over {e['iterations']} = the cadence's count; one card "
-            f"at batch {TRAIN_BATCH} graphed {one['s']:.4f} s: {one['s'] / e['s']:.3f}x the "
-            f"iteration rate")
+        ranks, secs = _mesh_spawn(world, [(f, (cfg, b, f == "graphed"))
+                                          for f in ("graphed", "eager")], tmp, f"w{world}")
+        g, e = ranks[0]["graphed"], ranks[0]["eager"]
+        _log_bare(smi, f"DataMesh of {world} ranks (NCCL), {b} rows a rank (global "
+                       f"{TRAIN_BATCH})", g, e)
+        log(f"[mesh_graphs] {smi}: world {world} against one card at batch {TRAIN_BATCH} "
+            f"graphed {one['s']:.4f} s: graphed {one['s'] / g['s']:.3f}x, eager "
+            f"{one['s'] / e['s']:.3f}x the iteration rate; the world-{world} processes took "
+            f"{secs:.1f} s")
         for r, got in enumerate(ranks):
-            if got["eager"]["launches"] != e["launches"]:
-                raise AssertionError(f"mesh_graphs world {world}: rank {r} launched "
-                                     f"{got['eager']['launches']}, rank 0 {e['launches']}")
+            mine, first = ([x[f]["launches"] for f in ("graphed", "eager")]
+                           for x in (got, ranks[0]))
+            if mine != first:
+                raise AssertionError(f"mesh_graphs world {world}: rank {r} launched {mine} "
+                                     f"(graphed, eager), rank 0 {first}")
         paths[f"DataMesh of {world} ranks (NCCL), bare train_step at {b} rows a rank, "
-              f"eager, a rank (phase 30)"] = e["launches"]
-        log(f"[mesh_graphs] the world-{world} processes took {secs:.1f} s")
+              f"graphed, a rank (phase 30)"] = g["launches"]
+        for i in range(cli_runs):
+            t0 = time.time()
+            got = phase_ddp_cli(cfg, tmp, cli_s_per_it, world, resume=i == 0)
+            log(f"[mesh_graphs] the train CLI at world {world}, run {i + 1} of {cli_runs}: "
+                f"ended in {time.time() - t0:.1f} s")
+        paths[f"torchrun train CLI at world {world}, batch {TRAIN_BATCH}: kernel events over "
+              f"the traced iterations 11..15 (phase 30)"] = got["traced"]
     return paths
 
 
-def mesh_graphs_alone() -> int:
-    """`python3 chip_smoke.py --mesh-graphs`: the kernels' build and phase 30
-    alone (on 2-4 cards, its multi-rank part), for a call that needs only
-    it; prints its paths' launches as one JSON line."""
+def mesh_graphs_alone(argv) -> int:
+    """`python3 chip_smoke.py --mesh-graphs [--worlds 2,4] [--cli-runs N]
+    [--no-pair]`: the kernels' build and phase 30 alone (on 2-4 cards, its
+    multi-rank part at the worlds given that the host has, the train CLI N
+    times in a row at each, the correctness pair left out with
+    `--no-pair`), for a call that needs only it; prints its paths' launches
+    as one JSON line."""
+    import argparse
+
+    ap = argparse.ArgumentParser(prog=f"chip_smoke.py {MESH_GRAPHS}")
+    ap.add_argument("--worlds", default=",".join(map(str, MESH_WORLDS)))
+    ap.add_argument("--cli-runs", type=int, default=1)
+    ap.add_argument("--no-pair", dest="pair", action="store_false")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         log("chip_smoke: no CUDA device available")
         return 2
@@ -3952,7 +4081,9 @@ def mesh_graphs_alone() -> int:
     t0 = time.time()
     phase_build()
     with tempfile.TemporaryDirectory() as tmp:
-        paths = phase_mesh_graphs(load_config(CONFIG), tmp, smi)
+        paths = phase_mesh_graphs(load_config(CONFIG), tmp, smi,
+                                  worlds=tuple(int(w) for w in args.worlds.split(",")),
+                                  cli_runs=args.cli_runs, pair=args.pair)
     print(json.dumps({"mesh_graphs": paths}), flush=True)
     log(f"[done] {time.time() - t0:.1f} s")
     return 0
@@ -4276,7 +4407,7 @@ def main() -> int:
                 (22, lambda: phase_native(cfg, tmp, cli16_s_per_it),
                  "train CLI on phase 11's JPEGs, 30 iterations at batch 16"),
                 (23, lambda: phase_dp_two_ranks(cfg, tmp), None),
-                (24, lambda: phase_ddp_cli(cfg, tmp, cli16_s_per_it),
+                (24, lambda: phase_ddp_cli(cfg, tmp, cli16_s_per_it)["traced"],
                  "torchrun train CLI at world 1, batch 16: kernel events over the traced "
                  "iterations 11..15"),
                 (25, lambda: phase_devices(cfg, ckpt, outs16),
@@ -4307,7 +4438,7 @@ def main() -> int:
         _mark(29, t0)
         gc_collect()
         t0 = time.time()
-        by_path.update(phase_mesh_graphs(cfg, tmp, smi))
+        by_path.update(phase_mesh_graphs(cfg, tmp, smi, cli16_s_per_it))
         _mark(30, t0)
         t0 = time.time()
         for k, device in ((k1, k1_device), (k2, k2_device)):
@@ -4330,5 +4461,5 @@ if __name__ == "__main__":
     if sys.argv[1:2] == [TORCHRUN_CLI]:
         sys.exit(_torchrun_cli(sys.argv[2], sys.argv[3:]))
     if sys.argv[1:2] == [MESH_GRAPHS]:
-        sys.exit(mesh_graphs_alone())
+        sys.exit(mesh_graphs_alone(sys.argv[2:]))
     sys.exit(main())

@@ -992,9 +992,10 @@ def test_spatial_grid_on_four_cards_matches_one_process(cuda, tmp_path):
 def _assert_graphed_like_eager(cfg, reseed_at=None):
     """`chip_smoke.graph_train_check` in f32 with TF32 off: six iterations
     graphed against three eager runs within the card-against-CPU bars, and
-    from one state a D+G iteration replayed and eager twice (pre-update
-    metrics bit-equal, the replayed state no further from eager than the
-    eager copies are apart); both train keys hold a graph."""
+    from one state a D+G iteration replayed and eager in three copies
+    (pre-update metrics bit-equal, the replayed state within twice the
+    widest distance between two eager copies); both train keys hold a
+    graph."""
     import chip_smoke
 
     batches = [_train_batch(i) for i in range(len(chip_smoke.GRAPH_SCHEDULE) + 1)]
@@ -1094,12 +1095,13 @@ def _grid_cfg(size, dis=None):
     return from_dict(raw)
 
 
-def _mesh_cases(tmp_path, world, specs, force_graphs=False):
+def _mesh_cases(tmp_path, world, specs):
     """Spawns `torch_dp_worker.mesh_graph_steps` once over `world` NCCL ranks,
     one a card, under the spawn's deadline, for every case of `specs` (name,
     n_data, n_spatial, cfg, size) in turn, each at global batch 2 * n_data,
-    with `force_graphs` (a graph where the trainer keeps the mesh eager);
-    returns {name: (the ranks' results, x_a, x_b, the third iteration's z)}."""
+    each case's graphs destroyed before the next and the last's before the
+    group goes; returns {name: (the ranks' results, x_a, x_b, the third
+    iteration's z)}."""
     from tests import torch_dp_worker
 
     cases, inputs = [], {}
@@ -1119,7 +1121,7 @@ def _mesh_cases(tmp_path, world, specs, force_graphs=False):
         inputs[name] = (x_a, x_b, zs[2])
     torch.cuda.empty_cache()  # the ranks share the first card with this process
     torch_dp_worker.spawn(torch_dp_worker.mesh_graph_steps, world,
-                          (cases, str(tmp_path), "cuda", force_graphs), timeout=240,
+                          (cases, str(tmp_path), "cuda"), timeout=240,
                           dump_dir=tmp_path / "dumps")
     return {name: ([torch.load(tmp_path / f"mesh.{name}.{r}.pt", map_location="cpu",
                                weights_only=False) for r in range(world)], *inputs[name])
@@ -1183,13 +1185,12 @@ def test_graphed_nccl_step_matches_eager_and_one_process(cuda, tmp_path, world, 
     """The data-parallel D+G step over `world` NCCL ranks, one a card,
     replayed as a CUDA graph with its collectives inside (gradients, focus
     sums, bn's statistics, metrics): from one state, against the eager step
-    on the same mesh and against one process, at phase 23's 128^2. The
-    trainer keeps a mesh of more ranks eager, so the graph is forced there:
-    the path it holds back."""
+    on the same mesh and against one process, at phase 23's 128^2; the
+    spawn ends inside its deadline (each rank destroys its graphs before
+    its group)."""
     _needs_cards(world)
     cfg = _grid_cfg(128, dis={"norm": norm})
-    ranks, x_a, x_b, z = _mesh_cases(tmp_path, world, [("dp", world, 1, cfg, 128)],
-                                     force_graphs=True)["dp"]
+    ranks, x_a, x_b, z = _mesh_cases(tmp_path, world, [("dp", world, 1, cfg, 128)])["dp"]
     single = _single_from(cfg, ranks[0]["state"], x_a, x_b, z)
     _assert_mesh_graphed(ranks, single, (2, 128, 128, 3))
     assert ranks[0]["graphed"]["launches"][:2] != (0, 0)
@@ -1198,8 +1199,9 @@ def test_graphed_nccl_step_matches_eager_and_one_process(cuda, tmp_path, world, 
 @pytest.mark.parametrize("n_data,n_spatial", [(1, 2), (2, 2)])
 def test_spatial_grid_of_nccl_ranks_stays_eager(cuda, tmp_path, n_data, n_spatial):
     """An n_data x n_spatial grid of NCCL ranks, one a card, keeps its steps
-    eager, as every mesh of more ranks (with a spatial graph alive, tearing
-    the groups down hung on every rank): no graph is recorded, the split kernels launch and K1 / K2 do not,
+    eager (after a replayed step, tearing the spatial group down hung on
+    every rank of a 1 x 2 grid, its graphs destroyed or not): no graph is
+    recorded, the split kernels launch and K1 / K2 do not,
     the step stands within phase 23's bars of a second eager model from the
     same state, every rank holds the same state, and the spawn ends inside
     its deadline."""
@@ -1221,13 +1223,13 @@ def test_spatial_grid_of_nccl_ranks_stays_eager(cuda, tmp_path, n_data, n_spatia
 
 def test_two_graphed_cases_in_one_spawn_match_eager(cuda, tmp_path):
     """Two data-parallel cases (dis in, then dis bn) in one pair of NCCL
-    ranks, the first case's models and graphs dropped before the second is
-    built: each replayed step (forced: the trainer keeps the mesh eager)
-    within the bars of its eager twin and of one process. Needs two cards."""
+    ranks, the first case's graphs destroyed and its models dropped before
+    the second is built: each replayed step within the bars of its eager
+    twin and of one process. Needs two cards."""
     _needs_cards(2)
     specs = [(f"dis_{norm}", 2, 1, _grid_cfg(128, dis={"norm": norm}), 128)
              for norm in ("in", "bn")]
-    got = _mesh_cases(tmp_path, 2, specs, force_graphs=True)
+    got = _mesh_cases(tmp_path, 2, specs)
     for name, n_data, n_spatial, cfg, size in specs:
         ranks, x_a, x_b, z = got[name]
         single = _single_from(cfg, ranks[0]["state"], x_a, x_b, z)
@@ -1252,3 +1254,21 @@ def test_point_to_point_halo_matches_all_reduce_form(cuda, tmp_path, world):
             for a, b in zip(got["point_to_point", top, bottom, pad_type],
                             got["all_reduce", top, bottom, pad_type]):
                 assert torch.equal(a, b), (r, top, bottom, pad_type)
+
+
+@pytest.mark.parametrize("world", [2, 4])
+def test_torchrun_cli_trains_graphed_across_the_cards(cuda, tmp_path, world):
+    """The train CLI under torchrun at `world` NCCL ranks, one a card
+    (`chip_smoke.phase_ddp_cli`: male2female at full width, bf16, global
+    batch 16, 30 iterations with rank 0's grids and a snapshot, then
+    `--resume` to 35): every rank trains graphed, ends inside the run's
+    deadline with its graphs destroyed before its group, and launches the
+    cadence's (K1, K2) over each run and under replay. Needs `world`
+    cards."""
+    _needs_cards(world)
+    import chip_smoke
+    from aclgan_tpu_torch.config import load_config
+
+    got = chip_smoke.phase_ddp_cli(load_config(chip_smoke.CONFIG), tmp_path, None, world)
+    assert got["world"] == world and len(got["launches"]) == world
+    assert tuple(got["replayed"]) != (0, 0)

@@ -227,7 +227,7 @@ class _StandInGraph:
     """A CUDA graph's interface on the CPU: records nothing, replays nothing."""
 
     def __init__(self):
-        self.generators, self.pools, self.replays = [], [], 0
+        self.generators, self.pools, self.replays, self.resets = [], [], 0, 0
 
     def register_generator_state(self, gen):
         self.generators.append(gen)
@@ -240,6 +240,9 @@ class _StandInGraph:
 
     def replay(self):
         self.replays += 1
+
+    def reset(self):
+        self.resets += 1
 
     def pool(self):
         return "the pool"
@@ -308,8 +311,14 @@ def test_launch_counts_under_replay_equal_an_eager_run(monkeypatch):
     assert len(graphs.made) == 2 and (K.launches, K.bwd_launches) == (18, 9)
     graphs.run("third", (x,), _fake_step)
     assert len(graphs.made) == 3 and (K.launches, K.bwd_launches) == (20, 10)
-    graphs.clear()
+    graphs.release()  # every graph destroyed, once
+    assert [g.resets for g in graphs.made] == [1, 1, 1]
     assert graphs.keys() == [] and graphs._pool is None and graphs.capture_bytes == {}
+    assert graphs.pool_bytes == 0 and graphs._entries == {}
+    for _ in range(2):  # the key starts over: eager, then captured in a new pool
+        graphs.run("k", (x,), _fake_step)
+    assert len(graphs.made) == 4 and graphs.made[3].pools == [None]
+    assert (K.launches, K.bwd_launches) == (24, 12)
 
 
 def test_a_failed_capture_raises_with_its_key_and_counts_nothing(monkeypatch):

@@ -7,6 +7,7 @@ same state."""
 
 import json
 import re
+import time
 from pathlib import Path
 
 import numpy as np
@@ -14,6 +15,8 @@ import pytest
 import torch
 from PIL import Image
 
+import chip_smoke
+import torch_ranks
 from aclgan_tpu_torch import config
 from aclgan_tpu_torch.cli import train as port_train
 from aclgan_tpu_torch.data import loader
@@ -21,6 +24,7 @@ from tests import torch_dp_worker
 from tests.helpers import tiny_config
 
 WORLD = 2
+ROOT = Path(__file__).resolve().parents[1]
 
 
 def _config(tmp, data_root, distributed):
@@ -129,3 +133,110 @@ def _leaves(obj, prefix=""):
     for k, v in items:
         out.update(_leaves(v, f"{prefix}/{k}"))
     return out
+
+
+def _synthetic_config(tmp, **changes):
+    """A tiny synthetic 16^2 config with `tpu.distributed`, train_current
+    every 2 iterations, written to tmp/m.yaml; returns its path."""
+    jcfg = tiny_config(image_display_iter=2, snapshot_save_iter=100, log_iter=1, seed=11,
+                       **changes)
+    cfg = config.from_dict(jcfg.to_dict())
+    cfg.data.synthetic, cfg.data.crop_image_height, cfg.data.crop_image_width = True, 16, 16
+    cfg.data.new_size, cfg.tpu.distributed = 16, True
+    config.save_config(cfg, tmp / "m.yaml")
+    return tmp / "m.yaml"
+
+
+@pytest.mark.parametrize("raises", [False, True], ids=["ends", "raises"])
+def test_cli_destroys_its_graphs_before_destroying_its_group(tmp_path, monkeypatch, raises):
+    """`main` in torchrun's environment (one gloo rank here, the model's
+    steps and `sample` through the stand-in graph) destroys every graph of
+    its model before `destroy_process_group`: after the last barrier when
+    the run ends, alone when the rank raises (here in the final snapshot's
+    write). A live graph's NCCL collectives hold the group's communicators,
+    whose destroy waits for them."""
+    path = _synthetic_config(tmp_path, batch_size=2, image_save_iter=100)
+    monkeypatch.setenv("RANK", "0")
+    monkeypatch.setenv("LOCAL_RANK", "0")
+    monkeypatch.setenv("WORLD_SIZE", "1")
+    monkeypatch.setenv("MASTER_ADDR", "127.0.0.1")
+    monkeypatch.setenv("MASTER_PORT", str(torch_dp_worker.free_port()))
+    made = []
+
+    class Graphed(port_train.ACLGAN):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            self.graphs = torch_dp_worker.cpu_graphs()
+            made.append(self.graphs)
+
+    seen = []
+    destroy = torch.distributed.destroy_process_group
+
+    def checked_destroy(*args, **kwargs):
+        seen.append([(len(g._entries), [r.resets for r in g.made]) for g in made])
+        return destroy(*args, **kwargs)
+
+    monkeypatch.setattr(port_train, "ACLGAN", Graphed)
+    monkeypatch.setattr(torch.distributed, "destroy_process_group", checked_destroy)
+    if raises:
+        def failed_write(*args, **kwargs):
+            raise OSError("the snapshot's write failed")
+
+        monkeypatch.setattr(port_train, "save_checkpoint", failed_write)
+    argv = ["--config", str(path), "--output_path", str(tmp_path / "out"), "--device", "cpu",
+            "--max_iter", "4"]
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        if raises:
+            with pytest.raises(OSError, match="snapshot's write failed"):
+                port_train.main(argv)
+        else:
+            port_train.main(argv)
+    finally:
+        torch.set_num_threads(n)
+    assert not torch.distributed.is_initialized()
+    # the D+G and the D step captured at their second calls, `sample` at its
+    # second (iteration 4): three graphs, each destroyed once, none left
+    assert seen == [[(0, [1, 1, 1])]]
+
+
+def _torchrun_argv(tmp):
+    """`chip_smoke.py --torchrun-cli` (the train CLI with its counters) on a
+    tiny synthetic config with `tpu.distributed`, 4 iterations on the CPU,
+    grids at 2 and 4."""
+    path = _synthetic_config(tmp, batch_size=4, image_save_iter=4)
+    return [ROOT / "chip_smoke.py", chip_smoke.TORCHRUN_CLI, tmp / "counters.json",
+            "--config", path, "--output_path", tmp / "out", "--device", "cpu",
+            "--max_iter", "4"]
+
+
+def test_torchrun_runs_the_train_cli_on_each_rank(tmp_path):
+    """`torch_ranks.torchrun` starts the CLI on two gloo ranks through the
+    launcher, under one deadline: it ends, rank 0 alone samples the grids,
+    and each rank reports its counters and no graph left after `main`."""
+    lines, _ = torch_ranks.torchrun(_torchrun_argv(tmp_path), WORLD, 240, tmp_path / "dumps",
+                                    {"PYTHONPATH": str(ROOT), "OMP_NUM_THREADS": "1"})
+    assert any(f"{WORLD} device(s)" in line for line in lines)
+    for r in range(WORLD):
+        ran = json.loads((tmp_path / ("counters.json" + (f".{r}" if r else ""))).read_text())
+        assert (ran["form"], ran["mesh"], ran["left"]) == ("eager", "DataMesh", 0)
+        assert ran["samples"] == (2 + 2 if r == 0 else 0)  # train_current at 2, 4; both grids at 4
+    assert (tmp_path / "out" / "outputs" / "m" / "checkpoints" / "gen_00000004.pt").exists()
+
+
+def test_torchrun_dumps_and_ends_its_ranks_at_the_deadline(tmp_path):
+    """Ranks that sleep past the run's deadline each write their Python stack
+    near it and exit; `torchrun` raises with those stacks soon after."""
+    script = tmp_path / "sleeper.py"
+    script.write_text("import time\nfrom torch_ranks import watch_torchrun_rank\n\n\n"
+                      "def _sleep_in_teardown():\n    time.sleep(600)\n\n\n"
+                      "watch_torchrun_rank()\n_sleep_in_teardown()\n")
+    t0 = time.time()
+    with pytest.raises(RuntimeError) as raised:
+        torch_ranks.torchrun([script], WORLD, 15, tmp_path / "dumps", {"PYTHONPATH": str(ROOT)})
+    assert time.time() - t0 < 15 + 30
+    msg = str(raised.value)
+    for rank in range(WORLD):
+        assert f"rank {rank}: stack" in msg
+    assert msg.count("_sleep_in_teardown") >= WORLD

@@ -244,16 +244,18 @@ class _NcclGrid(psp.SpatialMesh):
 
 @pytest.mark.parametrize("world", [1, 2, 4])
 def test_an_nccl_mesh_of_one_rank_is_captured(world):
-    """On a CUDA device, a capturable (NCCL) mesh of one rank gives no eager
-    reason, data-parallel or a spatial grid; a mesh of more ranks stays
-    eager and names why (its teardown with a replayed graph alive hung)."""
+    """On a CUDA device, a capturable (NCCL) data-parallel mesh of any size
+    and a spatial grid of one rank give no eager reason; a spatial grid of
+    more ranks stays eager and names why (after a replayed step its spatial
+    group's teardown hung, the graphs destroyed)."""
     model = ACLGAN(from_dict(_jax_cfg("dis_none").to_dict()), device="cpu")
     model.device = torch.device("cuda")  # the question asked before any CUDA work
-    for mesh in (_NcclMesh(0, world), _NcclGrid(1, world, 0, None, None, None)):
-        model.mesh = mesh
-        reason = model._eager_reason(True)
-        assert (reason is None) == (world == 1)
-        if world > 1:
-            assert reason == (f"a {type(mesh).__name__} of {world} ranks: with a replayed "
-                              "step's graph alive, destroy_process_group hung on every rank "
-                              "of a 1 x 2 spatial grid of H100s")
+    model.mesh = _NcclMesh(0, world)
+    assert model._eager_reason(True) is None
+    model.mesh = _NcclGrid(1, world, 0, None, None, None)
+    reason = model._eager_reason(True)
+    assert (reason is None) == (world == 1)
+    if world > 1:
+        assert reason == (f"a SpatialMesh of {world} ranks: after a replayed step, the "
+                          "spatial group's teardown hung on every rank of a 1 x 2 grid of "
+                          "H100s, the step's graphs destroyed before it")

@@ -15,7 +15,7 @@ from torch._C._distributed_c10d import Work
 from torch.utils._python_dispatch import TorchDispatchMode
 
 from torch_ranks import (free_port, group_timeout, init_rank,  # noqa: F401 (the tests' names)
-                         mesh_graph_steps, spawn)
+                         mesh_graph_steps, spawn, teardown)
 
 
 def _join(rank, world, port):
@@ -34,7 +34,7 @@ def hang_one_rank(rank, world, port, seconds):
             _sleep_past_the_deadline(seconds)
         dist.all_reduce(t)
     finally:
-        dist.destroy_process_group()
+        teardown()
 
 
 def _sleep_past_the_deadline(seconds):
@@ -51,10 +51,12 @@ def dp_steps(rank, world, port, cases, out_dir, device_type="cpu"):
     from aclgan_tpu_torch.trainer import ACLGAN
 
     device = init_rank(rank, world, port, device_type)
+    models = []
     try:
         mesh = make_mesh(-1)
         for name, cfg_dict, snap_path, x_a, x_b, z in cases:
             model = ACLGAN(from_dict(cfg_dict), device=device, mesh=mesh)
+            models.append(model)
             model.init_state()
             model.restore(torch.load(snap_path, map_location="cpu", weights_only=True))
             shard_state(model, mesh)
@@ -64,7 +66,7 @@ def dp_steps(rank, world, port, cases, out_dir, device_type="cpu"):
             torch.save({"metrics": metrics, "gen": snap["gen"], "dis": snap["dis"]},
                        os.path.join(out_dir, f"{name}.{rank}.pt"))
     finally:
-        dist.destroy_process_group()
+        teardown(models)
 
 
 def cli_run(rank, world, port, argv, resume_argv, port2, out_dir):
@@ -136,7 +138,7 @@ def halo_ops(rank, world, port, x, g, convs, gamma, beta, scale, shift, out_dir)
         torch.save(out, os.path.join(out_dir, f"halo.{rank}.pt"))
     finally:
         halo._point_to_point = chooser
-        dist.destroy_process_group()
+        teardown()
 
 
 def spatial_cases(rank, world, port, cases, out_dir, device_type="cpu"):
@@ -153,7 +155,7 @@ def spatial_cases(rank, world, port, cases, out_dir, device_type="cpu"):
     from aclgan_tpu_torch.trainer import ACLGAN
 
     device = init_rank(rank, world, port, device_type)
-    meshes = {}
+    meshes, models = {}, []
     try:
         for name, kind, n_data, n_spatial, cfg_dict, snap_path, x_a, x_b, z in cases:
             if (n_data, n_spatial) not in meshes:  # every rank makes every grid
@@ -162,6 +164,7 @@ def spatial_cases(rank, world, port, cases, out_dir, device_type="cpu"):
             if mesh is None:
                 continue
             model = ACLGAN(from_dict(cfg_dict), device=device, mesh=mesh)
+            models.append(model)
             model.init_state()
             model.restore(torch.load(snap_path, map_location="cpu", weights_only=True))
             shard_state(model, mesh)
@@ -177,7 +180,7 @@ def spatial_cases(rank, world, port, cases, out_dir, device_type="cpu"):
                           "gen": snap["gen"], "dis": snap["dis"]}
             torch.save(result, os.path.join(out_dir, f"{name}.{rank}.pt"))
     finally:
-        dist.destroy_process_group()
+        teardown(models)
 
 
 # ------------------------------------------------ CUDA graphs' stand-in
@@ -220,10 +223,10 @@ class ReplayGraph:
     capture's went, the kernels' counters left as they were (a replay calls
     no wrapper). The capture runs the body on the CPU, so the replay that
     follows it at once is skipped: each call runs the step once, as on the
-    card."""
+    card. `reset` destroys it as `CUDAGraph.reset` does, and counts."""
 
     def __init__(self):
-        self.generators, self.ops, self.replays = [], [], 0
+        self.generators, self.ops, self.replays, self.resets = [], [], 0, 0
         self._mode = None
         self._skip = False
 
@@ -259,6 +262,10 @@ class ReplayGraph:
             work.wait()
         for c, v in zip(K.COUNTERS, counts):
             setattr(K, c, v)
+
+    def reset(self):
+        self.resets += 1
+        self.ops = []
 
     def pool(self):
         return "the pool"
@@ -326,12 +333,14 @@ def graph_ranks(rank, world, port, cfg_dict, snap_path, x_a, x_b, displays, out_
 
     _join(rank, world, port)
     count_plain_launches()
+    models = []
     try:
         mesh = make_mesh(-1)
         rows = batch_sharding(mesh, x_a.shape[1])
         out = {}
         for form in ("eager", "graphed"):
             model = ACLGAN(from_dict(cfg_dict), device="cpu", mesh=mesh)
+            models.append(model)
             model.init_state()
             model.restore(torch.load(snap_path, weights_only=True))
             shard_state(model, mesh)
@@ -374,9 +383,10 @@ def graph_ranks(rank, world, port, cfg_dict, snap_path, x_a, x_b, displays, out_
             except RuntimeError as e:
                 errors["failed"] = str(e)
         out["errors"] = errors
+        graphs.release()
         torch.save(out, os.path.join(out_dir, f"graphs.{rank}.pt"))
     finally:
-        dist.destroy_process_group()
+        teardown(models)
 
 
 def halo_forms(rank, world, port, x, cases, out_dir, device_type="cuda"):
@@ -404,4 +414,4 @@ def halo_forms(rank, world, port, x, cases, out_dir, device_type="cuda"):
         torch.save(out, os.path.join(out_dir, f"halo_forms.{rank}.pt"))
     finally:
         halo._point_to_point = chooser
-        dist.destroy_process_group()
+        teardown()

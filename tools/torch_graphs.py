@@ -3,11 +3,23 @@
 
     python3 tools/torch_graphs.py rss [--out FILE]
     python3 tools/torch_graphs.py batch [--out FILE]
+    python3 tools/torch_graphs.py spread [--readings N] [--out FILE]
 
-Both run the bare `ACLGAN.train_step` of `configs/male2female.yaml` (bf16,
-256^2, random weights and device-resident uint8 batches from a seed, D1/G2),
-each form (`graphed`, `eager`) in a process of its own, and print one JSON
-line a form and a last line that sums them up. Import no JAX.
+`rss` and `batch` run the bare `ACLGAN.train_step` of
+`configs/male2female.yaml` (bf16, 256^2, random weights and device-resident
+uint8 batches from a seed, D1/G2), each form (`graphed`, `eager`) in a
+process of its own, and print one JSON line a form and a last line that
+sums them up. Import no JAX.
+
+`spread`: phase 29's one-step bar of `chip_smoke.py` read N times (10 by
+default) in one process, f32 with TF32 off: the graphed model trains
+phase 29's six iterations (`chip_smoke.graph_cut`), then each reading is one
+D+G iteration from its current state, replayed and eager in three copies
+(`chip_smoke.one_step_spread`): the replayed state's rel-L2 from the first
+eager copy, each eager pair's, and whether the replay stands within 2x
+the first pair (the bar when two copies were read) and within 2x the
+widest pair (phase 29's bar). Each reading starts from the state the last
+replay left.
 
 `rss`: host memory. ITERS iterations at batch BATCH, sampling the process's
 VmRSS (`/proc/self/status`) before the first and every EVERY iterations: the
@@ -188,15 +200,49 @@ def run_batch(form: str, option: str) -> dict:
             "device_bytes": total, "tries": tries}
 
 
+def run_spread(readings: int) -> dict:
+    import torch
+
+    cfg = _setup()
+    import chip_smoke
+
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    cut, batches = chip_smoke.graph_cut(cfg)
+    model = chip_smoke._graph_train_run(cut, True, batches)[0]
+    rows = []
+    for i in range(readings):
+        _, _, replayed, pairs = chip_smoke.one_step_spread(cut, model, batches[-1])
+        rows.append({"reading": i, "replayed": replayed, "eager_pairs": pairs,
+                     "within_2x_first_pair": replayed <= 2 * pairs[0],
+                     "within_2x_widest_pair": replayed <= 2 * max(pairs)})
+        print(json.dumps(rows[-1]), file=sys.stderr, flush=True)
+    return {"device": torch.cuda.get_device_name(0), "readings": rows,
+            "missed_first_pair_bar": sum(not r["within_2x_first_pair"] for r in rows),
+            "missed_widest_pair_bar": sum(not r["within_2x_widest_pair"] for r in rows)}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("what", choices=("rss", "batch"))
+    ap.add_argument("what", choices=("rss", "batch", "spread"))
+    ap.add_argument("--readings", type=int, default=10, help="spread: readings to take")
     ap.add_argument("--form", choices=("graphed", "eager"), default=None,
                     help="run one form in this process")
     ap.add_argument("--option", choices=tuple(OPTIONS), default=None,
                     help="batch: the option of that form's search")
     ap.add_argument("--out", type=str, default=None, help="also write the results here")
     args = ap.parse_args(argv)
+    if args.what == "spread":
+        smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                              "--format=csv,noheader"], capture_output=True, text=True,
+                             check=True).stdout.strip()
+        print(smi, flush=True)
+        result = dict(run_spread(args.readings), card=smi)
+        if args.out:
+            Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+            Path(args.out).write_text(json.dumps(result, indent=1))
+        print(json.dumps({k: result[k] for k in ("missed_first_pair_bar",
+                                                 "missed_widest_pair_bar")}), flush=True)
+        return 0
     if args.form is not None:
         result = (run_rss(args.form) if args.what == "rss"
                   else run_batch(args.form, args.option))

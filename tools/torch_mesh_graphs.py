@@ -1,19 +1,21 @@
 #!/usr/bin/env python3
 """The port's train step replayed as CUDA graphs across NCCL ranks, on 2-4
-cards: the smallest reproduction of a hang, run outside `chip_smoke.py`.
+cards: the smallest reproductions of a teardown's hang, and the train CLI
+under torchrun run again and again, outside `chip_smoke.py`.
 
     python3 tools/torch_mesh_graphs.py repro [--level LEVEL] [--runs N]
-        [--deadline S] [--world N] [--device cuda|cpu] [--out DIR]
+        [--no-release | --turns] [--halo all_reduce] [--deadline S]
+        [--world N] [--device cuda|cpu] [--out DIR]
+    python3 tools/torch_mesh_graphs.py cli [--world N] [--runs N]
+        [--no-release] [--deadline S] [--out DIR]
 
 `repro` runs one reproduction `--runs` times in a row, each in `--world`
 fresh rank processes (NCCL, one a card, TF32 off) under one deadline
 (`torch_ranks.spawn`: a rank still running shortly before it writes its
 Python stack and its flight-recorder log and exits; each group's timeout is
 half the time left, so an eager collective that waits on a hung peer writes
-its log first). The trainer keeps a mesh of more than one rank eager, so
-every level gives its models a `StepGraphs` itself. A run does two cases in
-one process pair, as the trainer's users do when they build a second model
-in a process:
+its log first). A run does two cases in one process pair, as the trainer's
+users do when they build a second model in a process:
 
 - `model`: `configs/male2female.yaml` at full width, 128^2, f32, two rows a
   rank, dis in then dis bn; each case a graphed model (an eager D+G
@@ -27,17 +29,35 @@ in a process:
 - `p30_dp`, `p30_spatial`: phase 30's cases of `chip_smoke.py` run from
   this process as the script runs them (`chip_smoke._mesh_cases`, its
   snapshots made on this process's first card): the data-parallel pair
-  (dis in, then dis bn), or one 1 x 2 spatial grid (dis bn), at full width,
-  128^2, f32, under a 150 s deadline.
+  (dis in, then dis bn), or one 1 x 2 spatial grid (dis bn, its graph
+  forced: the trainer keeps such a grid eager), at full width, 128^2, f32,
+  under a 150 s deadline.
 
-Between the cases the first case's models are dropped where Python drops
-them. Each run's NCCL log (`NCCL_DEBUG=INFO`, subsystems INIT,REG,COLL,GRAPH)
+Every rank destroys each case's graphs (`StepGraphs.release`) before the
+next case and before its process group goes, as the trainer's callers do;
+`--no-release` leaves them alive, dropped where Python drops them (a
+reproduction of the hang in `destroy_process_group`), and `--turns`
+alternates: runs 0, 2, 4, ... release, runs 1, 3, 5, ... do not. `--halo
+all_reduce` sends a spatial grid's halos through their all-reduce form
+(`p30_spatial`), which tells the point-to-point sends from the all-reduces.
+On H100s `p30_spatial` hangs in its spatial group's teardown either way,
+and in both halo forms; `TORCH_CPP_LOG_LEVEL=INFO` shows c10d's teardown
+steps in the run's output.
+Each run's NCCL log (`NCCL_DEBUG=INFO`, subsystems INIT,REG,COLL,GRAPH)
 and dumps go to DIR/<level>.<run>/; one JSON line a run and a last line for
 the reproduction go to stdout and DIR/results.jsonl. `--device cpu` runs
 gloo ranks and the tests' stand-in graph: a rehearsal of the control flow.
 Two reproductions run side by side on four cards as two commands, each with
-its own `CUDA_VISIBLE_DEVICES` pair. The numbers of the steps across ranks
-come from phase 30 alone: `python3 chip_smoke.py --mesh-graphs`.
+its own `CUDA_VISIBLE_DEVICES` pair.
+
+`cli` runs phase 24's train CLI under torchrun at `--world` ranks
+(`chip_smoke.phase_ddp_cli`: male2female at full width, bf16, global batch
+16, 30 iterations with grids and a snapshot, then `--resume` to 35, every
+rank held to the cadence) `--runs` times in a row, one JSON line a run
+(each run's failure, its ranks' stacks and collective logs among it, to
+DIR/cli.<world>.<run>.txt); `--no-release` takes the CLI's release of its
+graphs out. The numbers of the steps across ranks come from phase 30:
+`python3 chip_smoke.py --mesh-graphs`.
 
 Import no JAX.
 """
@@ -58,7 +78,7 @@ OUT = os.path.join(tempfile.gettempdir(), "torch_mesh_graphs")  # --out's defaul
 LEVELS = ("micro", "tiny", "model")
 # phase 30's cases (`chip_smoke._mesh_cases`: name, n_data, n_spatial, dis
 # norm), run from this process as the script runs them, the snapshots made on
-# the first card, their graphs forced (the trainer keeps such meshes eager)
+# the first card, the grid's graph forced (the trainer keeps such a grid eager)
 CASE_LEVELS = {"p30_dp": (("dp_dis_in", 2, 1, "in"), ("dp_dis_bn", 2, 1, "bn")),
                "p30_spatial": (("spatial_1x2", 1, 2, "bn"),)}
 DEADLINE = {"micro": 90.0, "tiny": 150.0, "model": 200.0, "p30_dp": 150.0,
@@ -89,7 +109,8 @@ def _cfg(level: str, norm: str):
 
 
 def _graphs(device):
-    """`StepGraphs` on a card; on the CPU (a rehearsal) its stand-in graph."""
+    """`StepGraphs` on a card; on the CPU (a rehearsal) its stand-in graph,
+    which the trainer does not make there."""
     from aclgan_tpu_torch.graphs import StepGraphs
 
     if device.type == "cpu":
@@ -124,7 +145,7 @@ def _model_case(level, norm, mesh, device, mark):
 
     def build(graphs):
         m = ACLGAN(cfg, device=device, mesh=mesh, seed=1, graphs=graphs)
-        if graphs:  # the trainer keeps a mesh of more ranks eager
+        if graphs and device.type == "cpu":
             m.graphs = _graphs(device)
         m.init_state()
         return m
@@ -179,8 +200,15 @@ def _micro_case(name, mesh, device, mark):
     return [graphs], {"graphed": graphed, "eager": eager}
 
 
-def repro_rank(rank, world, port, level, out_dir, device_type):
-    """Rank `rank` of one reproduction run: both cases, then its metrics to
+def _release(alive):
+    """Destroy the graphs of what a case keeps alive (models, or `StepGraphs`)."""
+    for obj in alive:
+        obj.release() if hasattr(obj, "release") else obj.release_graphs()
+
+
+def repro_rank(rank, world, port, level, out_dir, device_type, release=True):
+    """Rank `rank` of one reproduction run: both cases, each case's graphs
+    destroyed after it unless `release` is False, then its metrics to
     out_dir/result.<rank>.json; progress (one line a stage) to
     out_dir/progress.<rank>.txt."""
     import torch.distributed as dist
@@ -195,6 +223,7 @@ def repro_rank(rank, world, port, level, out_dir, device_type):
 
     mark("init_process_group")
     device = init_rank(rank, world, port, device_type)
+    alive = []
     try:
         mesh = make_mesh(-1)
         results = {}
@@ -203,28 +232,34 @@ def repro_rank(rank, world, port, level, out_dir, device_type):
                 alive, results[case] = _micro_case(case, mesh, device, mark)
             else:
                 alive, results[case] = _model_case(level, case, mesh, device, mark)
-            del alive  # freed at Python's next collection (a model holds cycles)
+            if release:
+                mark(f"{case}: release")
+                _release(alive)
+            alive = []  # without the release, freed at Python's next collection
         mark("done")
         with open(Path(out_dir) / f"result.{rank}.json", "w") as f:
             json.dump(results, f)
     finally:
+        if release:
+            _release(alive)
+        mark("destroy_process_group")
         dist.destroy_process_group()
+        mark("destroyed")
 
 
 # ------------------------------------------------------------------ running them
 def run_repro(level: str, runs: int, deadline: float, out: Path, device_type: str = "cuda",
-              world: int = 2) -> dict:
+              world: int = 2, release="always", halo_p2p: bool = True) -> dict:
     """`runs` runs of one reproduction, each in `world` fresh rank processes
     under `deadline` (gloo ranks and the stand-in graph with `device_type`
-    "cpu"); one JSON line a run. Returns the summary."""
+    "cpu"), each rank's graphs destroyed before its group goes with
+    `release` "always", never with "never", on even runs with "turns"; one
+    JSON line a run. Returns the summary."""
     from torch_ranks import spawn
 
-    if device_type == "cuda":
-        from aclgan_tpu_torch.ops.kernels import build
-
-        build.build_all(sorted(p.name for p in build.CSRC.glob("*.cu")))
     outcomes = []
     for run in range(runs):
+        released = release == "always" or (release == "turns" and run % 2 == 0)
         run_dir = out / f"{level}.{run}"
         run_dir.mkdir(parents=True, exist_ok=True)
         saved = {k: os.environ.get(k) for k in _nccl_log_env(run_dir)}
@@ -233,10 +268,10 @@ def run_repro(level: str, runs: int, deadline: float, out: Path, device_type: st
         error = None
         try:
             if level in CASE_LEVELS:
-                _phase30_cases(level, run_dir, deadline, device_type)
+                _phase30_cases(level, run_dir, deadline, device_type, released, halo_p2p)
             else:
-                spawn(repro_rank, world, (level, str(run_dir), device_type), timeout=deadline,
-                      dump_dir=run_dir)
+                spawn(repro_rank, world, (level, str(run_dir), device_type, released),
+                      timeout=deadline, dump_dir=run_dir)
         except (RuntimeError, AssertionError) as e:
             error = f"{type(e).__name__}: {e}"
         finally:
@@ -250,11 +285,15 @@ def run_repro(level: str, runs: int, deadline: float, out: Path, device_type: st
             p = run_dir / f"progress.{r}.txt"
             lines = p.read_text().splitlines() if p.exists() else []
             stages[r] = lines[-1].split(" ", 1)[1] if lines else "(not started)"
-        line = {"level": level, "world": world, "run": run, "ok": error is None,
+        line = {"level": level, "world": world, "run": run, "release": released,
+                "halo": "point_to_point" if halo_p2p else "all_reduce", "ok": error is None,
                 "seconds": round(time.time() - t0, 1), "last_stage": stages}
         if error is not None:
             (run_dir / "error.txt").write_text(error)
             line["error_head"] = error[:400]
+            line["stacks_in_destroy"] = sorted(
+                p.name for p in run_dir.rglob("stack.*.txt")
+                if "destroy_process_group" in p.read_text(errors="replace"))
         elif level not in CASE_LEVELS:
             line["graphed_vs_eager"] = _digest(
                 [json.loads((run_dir / f"result.{r}.json").read_text()) for r in range(world)])
@@ -262,12 +301,12 @@ def run_repro(level: str, runs: int, deadline: float, out: Path, device_type: st
         print(json.dumps(line), flush=True)
         with open(out / "results.jsonl", "a") as f:
             f.write(json.dumps(line) + "\n")
-    ok = sum(o["ok"] for o in outcomes)
-    return {"level": level, "world": world, "runs": len(outcomes), "ok": ok,
-            "clean_in_a_row": len(outcomes) if ok == len(outcomes) else 0}
+    return {"level": level, "world": world, "runs": len(outcomes),
+            **{f"ok with release {r}": [o["ok"] for o in outcomes if o["release"] == r]
+               for r in (True, False)}}
 
 
-def _phase30_cases(level, run_dir, deadline, device_type):
+def _phase30_cases(level, run_dir, deadline, device_type, release, halo_p2p):
     """`chip_smoke._mesh_cases` for the cases of `level`, from this process.
     Its snapshots and the ranks' states (full width: hundreds of MB) go to a
     temporary directory, never under `run_dir`, so that a run cut from
@@ -278,10 +317,11 @@ def _phase30_cases(level, run_dir, deadline, device_type):
     import chip_smoke
     from aclgan_tpu_torch.config import load_config
 
+    rank_opts = (level == "p30_spatial", release, halo_p2p)  # force the grid's graph
     with tempfile.TemporaryDirectory() as tmp:
         try:
             chip_smoke._mesh_cases(load_config(chip_smoke.CONFIG), tmp, device_type,
-                                   CASE_LEVELS[level], deadline)
+                                   CASE_LEVELS[level], deadline, rank_opts)
         finally:
             dumps = Path(tmp) / "mesh_cases" / "dumps"
             if dumps.exists():
@@ -301,6 +341,42 @@ def _digest(results):
     return out
 
 
+def run_cli(world: int, runs: int, out: Path, release: bool = True,
+            deadline: float = None) -> dict:
+    """Phase 24's train CLI under torchrun at `world` ranks (`chip_smoke.
+    phase_ddp_cli`) `runs` times in a row; one JSON line a run, a failure's
+    text (every rank's stack and collective log among it) to
+    out/cli.<world>.<run>.txt. Returns the summary."""
+    import chip_smoke
+    from aclgan_tpu_torch.config import load_config
+
+    cfg = load_config(chip_smoke.CONFIG)
+    outcomes = []
+    for run in range(runs):
+        t0 = time.time()
+        line = {"cli_world": world, "run": run, "release": release}
+        with tempfile.TemporaryDirectory() as tmp:
+            try:
+                got = chip_smoke.phase_ddp_cli(cfg, tmp, None, world, release,
+                                               deadline=deadline or chip_smoke.DDP_DEADLINE)
+                line.update(ok=True, per_it=round(got["per_it"], 4),
+                            p50={k: round(v, 4) for k, v in got["p50"].items()},
+                            launches=got["launches"], replayed=got["replayed"],
+                            first_s=round(got["first_s"], 1), resume_s=round(got["resume_s"], 1))
+            except (RuntimeError, AssertionError) as e:
+                text = f"{type(e).__name__}: {e}"
+                (out / f"cli.{world}.{run}.txt").write_text(text)
+                line.update(ok=False, error_head=text[:400],
+                            stacks_in_destroy=text.count("destroy_process_group"))
+        line["seconds"] = round(time.time() - t0, 1)
+        outcomes.append(line)
+        print(json.dumps(line), flush=True)
+        with open(out / "results.jsonl", "a") as f:
+            f.write(json.dumps(line) + "\n")
+    return {"cli_world": world, "runs": runs, "release": release,
+            "ok": [o["ok"] for o in outcomes]}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     sub = ap.add_subparsers(dest="cmd", required=True)
@@ -310,18 +386,37 @@ def main(argv=None) -> int:
     r.add_argument("--deadline", type=float, default=None)
     r.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     r.add_argument("--world", type=int, default=2)
-    r.add_argument("--out", default=OUT)
+    r.add_argument("--halo", choices=("point_to_point", "all_reduce"), default="point_to_point")
+    keep = r.add_mutually_exclusive_group()
+    keep.add_argument("--no-release", dest="release", action="store_const", const="never",
+                      default="always")
+    keep.add_argument("--turns", dest="release", action="store_const", const="turns")
+    c = sub.add_parser("cli")
+    c.add_argument("--world", type=int, default=2)
+    c.add_argument("--runs", type=int, default=1)
+    c.add_argument("--deadline", type=float, default=None)
+    c.add_argument("--no-release", dest="release", action="store_false")
+    for p in (r, c):
+        p.add_argument("--out", default=OUT)
     args = ap.parse_args(argv)
     _setup()
     out = Path(args.out)
     out.mkdir(parents=True, exist_ok=True)
     import torch
 
-    if args.device == "cuda" and torch.cuda.device_count() < args.world:
+    device = getattr(args, "device", "cuda")
+    if device == "cuda" and torch.cuda.device_count() < args.world:
         print(f"torch_mesh_graphs: needs {args.world} CUDA devices", file=sys.stderr)
         return 2
-    summary = run_repro(args.level, args.runs, args.deadline or DEADLINE[args.level], out,
-                        args.device, args.world)
+    if device == "cuda":  # once, before any rank loads them
+        from aclgan_tpu_torch.ops.kernels import build
+
+        build.build_all(sorted(p.name for p in build.CSRC.glob("*.cu")))
+    if args.cmd == "cli":
+        summary = run_cli(args.world, args.runs, out, args.release, args.deadline)
+    else:
+        summary = run_repro(args.level, args.runs, args.deadline or DEADLINE[args.level], out,
+                            device, args.world, args.release, args.halo == "point_to_point")
     print(json.dumps(summary), flush=True)
     return 0
 

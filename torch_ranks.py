@@ -4,9 +4,11 @@ running shortly before it writes its Python stack and its collective log
 (PyTorch's flight recorder) into the spawn's dump directory and exits, each
 group's timeout (`group_timeout`) ends a collective that waits on a hung peer
 before that, and the spawn raises with every rank's exit code, traceback,
-stack and log. `mesh_graph_steps` is the rank body of the graphed mesh
-step's checks. The CPU tests, `chip_smoke.py` and
-`tools/torch_mesh_graphs.py` share both. Imports nothing of JAX."""
+stack and log. `torchrun` bounds a run of the torchrun launcher the same
+way. `teardown` destroys a rank's CUDA graphs before its process group.
+`mesh_graph_steps` is the rank body of the graphed mesh step's checks. The
+CPU tests, `chip_smoke.py` and `tools/torch_mesh_graphs.py` share them.
+Imports nothing of JAX."""
 
 import contextlib
 import datetime
@@ -16,7 +18,10 @@ import json
 import multiprocessing.connection
 import os
 import shutil
+import signal
 import socket
+import subprocess
+import sys
 import tempfile
 import threading
 import time
@@ -28,6 +33,7 @@ import torch.multiprocessing as mp
 
 _DEADLINE = "ACLGAN_SPAWN_DEADLINE"  # the spawn's deadline (time.time()), set in each rank
 _FR_PREFIX = "collectives."          # the flight recorder's dump files: <prefix><rank>
+_DUMP_DIR = "ACLGAN_DUMP_DIR"        # where a rank that torchrun started dumps
 
 
 def free_port() -> int:
@@ -152,11 +158,10 @@ def dump_collectives(path: str) -> None:
                 return
 
 
-def _guarded(fn, rank, world, port, args, dump_dir, deadline, timeout):
-    torch.set_num_threads(1)
-    margin = dump_margin(timeout)
-    os.environ.update(flight_recorder_env(dump_dir))
-    os.environ[_DEADLINE], os.environ[_DEADLINE + "_MARGIN"] = str(deadline), str(margin)
+def _watch(rank, dump_dir, deadline, margin):
+    """Arm this process to write its collective log and then its Python stack
+    (every thread) into `dump_dir` `margin` s before `deadline`, and to exit
+    there; returns the function that disarms both."""
     left = max(0.5, deadline - margin - time.time())
     stack = open(os.path.join(dump_dir, f"stack.{rank}.txt"), "w")
     faulthandler.enable(stack)
@@ -165,6 +170,20 @@ def _guarded(fn, rank, world, port, args, dump_dir, deadline, timeout):
                           (os.path.join(dump_dir, f"{_FR_PREFIX}{rank}.at_deadline.json"),))
     log.daemon = True
     log.start()
+
+    def disarm():
+        log.cancel()
+        faulthandler.cancel_dump_traceback_later()
+
+    return disarm
+
+
+def _guarded(fn, rank, world, port, args, dump_dir, deadline, timeout):
+    torch.set_num_threads(1)
+    margin = dump_margin(timeout)
+    os.environ.update(flight_recorder_env(dump_dir))
+    os.environ[_DEADLINE], os.environ[_DEADLINE + "_MARGIN"] = str(deadline), str(margin)
+    disarm = _watch(rank, dump_dir, deadline, margin)
     try:
         fn(rank, world, port, *args)
     except BaseException:
@@ -173,8 +192,61 @@ def _guarded(fn, rank, world, port, args, dump_dir, deadline, timeout):
         dump_collectives(os.path.join(dump_dir, f"{_FR_PREFIX}{rank}.at_error.json"))
         raise
     finally:
-        log.cancel()
-        faulthandler.cancel_dump_traceback_later()
+        disarm()
+
+
+def torchrun(argv, world: int, timeout: float, dump_dir, env=None):
+    """`python -m torch.distributed.run --standalone --nproc_per_node world
+    argv...` (a script and its arguments) under one deadline `timeout` s
+    away, in a session of its own; returns (its stdout lines, seconds). A
+    rank that calls `watch_torchrun_rank` dumps as a spawned rank does
+    (`spawn`) and exits near the deadline; what is left at it is killed.
+    Raises on a non-zero exit or the deadline with the output's tail and
+    every rank's dumps."""
+    dump_dir = str(dump_dir)
+    os.makedirs(dump_dir, exist_ok=True)
+    deadline = time.time() + timeout
+    env = dict(os.environ, **(env or {}), **flight_recorder_env(dump_dir))
+    env.update({_DEADLINE: str(deadline), _DEADLINE + "_MARGIN": str(dump_margin(timeout)),
+                _DUMP_DIR: dump_dir})
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
+           str(world)] + [str(a) for a in argv]
+    t0 = time.time()
+    proc = subprocess.Popen(cmd, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True, start_new_session=True)
+    try:
+        # the ranks exit at the dump; torchrun then ends the rest within seconds
+        out, err = proc.communicate(timeout=timeout + 30)
+        cut = ""
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        out, err = proc.communicate()
+        cut = f"killed at the {timeout:.0f} s deadline; "
+    finally:
+        with contextlib.suppress(ProcessLookupError):
+            os.killpg(proc.pid, signal.SIGKILL)  # a rank torchrun left behind
+    if cut or proc.returncode:
+        raise RuntimeError(f"torchrun of {world} ranks {argv[:3]}: {cut}exit {proc.returncode}"
+                           f"\n{out[-2000:]}\n{err[-4000:]}\n" + rank_dumps(dump_dir, world))
+    return out.splitlines(), time.time() - t0
+
+
+def watch_torchrun_rank() -> None:
+    """In a rank that `torchrun` started: arm it to dump its stack and its
+    collective log near the run's deadline and exit (nothing outside such a
+    run)."""
+    if _DUMP_DIR in os.environ:
+        _watch(int(os.environ["RANK"]), os.environ[_DUMP_DIR],
+               float(os.environ[_DEADLINE]), float(os.environ[_DEADLINE + "_MARGIN"]))
+
+
+def teardown(models=()) -> None:
+    """Destroy each model's CUDA graphs, then the process group: a live
+    graph's NCCL collectives hold the group's communicators, and their
+    destroy waits for every graph that references them."""
+    for model in models:
+        model.release_graphs()
+    dist.destroy_process_group()
 
 
 def init_rank(rank, world, port, device_type):
@@ -193,7 +265,7 @@ def init_rank(rank, world, port, device_type):
 
 
 def mesh_graph_steps(rank, world, port, cases, out_dir, device_type="cuda",
-                     force_graphs=False):
+                     force_graphs=False, release=True, halo_p2p=True):
     """For each case, in one process group: three D+G iterations on this
     rank's share (a `DataMesh` when n_spatial is 1, else an n_data x
     n_spatial grid) of the global NHWC batches, on the injected global z of
@@ -201,10 +273,15 @@ def mesh_graph_steps(rank, world, port, cases, out_dir, device_type="cuda",
     replayed; then the third from the same state in an eager twin
     (`graphs=False`); on the CPU through `cpu_graphs()`. Each case =
     (name, n_data, n_spatial, config dict, snapshot path, x_a, x_b,
-    [z, z, z]); its models are dropped before the next case. A mesh the
+    [z, z, z]); its models' graphs are destroyed and the models dropped
+    before the next case, and the last case's before the group goes
+    (`teardown`); `release` False leaves every graph alive until Python
+    collects it (a reproduction of the teardown with graphs alive). A mesh the
     trainer keeps eager runs eagerly in both forms (no keys), unless
     `force_graphs` gives its model a `StepGraphs` anyway (a reproduction of
-    what the trainer refuses). Saves
+    what the trainer refuses). `halo_p2p` False sends every halo through
+    its all-reduce form (`parallel/halo.py`), which tells a hang of the
+    point-to-point sends from one of the all-reduces. Saves
     out_dir/mesh.<name>.<rank>.pt: the state before the third iteration
     (rank 0), the third iteration's metrics, networks and (K1, K2, K1m,
     K1a, K2m, K2a) in both forms, the graphs' keys and capture bytes."""
@@ -212,12 +289,15 @@ def mesh_graph_steps(rank, world, port, cases, out_dir, device_type="cuda",
 
     from aclgan_tpu_torch.config import from_dict
     from aclgan_tpu_torch.ops.kernels import instance_norm as K
+    from aclgan_tpu_torch.parallel import halo
     from aclgan_tpu_torch.parallel.mesh import batch_sharding, make_mesh, shard_state
     from aclgan_tpu_torch.parallel.spatial import make_mesh_2d, spatial_batch_sharding
     from aclgan_tpu_torch.trainer import ACLGAN
 
+    if not halo_p2p:
+        halo._point_to_point = lambda t, group: False
     device = init_rank(rank, world, port, device_type)
-    meshes = {}
+    meshes, alive = {}, []
     try:
         for name, n_data, n_spatial, cfg_dict, snap_path, x_a, x_b, zs in cases:
             if (n_data, n_spatial) not in meshes:  # every rank makes every grid
@@ -248,6 +328,7 @@ def mesh_graph_steps(rank, world, port, cases, out_dir, device_type="cuda",
                                 for n, sd in snap["dis"].items()}}
 
             model = model_(True)
+            alive.append(model)
             if device.type == "cpu":  # the tests' stand-in graph: the CPU has no CUDA graphs
                 from tests.torch_dp_worker import cpu_graphs
 
@@ -270,6 +351,9 @@ def mesh_graph_steps(rank, world, port, cases, out_dir, device_type="cuda",
             if rank == 0:
                 out["state"] = state
             torch.save(out, os.path.join(out_dir, f"mesh.{name}.{rank}.pt"))
+            if release:
+                model.release_graphs()
+            alive.clear()
             del model, twin
     finally:
-        dist.destroy_process_group()
+        teardown(alive if release else ())
