@@ -9,9 +9,8 @@ launches each. `StepGraphs` gives the port the same on a CUDA device: a
 step is recorded once per key into a `torch.cuda.CUDAGraph` and replayed, one
 host call in place of the few thousand launches (98 K1 and 49 K2 among them
 in a D+G iteration) that Python issues one at a time when eager. The train
-step replays on one device and under an NCCL data-parallel mesh of any
-size; gloo meshes and spatial grids of more ranks keep it eager
-(`trainer.py`).
+step replays on one device and under an NCCL mesh of any size,
+data-parallel or a spatial grid; gloo meshes keep it eager (`trainer.py`).
 
 `run(key, inputs, body)`:
 
@@ -63,7 +62,10 @@ the device after the last one's, so threads may call one `StepGraphs` at once
 The kernels' launch counters (`ops/kernels/instance_norm.py`) count in their
 Python wrappers, which a replay does not call: the change a capture made to
 each is taken back and added at every replay instead. A capture that fails
-raises with its key and cause; nothing falls back to the eager form.
+raises with its key and cause; nothing falls back to the eager form. It
+destroys its graph first, on every rank: the collectives the body recorded
+before the failure hold their communicators as a finished graph's do, and
+the exception would keep the graph alive through the caller's teardown.
 """
 
 from __future__ import annotations
@@ -205,6 +207,8 @@ class StepGraphs:
             _set_counts(before)  # the capture launched nothing
         failed_elsewhere = (mesh is not None
                             and self._all_max(mesh, [int(error is not None)])[0] > 0)
+        if error is not None or failed_elsewhere:  # before the raise: see the docstring
+            self._discard(graph)
         if error is not None:
             # out of memory stays that error, for callers that size batches by it:
             # the allocator's, or the CUDA runtime's when it instantiates the graph
@@ -231,6 +235,10 @@ class StepGraphs:
     # the device's side of it (a stand-in replaces these on the CPU in the tests)
     def _new_graph(self):
         return torch.cuda.CUDAGraph()
+
+    def _discard(self, graph) -> None:
+        """Destroy a graph whose capture failed."""
+        graph.reset()
 
     def _on_device(self):
         if self.device.index is None or self.device.index == torch.cuda.current_device():

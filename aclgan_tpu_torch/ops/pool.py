@@ -29,7 +29,8 @@ def avg_pool_3x3_s2(x: torch.Tensor, mesh=None, layer: str = "") -> torch.Tensor
     xe = halo_rows(x.float(), 1, 0, mesh, "zero")
     total = F.avg_pool2d(xe, 3, 2, (0, 1), divisor_override=1)
     real = torch.ones(h + 1, device=x.device)  # rows that are not padding
-    real[0] = float(r > 0)
+    if r == 0:  # the image's top pad row; `real[0] = 0.0` would copy from the host
+        real[:1].fill_(0.0)
     real = real.view(1, 1, h + 1, 1).expand(1, 1, h + 1, x.shape[3])
     count = F.avg_pool2d(real, 3, 2, (0, 1), divisor_override=1)
     return (total / count).to(x.dtype)

@@ -18,7 +18,7 @@ depends on what the spatial group can move (`_point_to_point`):
   last `top` rows to the next spatial rank and its first `bottom` rows to
   the previous one; the grid's first and last ranks send and receive
   nothing that `halo_rows` would discard. Over NCCL this is device work,
-  which a CUDA graph can record (the trainer keeps a multi-rank step eager);
+  which the train step's CUDA graph records;
 - gloo with CUDA tensors (two ranks sharing one card) moves them only by
   `all_reduce` and `broadcast`, so there the exchange is one `all_reduce`
   over the spatial group: each rank writes the rows its neighbours need

@@ -27,17 +27,14 @@ Port of `aclgan_tpu/trainer.py` (`to_model_range`, `ACLGAN`: `init_state`,
   nothing back to the host and holds every collective of the step under a
   mesh: the gradients' and the metrics' all-reduces, the focus sums, bn's
   statistics, and under a `SpatialMesh` the halos and the split kernels'
-  all-reduces. An NCCL `DataMesh` of any size (`torchrun --nproc_per_node
-  N`; `mesh.capturable()`) and a spatial grid of one rank replay it as a
+  all-reduces. An NCCL `DataMesh` (`torchrun --nproc_per_node N`) and an
+  NCCL spatial grid of any size (`mesh.capturable()`) replay it as a
   graph; the capture checks the key and its success across the mesh's
   ranks and raises on every rank when the keys differ or a rank's capture
   fails. A graph holds its collectives' communicators until it is
   destroyed, so a rank calls `release_graphs` before its process group
-  goes (the train CLI does, on every exit path). A spatial grid of more
-  ranks stays eager: on H100s, after a replayed spatial step, tearing down
-  the spatial group hung on every rank of a 1 x 2 grid, its graphs
-  destroyed before it or not.
-  The steps also run eagerly on the CPU, under a gloo mesh
+  goes (the train CLI does, on every exit path).
+  The steps run eagerly on the CPU, under a gloo mesh
   (gloo stages its collectives through the host), under `tpu.check_nans`
   (anomaly mode cannot be captured), or when built with `graphs=False`; the
   model prints which when it is built. `sample` is graphed where the step
@@ -192,10 +189,6 @@ class ACLGAN:
         if self.mesh is not None and not self.mesh.capturable():
             return (f"a {type(self.mesh).__name__} over gloo: its collectives are staged "
                     f"through the host")
-        if isinstance(self.mesh, SpatialMesh) and self.mesh.world > 1:
-            return (f"a SpatialMesh of {self.mesh.world} ranks: after a replayed step, the "
-                    f"spatial group's teardown hung on every rank of a 1 x 2 grid of H100s, "
-                    f"the step's graphs destroyed before it")
         if self.cfg.tpu.check_nans:
             return "tpu.check_nans: anomaly mode cannot be captured"
         return None

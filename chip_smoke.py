@@ -13,8 +13,8 @@ parallelism (two ranks on the card, the CLI under torchrun), the
 multi-replica Translator, the VGG perceptual loss and spatial (H) sharding
 (two ranks at 512^2), through the hand-written CUDA kernels, and fails,
 with a non-zero exit, if any phase fails. On the card the train step (on
-one device and under an NCCL data-parallel mesh), `sample` and the
-Translator's served batch run as CUDA graphs (`aclgan_tpu_torch/graphs.py`:
+one device and under an NCCL mesh, data-parallel or a spatial grid),
+`sample` and the Translator's served batch run as CUDA graphs (`aclgan_tpu_torch/graphs.py`:
 each key's first call eager, then captured, then replayed), so every
 phase's launch counts hold for the graphed forms; gloo meshes (phases 23,
 27) stay eager:
@@ -176,17 +176,24 @@ phase's launch counts hold for the graphed forms; gloo meshes (phases 23,
    bit-equal, 57 K1 a call, its capture bytes;
 30. [mesh_graphs] the train step under an NCCL mesh as a CUDA graph: a
    `DataMesh` of one rank in a spawned process, the bare bf16 step at batch
-   3 (and 16 on two or more cards), graphed and eager (s an iteration, host s, idle share, peak,
+   3 (and on two or more cards 16, and phase 27's f32 step at 512^2,
+   batch 2), graphed and eager (s an iteration, host s, idle share, peak,
    pool, launches against the cadence). On two or more cards also (on one,
    it logs that this part needs more cards): two NCCL ranks run the
    data-parallel D+G step for dis in and then dis bn in one process pair
    (phase 23's cut; each replayed iteration held to its eager twin at
    phase 23's bars and to one process at `MESH_ALONE_BARS`, the ranks
-   bit-equal); then at 2 and at 4 ranks where the host has the cards, the
-   bare step at global batch 16 graphed and eager against one card, and
-   phase 24's train CLI under torchrun at that world (`phase_ddp_cli`,
-   every rank held to the cadence). Every spawn and torchrun runs under one
-   deadline that dumps each rank's stack and collective log;
+   bit-equal); the 1 x 2 and, on four cards, the 2 x 2 spatial grid at
+   that cut, graphed (dis bn; the same holds, and the replayed state within
+   2x the widest pair of three eager copies, phase 29's rule; the split
+   kernels' launches equal to eager's, K1 and K2 none); then at 2 and at
+   4 ranks where the host has the cards, the bare step at global batch 16
+   and the spatial step at 512^2 on a 1 x world grid, each graphed and
+   eager against one card (the split kernels' device ms and events over a
+   traced D+G + D), and phase 24's train CLI under torchrun at that world
+   (`phase_ddp_cli`, every rank held to the cadence). Every spawn and
+   torchrun runs under one deadline that dumps each rank's stack and
+   collective log;
 31. K1's and K2's device time a launch at each layer of phases 3-4's mixes
    (torch.profiler, or CUDA events behind a queued busy kernel where the
    profiler loses the kernels) beside the library call's; run last so that
@@ -850,12 +857,12 @@ _KERNEL_GROUPS = [  # (group, substrings of the CUDA kernel name), first match w
 ]
 
 
-def _profile(what, fn, launches=None):
+def _profile(what, fn, launches=None, split=None):
     """Device time by kernel group over one call of fn(), with torch.profiler;
     returns (wall ms, device busy ms). With `launches` (K1, K2), the trace's
     K1 and K2 kernel events are held to them by `_hold_trace`: a count read
     from the device's own record, which a replayed CUDA graph's counters are
-    not."""
+    not. A dict `split` gets each split kernel's (device ms, events)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -898,6 +905,14 @@ def _profile(what, fn, launches=None):
         f"{offset}")
     if launches is not None:
         _hold_trace(what, events, launches)
+    if split is not None:
+        for name, mark in SPLIT_KERNEL_NAMES.items():
+            # the kernel's own name: "apply_kernel" is not "bwd_apply_kernel", nor a
+            # library kernel's "...::(anonymous namespace)::apply_kernel"
+            own = re.compile(rf"(^|\s)(\(anonymous namespace\)::)?{mark}\b")
+            mine = [(ms, n) for ms, n, key in kernels if own.search(key)]
+            split[name] = (sum(ms for ms, _ in mine), sum(n for _, n in mine))
+        log(f"[profile]   split kernels (device ms, events): {split}")
     for g, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
         log(f"[profile]   {g}: {ms:.2f} ms ({100 * ms / wall_ms:.1f}% of wall)")
     kernels.sort(reverse=True)
@@ -1341,26 +1356,31 @@ def phase_train_cli_b3(cfg, tmp):
 
 
 def _bare_train_step(cfg, graphs=True, windows=5, window=8, mesh=None):
-    """`train_step` alone at cfg.batch_size (under a `mesh`, this rank's rows)
-    on device-resident batches, as phase
+    """`train_step` alone at cfg.batch_size and the config's crop (under a
+    `mesh`, this rank's rows, and under a `SpatialMesh` its H-slice of a
+    global batch of cfg.batch_size) on device-resident batches, as phase
     8 runs it: p50 seconds per iteration over `windows` windows of `window`
     at D1/G2 (CUDA events), the host's seconds to issue one iteration (p50 of
     6 calls, each after a synchronize), the device's idle share over one
     traced D+G and D pair (torch.profiler), peak memory, the graphs' pool and
     capture seconds, and (K1, K2) over every iteration against the cadence's
-    count (it fails if they differ); the traced pair's K1 and K2 kernel
-    events must number the pair's launches too. Returns them as a dict."""
-    from aclgan_tpu_torch.ops.kernels import instance_norm as K
+    count (under a `SpatialMesh`, (K1, K2, K1m, K1a, K2m, K2a), K1 and K2 0;
+    it fails if they differ); the traced pair's K1 and K2 kernel events must
+    number the pair's launches too (under a `SpatialMesh`, its split
+    kernels' device ms and events are returned). Returns them as a dict."""
+    from aclgan_tpu_torch.parallel.spatial import sharded, spatial_batch_sharding
 
-    b = cfg.batch_size
+    b, size = cfg.batch_size, cfg.data.crop_image_height
+    split = sharded(mesh)
     gc_collect()
     torch.cuda.reset_peak_memory_stats()
     model = _train_model(cfg, "cuda", graphs=graphs, mesh=mesh)
     rng = np.random.RandomState(1)
-    batches = [tuple(torch.from_numpy(rng.randint(0, 256, (b, 256, 256, 3), dtype=np.uint8))
-                     .cuda() for _ in range(2)) for _ in range(4)]
+    part = spatial_batch_sharding(mesh, b, size) if split else (slice(None), slice(None))
+    batches = [tuple(torch.from_numpy(rng.randint(0, 256, (b, size, size, 3), dtype=np.uint8))
+                     [part].cuda() for _ in range(2)) for _ in range(4)]
     it, kinds = 0, {"D+G": 0, "D": 0}
-    K.launches = K.bwd_launches = 0
+    _zero_counts()
 
     def iteration():
         nonlocal it
@@ -1392,27 +1412,29 @@ def _bare_train_step(cfg, graphs=True, windows=5, window=8, mesh=None):
     if it % cfg.G_update:
         iteration()
     form = "graphed" if graphs else "eager"
-    wall_ms, busy_ms = _profile(f"one D+G and one D iteration at batch {b}, {form}",
+    split_ms = {}
+    wall_ms, busy_ms = _profile(f"one D+G and one D iteration at batch {b}, {size}^2, {form}",
                                 lambda: [iteration() for _ in range(2)],
-                                (3 * K1_PER_STEP, K2_PER_G_STEP))
+                                None if split else (3 * K1_PER_STEP, K2_PER_G_STEP),
+                                split_ms if split else None)
     torch.cuda.synchronize()
-    launches = (K.launches, K.bwd_launches)
-    want = (K1_PER_STEP * (2 * kinds["D+G"] + kinds["D"]), K2_PER_G_STEP * kinds["D+G"])
+    k1, k2 = K1_PER_STEP * (2 * kinds["D+G"] + kinds["D"]), K2_PER_G_STEP * kinds["D+G"]
+    launches, want = (_counts(), (0, 0, k1, k1, k2, k2)) if split else (_counts()[:2], (k1, k2))
     if launches != want:
-        raise AssertionError(f"bare train_step b{b} {form}: (K1, K2) {launches} over "
+        raise AssertionError(f"bare train_step b{b} {form}: launches {launches} over "
                              f"{kinds}, expected {want}")
     out = dict(s=float(np.median(secs)), host_s=float(np.median(host)),
                idle=1 - busy_ms / wall_ms, peak=torch.cuda.max_memory_allocated(),
                pool=_pool(model), launches=launches, iterations=dict(kinds),
                capture_s=[round(v, 4) for v in (model.graphs.capture_seconds.values()
-                                                if graphs else ())])
+                                                if graphs else ())], split_ms=split_ms)
     log(f"[train bare b{b}] train_step at batch {b}, D1/G2, {form}: p50 {out['s']:.4f} s "
         f"per iteration over {windows} windows of {window} "
         f"({', '.join(f'{x:.4f}' for x in secs)}); the host issues an iteration in "
         f"{out['host_s']:.4f} s (p50 of 6 after a sync); device idle {100 * out['idle']:.1f}% "
         f"over a traced D+G + D; peak memory {out['peak'] / 2**30:.3f} GiB ({out['peak']} B); "
-        f"graphs' pool {out['pool']}, capture s {out['capture_s']}; (K1, K2) {launches} over "
-        f"{kinds} = the cadence's count")
+        f"graphs' pool {out['pool']}, capture s {out['capture_s']}; launches {launches} "
+        f"over {kinds} = the cadence's count")
     model.release_graphs()
     del model, batches
     gc_collect()
@@ -3823,13 +3845,20 @@ def _mesh_rank(rank, world, port, jobs, out_dir):
         teardown()  # `_bare_train_step` destroys each model's graphs
 
 
-def _job_bare(cfg, b, graphs):
-    """The bare bf16 step at b rows a rank under a `DataMesh`
-    (`_bare_train_step`; `graphs` as the trainer takes it)."""
+def _job_bare(cfg, b, graphs, n_spatial=1):
+    """The bare step at b rows a rank under a `DataMesh`, or at a global batch
+    of b on a 1 x n_spatial grid of every rank (`_bare_train_step`; `graphs`
+    as the trainer takes it)."""
     from aclgan_tpu_torch.parallel.mesh import make_mesh
+    from aclgan_tpu_torch.parallel.spatial import make_mesh_2d
 
-    return _bare_train_step(dataclasses.replace(cfg, batch_size=b), graphs, 3, 6,
-                            mesh=make_mesh(-1))
+    mesh = make_mesh(-1) if n_spatial == 1 else make_mesh_2d(1, n_spatial)
+    return _bare_train_step(dataclasses.replace(cfg, batch_size=b), graphs, 3, 6, mesh=mesh)
+
+
+def _spatial_cut(cfg):
+    """Phase 27's cut of the spatial step: full width, f32, 512^2."""
+    return _variant_cfg(cfg, SP_SIZE)
 
 
 def _mesh_spawn(world, jobs, tmp, tag):
@@ -3843,33 +3872,32 @@ def _mesh_spawn(world, jobs, tmp, tag):
              for r in range(world)], time.time() - t0)
 
 
-def _log_bare(smi, what, g, e):
-    log(f"[mesh_graphs] {smi}: {what}, bare bf16 step 256^2, D1/G2: graphed {g['s']:.4f} s an "
+def _log_bare(smi, what, g, e, step="bare bf16 step 256^2"):
+    log(f"[mesh_graphs] {smi}: {what}, {step}, D1/G2: graphed {g['s']:.4f} s an "
         f"iteration against eager {e['s']:.4f} s (ratio {g['s'] / e['s']:.4f}); host "
         f"{g['host_s']:.4f} against {e['host_s']:.4f} s to issue one; device idle "
         f"{100 * g['idle']:.1f}% against {100 * e['idle']:.1f}%; peak {g['peak'] / 2**30:.3f} "
         f"against {e['peak'] / 2**30:.3f} GiB; graphs' pool {g['pool']}, capture s "
-        f"{g['capture_s']}; (K1, K2) {g['launches']} over {g['iterations']} = the cadence's "
+        f"{g['capture_s']}; launches {g['launches']} over {g['iterations']} = the cadence's "
         f"count")
 
 
 MESH_CASES = (("dp_dis_in", 2, 1, "in"), ("dp_dis_bn", 2, 1, "bn"))  # name, grid, dis norm
 # The replayed third iteration against one process: the metrics that do not
 # read the D this iteration moved (rel) and each network after it (rel-L2).
-# From its second step on Adam's update is linear in the gradient over its
-# running RMS (the first step is sign-like, so phase 23 holds 1e-3), so the
-# float noise in the gradients of the D's deepest convs moves those weights
-# by up to 0.4 lr: gloo ranks on the CPU against one CPU process read
-# 1.13e-3 (dis in) and 8.71e-4 (dis bn), two NCCL ranks on H100s 1.13e-3
-# (dis in). The G step's adversarial losses read the D this iteration moved,
-# through its norms, and are logged only: 3.19e-3 (in) and 1.36e-1 (bn,
-# loss_gen_adv_2) on the CPU, 2.85e-3 (in) on the cards.
+# The bars were set while the one-process run started from a state whose
+# optimizer moments an eager twin had already stepped (1.13e-3 params); from
+# the state itself two NCCL ranks on H100s read 1.2e-5 to 3.0e-5 (DP pair and
+# grids). The G step's adversarial losses read the D this iteration moved,
+# through its norms, and are logged only.
 MESH_ALONE_BARS = (1e-4, 3e-3)
 MESH_AFTER_D_STEP = ("loss_gen_adv_", "loss_gen_total")  # metrics that read the moved D
+# the graphed spatial grids of the 2-4 card part, each in its own spawn
+GRID_CASES = (("spatial_1x2", 1, 2, "bn"), ("spatial_2x2", 2, 2, "bn"))
 
 
 def _mesh_cases(cfg, tmp, device_type="cuda", specs=MESH_CASES, deadline=MESH_DEADLINE,
-                rank_opts=(False, True, True)):
+                rank_opts=(True, True), tag="mesh_cases"):
     """The 2-card correctness part of phase 30, in one pair of NCCL ranks
     (`torch_ranks.mesh_graph_steps`): the data-parallel D+G step for dis in
     and then dis bn (the first case's graphs destroyed and its models
@@ -3881,17 +3909,21 @@ def _mesh_cases(cfg, tmp, device_type="cuda", specs=MESH_CASES, deadline=MESH_DE
     step's adversarial metrics, which read the D the iteration moved,
     logged), the ranks to each other bit for bit. Returns {case: (K1, K2,
     K1m, K1a, K2m, K2a) of a replayed iteration on rank 0}. `specs` may
-    name a spatial grid (n_data, n_spatial), which the trainer keeps eager;
-    `rank_opts` are `mesh_graph_steps`' (force_graphs, release, halo_p2p),
-    which `tools/torch_mesh_graphs.py` sets to reproduce what the trainer
-    or the harness does not do; with `device_type` "cpu", gloo ranks and the
-    tests' stand-in graph (a rehearsal of the checks)."""
+    name spatial grids (n_data, n_spatial), all of one size, which the
+    spawn's ranks form; `rank_opts` are `mesh_graph_steps`' (release,
+    halo_p2p, explicit_teardown, eager_copies), which
+    `tools/torch_mesh_graphs.py` sets to reproduce what the trainer or the
+    harness does not do. With eager_copies > 1 the replayed state is also
+    held within 2x the widest pair of the eager copies (phase 29's rule).
+    With `device_type` "cpu", gloo ranks and the tests' stand-in graph (a
+    rehearsal of the checks). `tag` names its directory under `tmp`."""
     from aclgan_tpu_torch.trainer import ACLGAN
     from torch_ranks import mesh_graph_steps
 
-    size, world = 128, 2
+    size = 128
+    world = {n_data * n_spatial for _, n_data, n_spatial, _ in specs}.pop()
     cases, inputs = [], {}
-    out_dir = Path(tmp) / "mesh_cases"
+    out_dir = Path(tmp) / tag
     out_dir.mkdir()
     for name, n_data, n_spatial, norm in specs:
         vcfg = _variant_cfg(cfg, size, dis=dict(norm=norm))
@@ -3943,6 +3975,10 @@ def _mesh_cases(cfg, tmp, device_type="cuda", specs=MESH_CASES, deadline=MESH_DE
                 raise AssertionError(f"mesh_graphs {name}: replayed against its eager twin: "
                                      f"metrics rel {twin[-1][0]:.2e} ({twin[-1][1]}; bar 1e-4), "
                                      f"params rel-L2 {twin[-1][2]:.2e} (bar 1e-3)")
+            if "eager_pairs" in r and r["graphed_rel"] > 2 * max(r["eager_pairs"]):
+                raise AssertionError(f"mesh_graphs {name}: the replayed state's rel-L2 from the "
+                                     f"first eager copy {r['graphed_rel']:.3e}, over 2x the "
+                                     f"widest pair of eager copies {r['eager_pairs']}")
             alone.append(_mesh_gap(g, one, MESH_AFTER_D_STEP))
             moved = max((abs(g["metrics"][k] - w) / max(abs(w), 1e-12), k)
                         for k, w in one["metrics"].items() if k.startswith(MESH_AFTER_D_STEP))
@@ -3966,7 +4002,13 @@ def _mesh_cases(cfg, tmp, device_type="cuda", specs=MESH_CASES, deadline=MESH_DE
             f"{MESH_ALONE_BARS[1]}), the G step's adversarial metrics (logged) "
             f"{moved[0]:.2e} ({moved[1]}); ranks equal; (K1, K2, K1m, K1a, K2m, K2a) a replay "
             f"{counts[name]} = eager; capture bytes "
-            f"{list(ranks[0]['capture_bytes'].values())}")
+            f"{list(ranks[0]['capture_bytes'].values())}"
+            + ("" if "eager_pairs" not in ranks[0] else
+               "; the replayed state's rel-L2 from the first eager copy, beside each pair of "
+               "eager copies (phase 29's rule: at most 2x the widest), rank by rank: "
+               + "; ".join(f"{r['graphed_rel']:.3e} against "
+                           f"{', '.join(f'{x:.3e}' for x in r['eager_pairs'])}"
+                           for r in ranks)))
     log(f"[mesh_graphs] the {len(specs)} cases in one pair of rank processes took {secs:.1f} s")
     return counts
 
@@ -3989,46 +4031,68 @@ def _mesh_gap(got, want, skip=()):
 
 def phase_mesh_graphs(cfg, tmp, smi, cli_s_per_it=None, worlds=MESH_WORLDS, cli_runs=1,
                       pair=True):
-    """[mesh_graphs] The train step under an NCCL `DataMesh` replayed as a
-    CUDA graph with its collectives inside, against the eager form: a mesh
-    of one rank (a spawned process), the bare bf16 step at batch 3 (and 16
-    where the 2-4 card part runs, its reference). On two or more cards, the
-    2-4 card part: the 2-card correctness cases
-    (`_mesh_cases`), then at each world of `worlds` the host has, the bare
-    step at global batch 16 (16 / world rows a rank, one rank a card) in
+    """[mesh_graphs] The train step under an NCCL mesh replayed as a CUDA
+    graph with its collectives inside, against the eager form: a
+    `DataMesh` of one rank (a spawned process), the bare bf16 step at batch
+    3 (and, where the 2-4 card part runs, its references: 16, and the f32
+    step at 512^2, global batch 2). On two or more cards, the 2-4 card part:
+    the 2-card data-parallel correctness cases (`_mesh_cases`; left out with
+    `pair` False), the graphed spatial grids of `GRID_CASES` that the host
+    has the cards for, each in its own spawn, held to their eager twins at
+    phase 23's bars and phase 29's rule, then at each world of `worlds` the
+    host has: the bare step at global batch 16 (16 / world rows a rank, one
+    rank a card) and the spatial step at 512^2 on a 1 x world grid, each in
     both forms against one card, and the train CLI under torchrun
     (`phase_ddp_cli`) `cli_runs` times in a row, the first resumed to 35.
-    `pair` False leaves the correctness cases out. Returns {path:
-    launches}."""
+    Returns {path: launches}."""
     n_cards = torch.cuda.device_count()
     log(f"[mesh_graphs] {smi}; {n_cards} card(s)")
     paths = {}
-    # batch 16 is the reference of the 2-4 card part, run only with it
-    batches = MESH_BATCHES if n_cards >= 2 else MESH_BATCHES[:1]
-    one, secs = _mesh_spawn(1, [(f"b{b} {f}", (cfg, b, f == "graphed"))
-                                for b in batches for f in ("graphed", "eager")], tmp, "w1")
+    more = n_cards >= 2  # the references of the 2-4 card part run only with it
+    jobs = [(f"b{b} {f}", (cfg, b, f == "graphed"))
+            for b in (MESH_BATCHES if more else MESH_BATCHES[:1]) for f in ("graphed", "eager")]
+    if more:
+        jobs += [(f"sp {f}", (_spatial_cut(cfg), SP_BATCH, f == "graphed"))
+                 for f in ("graphed", "eager")]
+    one, secs = _mesh_spawn(1, jobs, tmp, "w1")
     res = one[0]
-    for b in batches:
+    for b in (MESH_BATCHES if more else MESH_BATCHES[:1]):
         _log_bare(smi, f"DataMesh of 1 rank (NCCL), batch {b}", res[f"b{b} graphed"],
                   res[f"b{b} eager"])
         paths[f"DataMesh of 1 rank (NCCL), bare train_step at batch {b}, graphed "
               f"(phase 30)"] = res[f"b{b} graphed"]["launches"]
+    if more:
+        _log_bare(smi, f"one process (a DataMesh of 1 rank), batch {SP_BATCH}", res["sp graphed"],
+                  res["sp eager"], f"f32 step {SP_SIZE}^2")
     log(f"[mesh_graphs] the world-1 process took {secs:.1f} s")
-    if n_cards < 2:
+    if not more:
         log(f"[mesh_graphs] the 2-4 card part (graphed steps and the train CLI across ranks) "
             f"needs two or more cards; {n_cards} visible: not run here")
         return paths
     for name, c in (_mesh_cases(cfg, tmp) if pair else {}).items():
         paths[f"2 NCCL ranks, {name}, a replayed D+G iteration at 128^2, f32 "
               f"(phase 30)"] = c
-    one = res[f"b{TRAIN_BATCH} graphed"]
+    for grid in GRID_CASES:
+        name, n_data, n_spatial, _ = grid
+        if n_data * n_spatial > n_cards:
+            log(f"[mesh_graphs] {name} needs {n_data * n_spatial} cards; {n_cards} visible: "
+                f"not run")
+            continue
+        for _, c in _mesh_cases(cfg, tmp, specs=(grid,), tag=name,
+                                rank_opts=(True, True, False, ONE_STEP_COPIES)).items():
+            paths[f"{n_data} x {n_spatial} NCCL grid, a replayed D+G iteration at 128^2, f32, "
+                  f"a rank (phase 30)"] = c
+    one, sp_one = res[f"b{TRAIN_BATCH} graphed"], res["sp graphed"]
     for world in worlds:
         if world > n_cards:
             log(f"[mesh_graphs] world {world} needs {world} cards; {n_cards} visible: not run")
             continue
         b = TRAIN_BATCH // world
         ranks, secs = _mesh_spawn(world, [(f, (cfg, b, f == "graphed"))
-                                          for f in ("graphed", "eager")], tmp, f"w{world}")
+                                          for f in ("graphed", "eager")]
+                                  + [(f"sp {f}", (_spatial_cut(cfg), SP_BATCH, f == "graphed",
+                                                  world)) for f in ("graphed", "eager")],
+                                  tmp, f"w{world}")
         g, e = ranks[0]["graphed"], ranks[0]["eager"]
         _log_bare(smi, f"DataMesh of {world} ranks (NCCL), {b} rows a rank (global "
                        f"{TRAIN_BATCH})", g, e)
@@ -4036,21 +4100,33 @@ def phase_mesh_graphs(cfg, tmp, smi, cli_s_per_it=None, worlds=MESH_WORLDS, cli_
             f"graphed {one['s']:.4f} s: graphed {one['s'] / g['s']:.3f}x, eager "
             f"{one['s'] / e['s']:.3f}x the iteration rate; the world-{world} processes took "
             f"{secs:.1f} s")
+        sg, se = ranks[0]["sp graphed"], ranks[0]["sp eager"]
+        _log_bare(smi, f"1 x {world} spatial grid (NCCL), global batch {SP_BATCH}", sg, se,
+                  f"f32 step {SP_SIZE}^2")
+        log(f"[mesh_graphs] {smi}: the 1 x {world} grid against one process at {SP_SIZE}^2, "
+            f"batch {SP_BATCH}, graphed {sp_one['s']:.4f} s: graphed "
+            f"{sp_one['s'] / sg['s']:.3f}x, eager {sp_one['s'] / se['s']:.3f}x the step rate; "
+            f"peak a rank {sg['peak'] / 2**30:.3f} GiB against {sp_one['peak'] / 2**30:.3f}, "
+            f"pool {sg['pool']} against {sp_one['pool']}; split kernels a traced D+G + D "
+            f"(device ms, events): graphed {sg['split_ms']}, eager {se['split_ms']}")
         for r, got in enumerate(ranks):
-            mine, first = ([x[f]["launches"] for f in ("graphed", "eager")]
+            mine, first = ([x[f]["launches"] for f in ("graphed", "eager", "sp graphed")]
                            for x in (got, ranks[0]))
             if mine != first:
                 raise AssertionError(f"mesh_graphs world {world}: rank {r} launched {mine} "
-                                     f"(graphed, eager), rank 0 {first}")
+                                     f"(graphed, eager, spatial graphed), rank 0 {first}")
         paths[f"DataMesh of {world} ranks (NCCL), bare train_step at {b} rows a rank, "
               f"graphed, a rank (phase 30)"] = g["launches"]
+        paths[f"1 x {world} NCCL grid, bare train_step at {SP_SIZE}^2, global batch "
+              f"{SP_BATCH}, graphed, a rank (phase 30)"] = sg["launches"]
         for i in range(cli_runs):
             t0 = time.time()
             got = phase_ddp_cli(cfg, tmp, cli_s_per_it, world, resume=i == 0)
             log(f"[mesh_graphs] the train CLI at world {world}, run {i + 1} of {cli_runs}: "
                 f"ended in {time.time() - t0:.1f} s")
-        paths[f"torchrun train CLI at world {world}, batch {TRAIN_BATCH}: kernel events over "
-              f"the traced iterations 11..15 (phase 30)"] = got["traced"]
+        if cli_runs:
+            paths[f"torchrun train CLI at world {world}, batch {TRAIN_BATCH}: kernel events "
+                  f"over the traced iterations 11..15 (phase 30)"] = got["traced"]
     return paths
 
 

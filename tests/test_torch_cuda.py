@@ -1095,13 +1095,13 @@ def _grid_cfg(size, dis=None):
     return from_dict(raw)
 
 
-def _mesh_cases(tmp_path, world, specs):
+def _mesh_cases(tmp_path, world, specs, eager_copies=1):
     """Spawns `torch_dp_worker.mesh_graph_steps` once over `world` NCCL ranks,
     one a card, under the spawn's deadline, for every case of `specs` (name,
     n_data, n_spatial, cfg, size) in turn, each at global batch 2 * n_data,
     each case's graphs destroyed before the next and the last's before the
-    group goes; returns {name: (the ranks' results, x_a, x_b, the third
-    iteration's z)}."""
+    group goes, each replay beside `eager_copies` eager twins; returns
+    {name: (the ranks' results, x_a, x_b, the third iteration's z)}."""
     from tests import torch_dp_worker
 
     cases, inputs = [], {}
@@ -1121,8 +1121,8 @@ def _mesh_cases(tmp_path, world, specs):
         inputs[name] = (x_a, x_b, zs[2])
     torch.cuda.empty_cache()  # the ranks share the first card with this process
     torch_dp_worker.spawn(torch_dp_worker.mesh_graph_steps, world,
-                          (cases, str(tmp_path), "cuda"), timeout=240,
-                          dump_dir=tmp_path / "dumps")
+                          (cases, str(tmp_path), "cuda", True, True, False, eager_copies),
+                          timeout=240, dump_dir=tmp_path / "dumps")
     return {name: ([torch.load(tmp_path / f"mesh.{name}.{r}.pt", map_location="cpu",
                                weights_only=False) for r in range(world)], *inputs[name])
             for name in inputs}
@@ -1197,22 +1197,28 @@ def test_graphed_nccl_step_matches_eager_and_one_process(cuda, tmp_path, world, 
 
 
 @pytest.mark.parametrize("n_data,n_spatial", [(1, 2), (2, 2)])
-def test_spatial_grid_of_nccl_ranks_stays_eager(cuda, tmp_path, n_data, n_spatial):
-    """An n_data x n_spatial grid of NCCL ranks, one a card, keeps its steps
-    eager (after a replayed step, tearing the spatial group down hung on
-    every rank of a 1 x 2 grid, its graphs destroyed or not): no graph is
-    recorded, the split kernels launch and K1 / K2 do not,
-    the step stands within phase 23's bars of a second eager model from the
-    same state, every rank holds the same state, and the spawn ends inside
-    its deadline."""
+def test_spatial_grid_of_nccl_ranks_replays_its_step(cuda, tmp_path, n_data, n_spatial):
+    """An n_data x n_spatial grid of NCCL ranks, one a card, replays its D+G
+    step as a CUDA graph (halos, the split kernels' all-reduces, bn over the
+    grid inside): the key recorded at the second iteration; the replayed
+    third within phase 23's bars of its eager twin from the same state and,
+    by phase 29's rule, within 2x the widest pair of three eager copies;
+    the split kernels launched as often as eagerly and K1 / K2 not at all;
+    every rank holding the same state; the spawn ended inside its deadline
+    (a failed capture or a live graph at the teardown would hang it)."""
     world = n_data * n_spatial
     _needs_cards(world)
     cfg = _grid_cfg(128, dis={"norm": "bn"})
-    ranks, *_ = _mesh_cases(tmp_path, world, [("grid", n_data, n_spatial, cfg, 128)])["grid"]
+    ranks, *_ = _mesh_cases(tmp_path, world, [("grid", n_data, n_spatial, cfg, 128)],
+                            eager_copies=3)["grid"]
+    shape = (2, 128 // n_spatial, 128, 3)
+    key = ("train", True, True, shape, torch.uint8, shape, torch.uint8, False)
     for r in ranks:
-        assert r["keys"] == [] and r["capture_bytes"] == {}
+        assert r["keys"] == [key] and r["capture_bytes"][key] > 0
         assert r["graphed"]["launches"] == r["eager"]["launches"]
-        _assert_like(r["graphed"], r["eager"], "eager against a second eager model")
+        _assert_like(r["graphed"], r["eager"], "replayed against its eager twin")
+        assert r["graphed_rel"] <= 2 * max(r["eager_pairs"]), (r["graphed_rel"],
+                                                                r["eager_pairs"])
         for kind in ("gen", "dis"):
             for n, sd in r["graphed"][kind].items():
                 for k, t in sd.items():

@@ -338,6 +338,34 @@ def test_a_failed_capture_raises_with_its_key_and_counts_nothing(monkeypatch):
     with pytest.raises(RuntimeError, match=r"key \('train', 3\).*not capturable"):
         graphs.run(("train", 3), (torch.ones(1),), body)
     assert K.launches == 1 and graphs.keys() == [("train", 3)] and graphs._entries == {}
+    # destroyed before it raised: what it recorded would hold its collectives'
+    # communicators through the caller's teardown
+    assert [g.resets for g in graphs.made] == [1]
+
+
+def test_the_stand_in_capture_refuses_an_element_set_from_the_host():
+    """The tests' stand-in graph refuses, as a CUDA capture does, a tensor
+    element set from a Python number (a copy from the host: `ops/pool.py`
+    did this, and a spatial grid's capture failed on it), and records the
+    same element set by `fill_`."""
+    def host_set(x):
+        t = x.clone()
+        t[0] = 0.0
+        return t
+
+    def filled(x):
+        t = x.clone()
+        t[:1].fill_(0.0)
+        return t
+
+    graphs = torch_dp_worker.cpu_graphs()
+    for key, body in (("host", host_set), ("fill", filled)):
+        assert graphs.run(key, (torch.ones(2),), body).tolist() == [0.0, 1.0]  # eager
+    with pytest.raises(RuntimeError, match="operation not permitted when stream is capturing"):
+        graphs.run("host", (torch.ones(2),), host_set)
+    for _ in range(2):  # captured, then replayed
+        assert graphs.run("fill", (torch.ones(2),), filled).tolist() == [0.0, 1.0]
+    assert [g.resets for g in graphs.made] == [1, 0] and list(graphs._entries) == ["fill"]
 
 
 @pytest.mark.parametrize("error", [torch.cuda.OutOfMemoryError("allocator: out of memory"),
@@ -581,6 +609,14 @@ def test_capture_under_a_mesh_raises_on_every_rank(dp_ranks):
         assert "('fails on rank 1',)" in msg
         assert ("not capturable here" in msg) == (rank == 1)
         assert ("on another rank" in msg) == (rank == 0)
+
+
+def test_a_failed_capture_destroys_its_graph_on_every_rank(dp_ranks):
+    """The capture that fails on rank 1 alone leaves no graph alive on either
+    rank: each destroyed it once before raising, and kept no entry, so the
+    ranks' teardown that follows (the spawn's end) waits on nothing."""
+    for r in dp_ranks:
+        assert r["failed_graph"] == {"resets": 1, "kept": False}
 
 
 def test_two_cases_in_one_spawn_replay_equal_eager(tmp_path):

@@ -225,17 +225,38 @@ def test_torchrun_runs_the_train_cli_on_each_rank(tmp_path):
     assert (tmp_path / "out" / "outputs" / "m" / "checkpoints" / "gen_00000004.pt").exists()
 
 
-def test_torchrun_dumps_and_ends_its_ranks_at_the_deadline(tmp_path):
-    """Ranks that sleep past the run's deadline each write their Python stack
-    near it and exit; `torchrun` raises with those stacks soon after."""
-    script = tmp_path / "sleeper.py"
+def _sleeper(tmp):
+    script = tmp / "sleeper.py"
     script.write_text("import time\nfrom torch_ranks import watch_torchrun_rank\n\n\n"
                       "def _sleep_in_teardown():\n    time.sleep(600)\n\n\n"
                       "watch_torchrun_rank()\n_sleep_in_teardown()\n")
+    return script
+
+
+def test_torchrun_dumps_and_ends_its_ranks_at_the_deadline(tmp_path):
+    """Ranks that sleep past the run's deadline each write their Python stack
+    near it and exit; `torchrun` raises with those stacks soon after."""
     t0 = time.time()
     with pytest.raises(RuntimeError) as raised:
-        torch_ranks.torchrun([script], WORLD, 15, tmp_path / "dumps", {"PYTHONPATH": str(ROOT)})
+        torch_ranks.torchrun([_sleeper(tmp_path)], WORLD, 15, tmp_path / "dumps",
+                             {"PYTHONPATH": str(ROOT)})
     assert time.time() - t0 < 15 + 30
+    msg = str(raised.value)
+    for rank in range(WORLD):
+        assert f"rank {rank}: stack" in msg
+    assert msg.count("_sleep_in_teardown") >= WORLD
+
+
+def test_torchrun_ranks_that_start_after_their_dump_time_each_dump(tmp_path):
+    """A deadline that passes before the ranks start (as on a loaded host,
+    where the launcher's and the ranks' start outlast a short one): the
+    first rank to dump exits, the launcher stops the other, and that one
+    writes its stack too, so every rank's stack is in the error."""
+    t0 = time.time()
+    with pytest.raises(RuntimeError) as raised:
+        torch_ranks.torchrun([_sleeper(tmp_path)], WORLD, 1, tmp_path / "dumps",
+                             {"PYTHONPATH": str(ROOT)})
+    assert time.time() - t0 < 1 + 30
     msg = str(raised.value)
     for rank in range(WORLD):
         assert f"rank {rank}: stack" in msg

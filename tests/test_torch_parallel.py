@@ -244,18 +244,19 @@ class _NcclGrid(psp.SpatialMesh):
 
 @pytest.mark.parametrize("world", [1, 2, 4])
 def test_an_nccl_mesh_of_one_rank_is_captured(world):
-    """On a CUDA device, a capturable (NCCL) data-parallel mesh of any size
-    and a spatial grid of one rank give no eager reason; a spatial grid of
-    more ranks stays eager and names why (after a replayed step its spatial
-    group's teardown hung, the graphs destroyed)."""
+    """On a CUDA device, a capturable (NCCL) data-parallel mesh and a
+    capturable spatial grid of any size give no eager reason; the same grid
+    over gloo, and `tpu.check_nans`, keep the steps eager and name why."""
     model = ACLGAN(from_dict(_jax_cfg("dis_none").to_dict()), device="cpu")
     model.device = torch.device("cuda")  # the question asked before any CUDA work
     model.mesh = _NcclMesh(0, world)
     assert model._eager_reason(True) is None
     model.mesh = _NcclGrid(1, world, 0, None, None, None)
-    reason = model._eager_reason(True)
-    assert (reason is None) == (world == 1)
-    if world > 1:
-        assert reason == (f"a SpatialMesh of {world} ranks: after a replayed step, the "
-                          "spatial group's teardown hung on every rank of a 1 x 2 grid of "
-                          "H100s, the step's graphs destroyed before it")
+    assert model._eager_reason(True) is None
+    model.mesh = psp.SpatialMesh(1, world, 0, None, None, None)  # not initialized: not NCCL
+    assert model._eager_reason(True) == ("a SpatialMesh over gloo: its collectives are "
+                                         "staged through the host")
+    model.mesh = _NcclGrid(1, world, 0, None, None, None)
+    model.cfg = dataclasses.replace(model.cfg, tpu=dataclasses.replace(model.cfg.tpu,
+                                                                        check_nans=True))
+    assert model._eager_reason(True) == "tpu.check_nans: anomaly mode cannot be captured"

@@ -12,6 +12,7 @@ import time
 import torch
 import torch.distributed as dist
 from torch._C._distributed_c10d import Work
+from torch.overrides import TorchFunctionMode
 from torch.utils._python_dispatch import TorchDispatchMode
 
 from torch_ranks import (free_port, group_timeout, init_rank,  # noqa: F401 (the tests' names)
@@ -199,6 +200,19 @@ class _Recorder(TorchDispatchMode):
         return out
 
 
+class _RefuseHostCopies(TorchFunctionMode):
+    """What a CUDA capture refuses and the CPU runs: a tensor element set from
+    a Python number (`t[i] = 0.0` on a CUDA tensor copies the number from
+    pageable host memory and waits for it, which ends a capture with
+    "operation not permitted when stream is capturing")."""
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        if func is torch.Tensor.__setitem__ and isinstance(args[2], (bool, int, float)):
+            raise RuntimeError("operation not permitted when stream is capturing: an element "
+                               f"set from the Python number {args[2]!r} is copied from the host")
+        return func(*args, **(kwargs or {}))
+
+
 def _into(recorded, new, pending):
     """Write a re-run op's result into the tensors its capture produced;
     collect the c10d works it returned."""
@@ -223,7 +237,9 @@ class ReplayGraph:
     capture's went, the kernels' counters left as they were (a replay calls
     no wrapper). The capture runs the body on the CPU, so the replay that
     follows it at once is skipped: each call runs the step once, as on the
-    card. `reset` destroys it as `CUDAGraph.reset` does, and counts."""
+    card. A capture refuses what a CUDA capture refuses and the CPU would
+    run (`_RefuseHostCopies`). `reset` destroys it as `CUDAGraph.reset`
+    does, and counts."""
 
     def __init__(self):
         self.generators, self.ops, self.replays, self.resets = [], [], 0, 0
@@ -234,11 +250,13 @@ class ReplayGraph:
         self.generators.append(gen)
 
     def capture_begin(self, pool=None, capture_error_mode="global"):
-        self._mode = _Recorder(self.ops)
-        self._mode.__enter__()
+        self._mode = (_Recorder(self.ops), _RefuseHostCopies())
+        for mode in self._mode:
+            mode.__enter__()
 
     def capture_end(self):
-        self._mode.__exit__(None, None, None)
+        for mode in reversed(self._mode):
+            mode.__exit__(None, None, None)
         self._skip = True
 
     def replay(self):
@@ -383,6 +401,9 @@ def graph_ranks(rank, world, port, cfg_dict, snap_path, x_a, x_b, displays, out_
             except RuntimeError as e:
                 errors["failed"] = str(e)
         out["errors"] = errors
+        # the failed capture's graph, destroyed on both ranks before they raised
+        out["failed_graph"] = {"resets": graphs.made[-1].resets,
+                               "kept": ("fails on rank 1",) in graphs._entries}
         graphs.release()
         torch.save(out, os.path.join(out_dir, f"graphs.{rank}.pt"))
     finally:

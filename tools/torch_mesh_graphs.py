@@ -5,9 +5,11 @@ under torchrun run again and again, outside `chip_smoke.py`.
 
     python3 tools/torch_mesh_graphs.py repro [--level LEVEL] [--runs N]
         [--no-release | --turns] [--halo all_reduce] [--deadline S]
-        [--world N] [--device cuda|cpu] [--out DIR]
+        [--teardown explicit] [--keep-failed-capture] [--world N]
+        [--device cuda|cpu] [--out DIR]
     python3 tools/torch_mesh_graphs.py cli [--world N] [--runs N]
         [--no-release] [--deadline S] [--out DIR]
+    python3 tools/torch_mesh_graphs.py spatial [--world N]
 
 `repro` runs one reproduction `--runs` times in a row, each in `--world`
 fresh rank processes (NCCL, one a card, TF32 off) under one deadline
@@ -26,12 +28,21 @@ users do when they build a second model in a process:
 - `micro`: no model: a body of a few all-reduces and a matmul through
   `StepGraphs` (eager, captured and replayed, replayed) then the same body
   eagerly; the second case a body of other sizes;
+- `micro_group`, `micro_one`, `micro_both`: `micro` with the body's
+  all-reduces on a second group of both ranks (`new_group([0, 1])`), plus
+  one on a one-rank group a rank (each made on every rank, as a 1 x 2
+  grid's data groups are), or alternating between the default group and
+  the second one (as a 1 x 2 grid's step does);
+- `micro_fail`, `micro_invalid`: `micro` with its capture failing after
+  the body's all-reduces, the error going up through the teardown: a
+  Python error, or an element set from a Python number (`t[0] = 0.0`, a
+  copy from the host, which invalidates a capture); `--keep-failed-capture`
+  takes out `StepGraphs`' destroy of a failed capture's graph;
 - `p30_dp`, `p30_spatial`: phase 30's cases of `chip_smoke.py` run from
   this process as the script runs them (`chip_smoke._mesh_cases`, its
   snapshots made on this process's first card): the data-parallel pair
-  (dis in, then dis bn), or one 1 x 2 spatial grid (dis bn, its graph
-  forced: the trainer keeps such a grid eager), at full width, 128^2, f32,
-  under a 150 s deadline.
+  (dis in, then dis bn), or one 1 x 2 spatial grid (dis bn), at full
+  width, 128^2, f32, under a 150 s deadline.
 
 Every rank destroys each case's graphs (`StepGraphs.release`) before the
 next case and before its process group goes, as the trainer's callers do;
@@ -40,12 +51,14 @@ reproduction of the hang in `destroy_process_group`), and `--turns`
 alternates: runs 0, 2, 4, ... release, runs 1, 3, 5, ... do not. `--halo
 all_reduce` sends a spatial grid's halos through their all-reduce form
 (`p30_spatial`), which tells the point-to-point sends from the all-reduces.
-On H100s `p30_spatial` hangs in its spatial group's teardown either way,
-and in both halo forms; `TORCH_CPP_LOG_LEVEL=INFO` shows c10d's teardown
-steps in the run's output.
-Each run's NCCL log (`NCCL_DEBUG=INFO`, subsystems INIT,REG,COLL,GRAPH)
-and dumps go to DIR/<level>.<run>/; one JSON line a run and a last line for
-the reproduction go to stdout and DIR/results.jsonl. `--device cpu` runs
+`--teardown explicit` counts the live `CUDAGraph` objects and `StepGraphs`
+entries, synchronizes and destroys each group by itself, a progress mark
+before and after each. The ranks inherit the environment: run with
+`TORCH_CPP_LOG_LEVEL=INFO` for c10d's teardown steps.
+Each run's NCCL log (`NCCL_DEBUG=INFO`, subsystems INIT,REG,GRAPH), each
+rank's stderr and dumps go to DIR/<level>.<run>/; one JSON line a run (its
+`hung`: a rank dumped at the deadline) and a last line for the
+reproduction go to stdout and DIR/results.jsonl. `--device cpu` runs
 gloo ranks and the tests' stand-in graph: a rehearsal of the control flow.
 Two reproductions run side by side on four cards as two commands, each with
 its own `CUDA_VISIBLE_DEVICES` pair.
@@ -57,7 +70,8 @@ rank held to the cadence) `--runs` times in a row, one JSON line a run
 (each run's failure, its ranks' stacks and collective logs among it, to
 DIR/cli.<world>.<run>.txt); `--no-release` takes the CLI's release of its
 graphs out. The numbers of the steps across ranks come from phase 30:
-`python3 chip_smoke.py --mesh-graphs`.
+`python3 chip_smoke.py --mesh-graphs`; `spatial` runs its spatial step
+alone on a 1 x `--world` grid (the split kernels' device time among it).
 
 Import no JAX.
 """
@@ -75,13 +89,17 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 OUT = os.path.join(tempfile.gettempdir(), "torch_mesh_graphs")  # --out's default
-LEVELS = ("micro", "tiny", "model")
+LEVELS = ("micro", "micro_group", "micro_one", "micro_both", "micro_fail", "micro_invalid",
+          "tiny", "model")
+MICRO_FAIL = {"micro_fail": "raise", "micro_invalid": "host_copy"}  # how their capture fails
 # phase 30's cases (`chip_smoke._mesh_cases`: name, n_data, n_spatial, dis
 # norm), run from this process as the script runs them, the snapshots made on
-# the first card, the grid's graph forced (the trainer keeps such a grid eager)
+# the first card
 CASE_LEVELS = {"p30_dp": (("dp_dis_in", 2, 1, "in"), ("dp_dis_bn", 2, 1, "bn")),
                "p30_spatial": (("spatial_1x2", 1, 2, "bn"),)}
-DEADLINE = {"micro": 90.0, "tiny": 150.0, "model": 200.0, "p30_dp": 150.0,
+DEADLINE = {"micro": 90.0, "micro_group": 40.0, "micro_one": 40.0, "micro_both": 40.0,
+            "micro_fail": 40.0, "micro_invalid": 40.0,
+            "tiny": 150.0, "model": 200.0, "p30_dp": 150.0,
             "p30_spatial": 150.0}
 
 
@@ -90,7 +108,7 @@ def _setup():
 
 
 def _nccl_log_env(run_dir: Path) -> dict:
-    return {"NCCL_DEBUG": "INFO", "NCCL_DEBUG_SUBSYS": "INIT,REG,COLL,GRAPH",
+    return {"NCCL_DEBUG": "INFO", "NCCL_DEBUG_SUBSYS": "INIT,REG,GRAPH",
             "NCCL_DEBUG_FILE": str(run_dir / "nccl.%h.%p.log")}
 
 
@@ -167,12 +185,36 @@ def _model_case(level, norm, mesh, device, mark):
     return [model, twin], {"graphed": graphed, "eager": eager}
 
 
-def _micro_case(name, mesh, device, mark):
-    """One case of `micro`: a body of all-reduces around a matmul through
-    `StepGraphs` three times (eager, captured and replayed, replayed), then
-    eagerly on the default stream."""
+def _micro_groups(level, rank, world):
+    """The groups a `micro*` level's body all-reduces over, in turn (None:
+    the default group), and its one-rank group (`micro_one`), each made on
+    every rank in the same order, as `make_mesh_2d` makes a grid's."""
+    import torch.distributed as dist
+
+    if level in ("micro", "micro_fail", "micro_invalid"):
+        return [None], None
+    every = dist.new_group(list(range(world)))
+    if level == "micro_both":
+        return [None, every], None
+    ones = [dist.new_group([r]) for r in range(world)] if level == "micro_one" else None
+    return [every], ones[rank] if ones else None
+
+
+def _micro_case(name, groups, one, device, mark, fail=None):
+    """One case of a `micro*` level: a body of all-reduces around a matmul
+    (over `groups` in turn, plus one over the one-rank group `one` where
+    given) through `StepGraphs` three times (eager, captured and replayed,
+    replayed), then eagerly on the default stream. The capture's checks run
+    on the default group. `fail` makes the capture fail after its
+    all-reduces and lets the error go up through the rank's teardown, as a
+    spatial step's failed capture did: "raise" (`micro_fail`) raises in
+    Python (the capture itself ends well), "host_copy" (`micro_invalid`)
+    sets an element from a Python float (`t[0] = 0.0`, a copy from the
+    host, which invalidates the capture)."""
     import torch
     import torch.distributed as dist
+
+    from aclgan_tpu_torch.parallel.mesh import make_mesh
 
     n, k = (256, 3) if name == "first" else (512, 5)
     gen = torch.Generator(device=device).manual_seed(3)
@@ -183,11 +225,24 @@ def _micro_case(name, mesh, device, mark):
         y = t @ w
         for i in range(k):
             s = y.sum(0)
-            dist.all_reduce(s, group=mesh.world_group)
+            dist.all_reduce(s, group=groups[i % len(groups)])
             y = torch.tanh(y + 1e-3 * s)
         out = y.mean().reshape(1)
-        dist.all_reduce(out, group=mesh.world_group)
+        dist.all_reduce(out, group=groups[-1])
+        if one is not None:  # the identity over one rank
+            dist.all_reduce(out, group=one)
+        calls.append(1)
+        if fail == "raise" and len(calls) == 2:  # the key's second call is its capture
+            raise RuntimeError("micro_fail: an error inside the capture, after its all-reduces")
+        if fail == "host_copy":
+            real = torch.ones(2, device=device)
+            real[0] = 0.0
+            out = out * real.sum()
         return out
+
+    calls = []
+
+    mesh = make_mesh(-1)
 
     graphs = _graphs(device)
     for i in range(3):
@@ -206,11 +261,17 @@ def _release(alive):
         obj.release() if hasattr(obj, "release") else obj.release_graphs()
 
 
-def repro_rank(rank, world, port, level, out_dir, device_type, release=True):
+def repro_rank(rank, world, port, level, out_dir, device_type, release=True,
+               explicit_teardown=False, keep_failed=False):
     """Rank `rank` of one reproduction run: both cases, each case's graphs
     destroyed after it unless `release` is False, then its metrics to
     out_dir/result.<rank>.json; progress (one line a stage) to
-    out_dir/progress.<rank>.txt."""
+    out_dir/progress.<rank>.txt. `explicit_teardown` destroys each group
+    the level made by itself (the one-rank group, then the group of every
+    rank, then the default one) after a synchronize, a mark before and after
+    each. `keep_failed` takes out `StepGraphs`' destroy of a failed
+    capture's graph (a reproduction of the hang it prevents)."""
+    import torch
     import torch.distributed as dist
 
     from aclgan_tpu_torch.parallel.mesh import make_mesh
@@ -221,17 +282,26 @@ def repro_rank(rank, world, port, level, out_dir, device_type, release=True):
     def mark(msg):
         progress.write(f"{time.time():.3f} {msg}\n")
 
+    if keep_failed:
+        from aclgan_tpu_torch.graphs import StepGraphs
+
+        StepGraphs._discard = lambda self, graph: None
     mark("init_process_group")
     device = init_rank(rank, world, port, device_type)
-    alive = []
+    alive, made = [], []
     try:
-        mesh = make_mesh(-1)
+        micro = level.startswith("micro")
+        if micro:
+            groups, one = _micro_groups(level, rank, world)
+            made = [("the one-rank group", one)] + [("the group of every rank", g)
+                                                   for g in groups if g is not None]
         results = {}
-        for case in (("first", "second") if level == "micro" else ("in", "bn")):
-            if level == "micro":
-                alive, results[case] = _micro_case(case, mesh, device, mark)
+        for case in (("first", "second") if micro else ("in", "bn")):
+            if micro:
+                alive, results[case] = _micro_case(case, groups, one, device, mark,
+                                                   MICRO_FAIL.get(level))
             else:
-                alive, results[case] = _model_case(level, case, mesh, device, mark)
+                alive, results[case] = _model_case(level, case, make_mesh(-1), device, mark)
             if release:
                 mark(f"{case}: release")
                 _release(alive)
@@ -240,21 +310,43 @@ def repro_rank(rank, world, port, level, out_dir, device_type, release=True):
         with open(Path(out_dir) / f"result.{rank}.json", "w") as f:
             json.dump(results, f)
     finally:
+        raised = sys.exc_info()[1]
+        if raised is not None:
+            mark(f"raised {type(raised).__name__}: {raised}")
         if release:
             _release(alive)
+        if explicit_teardown:
+            if device.type == "cuda":
+                torch.cuda.synchronize()
+            for what, group in made:
+                if group is not None:
+                    mark(f"destroy {what}")
+                    dist.destroy_process_group(group)
+                    mark(f"{what} destroyed")
         mark("destroy_process_group")
         dist.destroy_process_group()
         mark("destroyed")
 
 
 # ------------------------------------------------------------------ running them
+def _run_env(run_dir: Path) -> dict:
+    """A run's environment: NCCL's log and each rank's stderr (c10d's log
+    among it) in the run's directory."""
+    from torch_ranks import RANK_STDERR
+
+    return {**_nccl_log_env(run_dir), RANK_STDERR: str(run_dir)}
+
+
 def run_repro(level: str, runs: int, deadline: float, out: Path, device_type: str = "cuda",
-              world: int = 2, release="always", halo_p2p: bool = True) -> dict:
+              world: int = 2, release="always", halo_p2p: bool = True,
+              explicit_teardown: bool = False, keep_failed: bool = False) -> dict:
     """`runs` runs of one reproduction, each in `world` fresh rank processes
     under `deadline` (gloo ranks and the stand-in graph with `device_type`
     "cpu"), each rank's graphs destroyed before its group goes with
     `release` "always", never with "never", on even runs with "turns"; one
-    JSON line a run. Returns the summary."""
+    JSON line a run. `explicit_teardown` destroys each group by itself with
+    a mark before and after; `keep_failed` as `repro_rank`'s (the `micro*`
+    levels). Returns the summary."""
     from torch_ranks import spawn
 
     outcomes = []
@@ -262,15 +354,18 @@ def run_repro(level: str, runs: int, deadline: float, out: Path, device_type: st
         released = release == "always" or (release == "turns" and run % 2 == 0)
         run_dir = out / f"{level}.{run}"
         run_dir.mkdir(parents=True, exist_ok=True)
-        saved = {k: os.environ.get(k) for k in _nccl_log_env(run_dir)}
-        os.environ.update(_nccl_log_env(run_dir))
+        run_env = _run_env(run_dir)
+        saved = {k: os.environ.get(k) for k in run_env}
+        os.environ.update(run_env)
         t0 = time.time()
         error = None
         try:
             if level in CASE_LEVELS:
-                _phase30_cases(level, run_dir, deadline, device_type, released, halo_p2p)
+                _phase30_cases(level, run_dir, deadline, device_type, released, halo_p2p,
+                               explicit_teardown)
             else:
-                spawn(repro_rank, world, (level, str(run_dir), device_type, released),
+                spawn(repro_rank, world, (level, str(run_dir), device_type, released,
+                                          explicit_teardown, keep_failed),
                       timeout=deadline, dump_dir=run_dir)
         except (RuntimeError, AssertionError) as e:
             error = f"{type(e).__name__}: {e}"
@@ -286,7 +381,12 @@ def run_repro(level: str, runs: int, deadline: float, out: Path, device_type: st
             lines = p.read_text().splitlines() if p.exists() else []
             stages[r] = lines[-1].split(" ", 1)[1] if lines else "(not started)"
         line = {"level": level, "world": world, "run": run, "release": released,
-                "halo": "point_to_point" if halo_p2p else "all_reduce", "ok": error is None,
+                "halo": "point_to_point" if halo_p2p else "all_reduce",
+                "teardown": "explicit" if explicit_teardown else "destroy_process_group",
+                "ok": error is None,
+                # a rank dumped at the deadline (faulthandler's "Timeout" header)
+                "hung": any(p.read_text(errors="replace").startswith("Timeout (")
+                            for p in run_dir.rglob("stack.*.txt")),
                 "seconds": round(time.time() - t0, 1), "last_stage": stages}
         if error is not None:
             (run_dir / "error.txt").write_text(error)
@@ -306,7 +406,8 @@ def run_repro(level: str, runs: int, deadline: float, out: Path, device_type: st
                for r in (True, False)}}
 
 
-def _phase30_cases(level, run_dir, deadline, device_type, release, halo_p2p):
+def _phase30_cases(level, run_dir, deadline, device_type, release, halo_p2p,
+                   explicit_teardown=False):
     """`chip_smoke._mesh_cases` for the cases of `level`, from this process.
     Its snapshots and the ranks' states (full width: hundreds of MB) go to a
     temporary directory, never under `run_dir`, so that a run cut from
@@ -317,15 +418,16 @@ def _phase30_cases(level, run_dir, deadline, device_type, release, halo_p2p):
     import chip_smoke
     from aclgan_tpu_torch.config import load_config
 
-    rank_opts = (level == "p30_spatial", release, halo_p2p)  # force the grid's graph
+    rank_opts = (release, halo_p2p, explicit_teardown)
     with tempfile.TemporaryDirectory() as tmp:
         try:
             chip_smoke._mesh_cases(load_config(chip_smoke.CONFIG), tmp, device_type,
                                    CASE_LEVELS[level], deadline, rank_opts)
         finally:
-            dumps = Path(tmp) / "mesh_cases" / "dumps"
-            if dumps.exists():
-                shutil.move(str(dumps), str(run_dir / "dumps"))
+            cases = Path(tmp) / "mesh_cases"
+            for p in [*cases.glob("progress.*.txt"), cases / "dumps"]:
+                if p.exists():
+                    shutil.move(str(p), str(run_dir / p.name))
 
 
 def _digest(results):
@@ -377,6 +479,27 @@ def run_cli(world: int, runs: int, out: Path, release: bool = True,
             "ok": [o["ok"] for o in outcomes]}
 
 
+def run_spatial(world: int) -> dict:
+    """Phase 30's spatial step alone: phase 27's cut (f32, 512^2, global
+    batch 2) on a 1 x `world` NCCL grid, graphed then eager
+    (`chip_smoke._job_bare` in one spawn); one JSON line a form with its s
+    an iteration, host s, idle share, peak and the split kernels' device ms
+    and events over a traced D+G + D. Returns them."""
+    import chip_smoke
+    from aclgan_tpu_torch.config import load_config
+
+    cut = chip_smoke._spatial_cut(load_config(chip_smoke.CONFIG))
+    with tempfile.TemporaryDirectory() as tmp:
+        ranks, secs = chip_smoke._mesh_spawn(
+            world, [(f, (cut, chip_smoke.SP_BATCH, f == "graphed", world))
+                    for f in ("graphed", "eager")], tmp, "spatial")
+    out = {}
+    for form, r in ranks[0].items():
+        out[form] = {k: r[k] for k in ("s", "host_s", "idle", "peak", "launches", "split_ms")}
+        print(json.dumps({"spatial_world": world, "form": form, **out[form]}), flush=True)
+    return {"spatial_world": world, "seconds": round(secs, 1)}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     sub = ap.add_subparsers(dest="cmd", required=True)
@@ -387,6 +510,9 @@ def main(argv=None) -> int:
     r.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     r.add_argument("--world", type=int, default=2)
     r.add_argument("--halo", choices=("point_to_point", "all_reduce"), default="point_to_point")
+    r.add_argument("--teardown", choices=("destroy_process_group", "explicit"),
+                   default="destroy_process_group")
+    r.add_argument("--keep-failed-capture", dest="keep_failed", action="store_true")
     keep = r.add_mutually_exclusive_group()
     keep.add_argument("--no-release", dest="release", action="store_const", const="never",
                       default="always")
@@ -396,7 +522,9 @@ def main(argv=None) -> int:
     c.add_argument("--runs", type=int, default=1)
     c.add_argument("--deadline", type=float, default=None)
     c.add_argument("--no-release", dest="release", action="store_false")
-    for p in (r, c):
+    sp = sub.add_parser("spatial")
+    sp.add_argument("--world", type=int, default=2)
+    for p in (r, c, sp):
         p.add_argument("--out", default=OUT)
     args = ap.parse_args(argv)
     _setup()
@@ -414,9 +542,12 @@ def main(argv=None) -> int:
         build.build_all(sorted(p.name for p in build.CSRC.glob("*.cu")))
     if args.cmd == "cli":
         summary = run_cli(args.world, args.runs, out, args.release, args.deadline)
+    elif args.cmd == "spatial":
+        summary = run_spatial(args.world)
     else:
         summary = run_repro(args.level, args.runs, args.deadline or DEADLINE[args.level], out,
-                            device, args.world, args.release, args.halo == "point_to_point")
+                            device, args.world, args.release, args.halo == "point_to_point",
+                            args.teardown == "explicit", args.keep_failed)
     print(json.dumps(summary), flush=True)
     return 0
 

@@ -8,7 +8,9 @@ stack and log. `torchrun` bounds a run of the torchrun launcher the same
 way. `teardown` destroys a rank's CUDA graphs before its process group.
 `mesh_graph_steps` is the rank body of the graphed mesh step's checks. The
 CPU tests, `chip_smoke.py` and `tools/torch_mesh_graphs.py` share them.
-Imports nothing of JAX."""
+Imports nothing of JAX, and torch only inside the functions that use it, so
+that a rank arms its watch (`watch_torchrun_rank`) before its slow
+`import torch`."""
 
 import contextlib
 import datetime
@@ -27,13 +29,10 @@ import threading
 import time
 import traceback
 
-import torch
-import torch.distributed as dist
-import torch.multiprocessing as mp
-
 _DEADLINE = "ACLGAN_SPAWN_DEADLINE"  # the spawn's deadline (time.time()), set in each rank
 _FR_PREFIX = "collectives."          # the flight recorder's dump files: <prefix><rank>
 _DUMP_DIR = "ACLGAN_DUMP_DIR"        # where a rank that torchrun started dumps
+RANK_STDERR = "ACLGAN_RANK_STDERR"   # a directory: each spawned rank's stderr to stderr.<rank>.txt
 
 
 def free_port() -> int:
@@ -55,6 +54,8 @@ def spawn(fn, world: int, args: tuple, timeout: float = 300.0, dump_dir=None) ->
     clean run) and exits; at the
     deadline the ranks left are killed. Raises if a rank failed or was cut,
     with each rank's exit code, traceback, stack and collective log."""
+    import torch.multiprocessing as mp
+
     ctx = mp.get_context("spawn")
     made = dump_dir is None
     dump_dir = str(dump_dir or tempfile.mkdtemp(prefix="spawn_dumps_"))
@@ -145,7 +146,10 @@ def group_timeout() -> datetime.timedelta:
 
 
 def dump_collectives(path: str) -> None:
-    """Write this process's flight-recorder entries (JSON) to `path`."""
+    """Write this process's flight-recorder entries (JSON) to `path`
+    (nothing in a process that never imported torch: it made no group)."""
+    if "torch" not in sys.modules:
+        return
     import torch._C._distributed_c10d as c10d
 
     for name in ("_dump_nccl_trace_json", "_dump_fr_trace_json"):
@@ -166,6 +170,9 @@ def _watch(rank, dump_dir, deadline, margin):
     stack = open(os.path.join(dump_dir, f"stack.{rank}.txt"), "w")
     faulthandler.enable(stack)
     faulthandler.dump_traceback_later(left, exit=True, file=stack)
+    # a launcher that stops the rank because a peer exited at its dump (torchrun
+    # does, with SIGTERM) gets this rank's stack too, then the signal's default
+    faulthandler.register(signal.SIGTERM, file=stack, all_threads=True, chain=True)
     log = threading.Timer(max(0.1, left - min(3.0, margin / 2)), dump_collectives,
                           (os.path.join(dump_dir, f"{_FR_PREFIX}{rank}.at_deadline.json"),))
     log.daemon = True
@@ -174,12 +181,18 @@ def _watch(rank, dump_dir, deadline, margin):
     def disarm():
         log.cancel()
         faulthandler.cancel_dump_traceback_later()
+        faulthandler.unregister(signal.SIGTERM)
 
     return disarm
 
 
 def _guarded(fn, rank, world, port, args, dump_dir, deadline, timeout):
+    import torch
+
     torch.set_num_threads(1)
+    if os.environ.get(RANK_STDERR):  # this rank's stderr, c10d's log among it, to a file
+        log = open(os.path.join(os.environ[RANK_STDERR], f"stderr.{rank}.txt"), "a")
+        os.dup2(log.fileno(), 2)
     margin = dump_margin(timeout)
     os.environ.update(flight_recorder_env(dump_dir))
     os.environ[_DEADLINE], os.environ[_DEADLINE + "_MARGIN"] = str(deadline), str(margin)
@@ -244,6 +257,8 @@ def teardown(models=()) -> None:
     """Destroy each model's CUDA graphs, then the process group: a live
     graph's NCCL collectives hold the group's communicators, and their
     destroy waits for every graph that references them."""
+    import torch.distributed as dist
+
     for model in models:
         model.release_graphs()
     dist.destroy_process_group()
@@ -252,6 +267,9 @@ def teardown(models=()) -> None:
 def init_rank(rank, world, port, device_type):
     """Join the group: gloo on the CPU, or NCCL with this rank on card `rank`
     (TF32 off). Returns the rank's device."""
+    import torch
+    import torch.distributed as dist
+
     if device_type == "cuda":
         device = torch.device("cuda", rank)
         torch.cuda.set_device(device)
@@ -264,8 +282,35 @@ def init_rank(rank, world, port, device_type):
     return torch.device("cpu")
 
 
+def _live_graphs(mark, when, models):
+    """Mark the live `torch.cuda.CUDAGraph` objects (after a collection) and
+    the `StepGraphs` entries of `models`."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    graph_type = getattr(torch._C, "_CUDAGraph", torch.cuda.CUDAGraph)
+    graphs = sum(issubclass(type(o), graph_type) for o in gc.get_objects())
+    entries = sum(len(m.graphs._entries) for m in models if m.graphs is not None)
+    mark(f"{when}: {graphs} live CUDAGraph objects, {entries} StepGraphs entries")
+
+
+def _state_rel(a, b) -> float:
+    """rel-L2 of one step's networks (`gen` and `dis` state dicts) from
+    another's, over every tensor at once."""
+    import torch
+
+    def flat(x):
+        return torch.cat([t.double().flatten() for kind in ("gen", "dis")
+                          for _, sd in sorted(x[kind].items()) for _, t in sorted(sd.items())])
+
+    fa, fb = flat(a), flat(b)
+    return float((fa - fb).norm() / fb.norm().clamp_min(1e-30))
+
+
 def mesh_graph_steps(rank, world, port, cases, out_dir, device_type="cuda",
-                     force_graphs=False, release=True, halo_p2p=True):
+                     release=True, halo_p2p=True, explicit_teardown=False, eager_copies=1):
     """For each case, in one process group: three D+G iterations on this
     rank's share (a `DataMesh` when n_spatial is 1, else an n_data x
     n_spatial grid) of the global NHWC batches, on the injected global z of
@@ -277,15 +322,25 @@ def mesh_graph_steps(rank, world, port, cases, out_dir, device_type="cuda",
     before the next case, and the last case's before the group goes
     (`teardown`); `release` False leaves every graph alive until Python
     collects it (a reproduction of the teardown with graphs alive). A mesh the
-    trainer keeps eager runs eagerly in both forms (no keys), unless
-    `force_graphs` gives its model a `StepGraphs` anyway (a reproduction of
-    what the trainer refuses). `halo_p2p` False sends every halo through
+    trainer keeps eager (gloo on CUDA tensors) runs eagerly in both forms (no
+    keys). `halo_p2p` False sends every halo through
     its all-reduce form (`parallel/halo.py`), which tells a hang of the
-    point-to-point sends from one of the all-reduces. Saves
+    point-to-point sends from one of the all-reduces. `explicit_teardown`
+    (a diagnosis of a teardown's hang) counts the live `torch.cuda.CUDAGraph`
+    objects and `StepGraphs` entries before and after the release,
+    synchronizes, and destroys each group by itself (each grid's data, then
+    spatial, then world group, then the default one), a line of progress
+    before and after each in out_dir/progress.<rank>.txt. With
+    `eager_copies` > 1 that many eager twins step from the state (phase
+    29's rule): the rel-L2 of each pair of them (`eager_pairs`) and of the
+    replayed step from the first (`graphed_rel`) are saved too. Saves
     out_dir/mesh.<name>.<rank>.pt: the state before the third iteration
     (rank 0), the third iteration's metrics, networks and (K1, K2, K1m,
     K1a, K2m, K2a) in both forms, the graphs' keys and capture bytes."""
     import copy
+
+    import torch
+    import torch.distributed as dist
 
     from aclgan_tpu_torch.config import from_dict
     from aclgan_tpu_torch.ops.kernels import instance_norm as K
@@ -296,6 +351,11 @@ def mesh_graph_steps(rank, world, port, cases, out_dir, device_type="cuda",
 
     if not halo_p2p:
         halo._point_to_point = lambda t, group: False
+    progress = open(os.path.join(out_dir, f"progress.{rank}.txt"), "a", buffering=1)
+
+    def mark(msg):
+        progress.write(f"{time.time():.3f} {msg}\n")
+
     device = init_rank(rank, world, port, device_type)
     meshes, alive = {}, []
     try:
@@ -333,10 +393,6 @@ def mesh_graph_steps(rank, world, port, cases, out_dir, device_type="cuda",
                 from tests.torch_dp_worker import cpu_graphs
 
                 model.graphs = cpu_graphs()
-            elif force_graphs and model.graphs is None:
-                from aclgan_tpu_torch.graphs import StepGraphs
-
-                model.graphs = StepGraphs(device)
             model.restore(torch.load(snap_path, map_location="cpu", weights_only=True))
             shard_state(model, mesh)
             for z in zs[:2]:
@@ -345,15 +401,53 @@ def mesh_graph_steps(rank, world, port, cases, out_dir, device_type="cuda",
             out = {"graphed": third(model),
                    "keys": model.graphs.keys() if model.graphs else [],
                    "capture_bytes": dict(model.graphs.capture_bytes) if model.graphs else {}}
+            # a restored optimizer's moments are the state's own tensors, which
+            # its step updates in place: each twin gets a copy
             twin = model_(False)
-            twin.restore(state)
+            twin.restore(copy.deepcopy(state))
             out["eager"] = third(twin)
+            if eager_copies > 1:
+                copies = [out["eager"]]
+                for _ in range(eager_copies - 1):
+                    twin = model_(False)
+                    twin.restore(copy.deepcopy(state))
+                    copies.append(third(twin))
+                out["eager_pairs"] = [_state_rel(copies[i], copies[j])
+                                      for i in range(1, len(copies)) for j in range(i)]
+                out["graphed_rel"] = _state_rel(out["graphed"], copies[0])
+                del copies
             if rank == 0:
                 out["state"] = state
             torch.save(out, os.path.join(out_dir, f"mesh.{name}.{rank}.pt"))
+            if explicit_teardown:
+                _live_graphs(mark, f"{name}: before the release", [model])
             if release:
                 model.release_graphs()
+            if explicit_teardown:
+                _live_graphs(mark, f"{name}: after the release", [model])
             alive.clear()
             del model, twin
     finally:
-        teardown(alive if release else ())
+        raised = sys.exc_info()[1]
+        if raised is not None:  # before a teardown that may not return
+            mark(f"raised {type(raised).__name__}: {raised}")
+        if explicit_teardown:
+            _live_graphs(mark, "before the teardown", alive)
+            if release:
+                for m in alive:
+                    m.release_graphs()
+            if device.type == "cuda":
+                torch.cuda.synchronize()
+            mark("synchronized")
+            for (n_data, n_spatial), mesh in meshes.items():
+                for what in ("data_group", "spatial_group", "world_group"):
+                    group = getattr(mesh, what, None)
+                    if group is not None:
+                        mark(f"{n_data} x {n_spatial}: destroy {what}")
+                        dist.destroy_process_group(group)
+                        mark(f"{n_data} x {n_spatial}: {what} destroyed")
+            mark("destroy the default group")
+            dist.destroy_process_group()
+            mark("default group destroyed")
+        else:
+            teardown(alive if release else ())
