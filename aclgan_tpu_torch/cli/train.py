@@ -16,7 +16,9 @@ Port of `aclgan_tpu/cli/train.py` on one device (CUDA unless `--device cpu`):
 - `--resume` restores networks, optimizers, EMA, step and the z stream from
   the newest snapshot set, the port's `.pt` or a JAX run's `.msgpack` (whose
   z stream restarts from (seed, step));
-- `--profile_dir` writes a `torch.profiler` trace of iterations 10..14.
+- `--profile_dir` writes a `torch.profiler` trace of iterations 10..14;
+- after an iteration that wrote grids or a snapshot, the host heap's free
+  pages go back to the OS (`release_host_heap`).
 
 Across GPUs, one process a GPU: `torchrun --nproc_per_node N -m
 aclgan_tpu_torch.cli.train --config C` with `tpu.distributed: true`
@@ -52,6 +54,7 @@ from aclgan_tpu_torch.parallel.mesh import (DataMesh, coordination_barrier,
                                             shard_state)
 from aclgan_tpu_torch.trainer import ACLGAN, resolve_device
 from aclgan_tpu_torch.utils.checkpoint import resume, save_checkpoint
+from aclgan_tpu_torch.utils.hostmem import release_host_heap
 from aclgan_tpu_torch.utils.image import write_2images
 from aclgan_tpu_torch.utils.logging import MetricWriter, prepare_sub_folder, write_html
 
@@ -258,6 +261,7 @@ def _train(opts, cfg: Config, device: torch.device, built: List[ACLGAN]) -> Trai
 
                         # grids and snapshots: rank 0 alone (sampling runs no
                         # collective, so the other ranks skip it)
+                        wrote = False
                         if (iterations + 1) % cfg.image_save_iter == 0 and is_main:
                             outs_test = do_sample(test_display_a, test_display_b)
                             outs_train = do_sample(train_display_a, train_display_b)
@@ -268,14 +272,19 @@ def _train(opts, cfg: Config, device: torch.device, built: List[ACLGAN]) -> Trai
                             write_html(os.path.join(output_directory, "index.html"),
                                        iterations + 1, cfg.image_save_iter, "images",
                                        ext=os.path.splitext(path)[1])
+                            wrote = True
 
                         if (iterations + 1) % cfg.image_display_iter == 0 and is_main:
                             write_2images(do_sample(train_display_a, train_display_b),
                                           display_size, image_directory, "train_current")
+                            wrote = True
 
                         if (iterations + 1) % cfg.snapshot_save_iter == 0 and is_main:
                             save_checkpoint(checkpoint_directory, model, iterations,
                                             keep=cfg.tpu.snapshot_keep)
+                            wrote = True
+                        if wrote:
+                            release_host_heap()
 
                         iterations += 1
                         if iterations >= max_iter:
@@ -283,6 +292,7 @@ def _train(opts, cfg: Config, device: torch.device, built: List[ACLGAN]) -> Trai
                                 _stop_trace(trace, opts.profile_dir)
                             if is_main:
                                 save_checkpoint(checkpoint_directory, model, iterations - 1)
+                                release_host_heap()
                             coordination_barrier("snapshot-written")
                             if mesh is not None:  # every rank is past its last step
                                 model.release_graphs()

@@ -158,6 +158,14 @@ phase's launch counts hold for the graphed forms; gloo meshes (phases 23,
    (1 - d) * max |step| and off the form with the weights from before the
    step by at least half of that, unmoved by the D iteration, and its
    movement within the parity tests' movement bar (rel-L2 0.05) of the CPU's;
+   and the CLI's host-heap release: in each train call every run of grid or
+   snapshot writes is followed by one `release_host_heap` and no release
+   comes without a write (the MiB each gives back logged, the heap released
+   before the call), and on this host 384 MiB of 6 MiB blocks (glibc's mmap
+   threshold raised by a freed 16 MiB block, the heap then released, each
+   block pinned by a small live one after it) add at least 90% of their
+   size to VmRSS, stay resident after their frees (at most half of that
+   given back) until the release gives back at least half of it;
 29. [graphs] the CUDA graphs against the eager forms: the Translator's
    outputs over phase 5's requests (f32, TF32 off: bit-equal) and six f32
    training iterations at 128^2, batch 2 (D+G, D, step_increment 2, a StepLR
@@ -218,6 +226,7 @@ import sys
 import tempfile
 import time
 from pathlib import Path
+from unittest import mock
 
 import numpy as np
 import torch
@@ -4272,6 +4281,62 @@ def _ema_card_vs_cpu(cfg, decay):
     return out
 
 
+def _releases_follow_writes(events):
+    """Checks the train CLI's order of grid / snapshot writes and host-heap
+    releases: every run of writes ends in exactly one release, and no
+    release comes without writes before it. Returns the number of releases."""
+    releases, pending = 0, False
+    for e in events:
+        if e == "release":
+            if not pending:
+                raise AssertionError(f"acceptance_mini: a host-heap release with no write "
+                                     f"before it: {events}")
+            releases, pending = releases + 1, False
+        else:
+            pending = True
+    if pending or not releases:
+        raise AssertionError(f"acceptance_mini: writes with no host-heap release after them: "
+                             f"{events}")
+    return releases
+
+
+HEAP_BLOCKS, HEAP_BLOCK = 64, 6 << 20   # the retained heap of `_heap_release_check`
+
+
+def _heap_release_check():
+    """Freed 6 MiB blocks kept resident by glibc's heap, then handed back by
+    `release_host_heap`: a freed 16 MiB block raises the dynamic mmap
+    threshold, so the blocks come from the heap, and a small live
+    allocation after each pins them; the heap is released before the
+    blocks, so they add VmRSS in full and what the release gives back is
+    what this check freed. Returns the MiB of VmRSS the blocks added, the
+    frees gave back and the release gave back."""
+    from aclgan_tpu_torch.utils.hostmem import release_host_heap, vmrss
+
+    np.ones(16 << 20, np.uint8)
+    if not release_host_heap():
+        raise AssertionError("acceptance_mini: this host's C library has no malloc_trim")
+    base = vmrss()
+    blocks, pins = [], []
+    for _ in range(HEAP_BLOCKS):
+        blocks.append(np.ones(HEAP_BLOCK, np.uint8))
+        pins.append(bytearray(1 << 16))
+    r0 = vmrss()
+    del blocks
+    r1 = vmrss()
+    release_host_heap()
+    r2 = vmrss()
+    del pins
+    added, kept, released = (r0 - base) / 2**20, (r0 - r1) / 2**20, (r1 - r2) / 2**20
+    want = HEAP_BLOCKS * HEAP_BLOCK / 2**20
+    if added < 0.9 * want or kept > added / 2 or released < added / 2:
+        raise AssertionError(f"acceptance_mini: {want:.0f} MiB of blocks added {added:.1f} MiB "
+                             f"of VmRSS, their frees gave back {kept:.1f}, the host-heap "
+                             f"release {released:.1f} (bars: at least 90% added, at most half "
+                             f"given back by the frees, at least half by the release)")
+    return added, kept, released
+
+
 def phase_acceptance_mini(cfg, tmp, inc):
     """[acceptance_mini] `tools/torch_synthfaces_hard.py --smoke` on phase 11's
     dataset and phase 12's classifier: the train CLI at batch 16 with EMA,
@@ -4289,17 +4354,43 @@ def phase_acceptance_mini(cfg, tmp, inc):
     base = ["--smoke", "--work", str(work), "--data_root", str(Path(tmp) / "ds"),
             "--inception_weights", inc]
     train_k, curve_k = [0, 0], [0, 0]
-    curve_seconds, sqrtm_seconds, train_s, lines = [], [], [], []
+    curve_seconds, sqrtm_seconds, train_s, lines, releases = [], [], [], [], []
+    from aclgan_tpu_torch.cli import train as cli_train
+    from aclgan_tpu_torch.utils.hostmem import vmrss
+
+    write_2images, save_checkpoint = cli_train.write_2images, cli_train.save_checkpoint
+    release_host_heap = cli_train.release_host_heap
+
+    def recorded(kind, fn):
+        def call(*args, **kwargs):
+            events.append(kind)
+            return fn(*args, **kwargs)
+        return call
+
+    def release_and_measure():
+        before = vmrss()
+        out = release_host_heap()
+        events.append("release")
+        gave.append((before - vmrss()) / 2**20)
+        return out
+
     for i, iters in enumerate(ACC_ITERS):
         K.launches = K.bwd_launches = 0
         torch.cuda.reset_peak_memory_stats()
-        seg = tool.main(["train", *base, "--iters", str(iters)])["train"]
+        events, gave = [], []
+        release_host_heap()  # what the CLI's releases give back is then its own
+        with mock.patch.object(cli_train, "write_2images", recorded("grid", write_2images)), \
+                mock.patch.object(cli_train, "save_checkpoint",
+                                  recorded("snapshot", save_checkpoint)), \
+                mock.patch.object(cli_train, "release_host_heap", release_and_measure):
+            seg = tool.main(["train", *base, "--iters", str(iters)])["train"]
         torch.cuda.synchronize()
         got = (K.launches, K.bwd_launches)
         derived = (seg["derived"]["k1"], seg["derived"]["k2"])
         if got != derived or seg["start"] != (ACC_ITERS[i - 1] if i else 0):
             raise AssertionError(f"acceptance_mini train to {iters}: from {seg['start']}, "
                                  f"(K1, K2) {got}, derived {derived}")
+        releases.append((_releases_follow_writes(events), [round(g, 1) for g in gave]))
         train_k = [a + b for a, b in zip(train_k, got)]
         train_s.append(seg["seconds"])
         lines += seg["iteration_lines"]
@@ -4342,6 +4433,7 @@ def phase_acceptance_mini(cfg, tmp, inc):
     t_ema = time.time()
     ema = _ema_card_vs_cpu(cfg, decay)
     ema_s = time.time() - t_ema
+    heap = _heap_release_check()
     s_it = [secs / 10 for _, secs in lines]
     log(f"[acceptance_mini] tools/torch_synthfaces_hard.py --smoke: the train CLI on "
         f"configs/synthfaces_hard.yaml (EMA {decay}, batch 16, bf16) on phase 11's "
@@ -4349,7 +4441,12 @@ def phase_acceptance_mini(cfg, tmp, inc):
         f"{' + '.join(f'{x:.1f}' for x in train_s)} s, s per iteration over each 10 "
         f"{[round(x, 4) for x in s_it]}, peak memory {peak / 2**30:.3f} GiB; (K1, K2) "
         f"{tuple(train_k)} = the cadence's count; snapshots {files['gen']} (gen, dis, ema); "
-        f"{len(recs)} finite records")
+        f"{len(recs)} finite records; host-heap releases, one after each run of writes, "
+        f"and the MiB of VmRSS each gave back: {releases}")
+    log(f"[acceptance_mini] host heap: {HEAP_BLOCKS} blocks of {HEAP_BLOCK >> 20} MiB behind "
+        f"small live ones added {heap[0]:.1f} MiB of VmRSS, their frees gave back "
+        f"{heap[1]:.1f}, release_host_heap {heap[2]:.1f} (bars: at least 90% added, at most "
+        f"half given back by the frees, at least half by the release)")
     for p in ("gen", "ema"):
         log(f"[acceptance_mini] fid_curve --prefix {p} (n {smoke.curve_n}, {smoke.styles} "
             f"styles, {smoke.bootstrap} resamples; cut after its first row, resumed with "

@@ -104,6 +104,182 @@ def test_bars_without_a_warmup_snapshot_fail_it():
     assert bars["best_over_domain_gap"]["pass"] is None
 
 
+def test_ema_rules_hold_on_the_recorded_jax_curves():
+    """The JAX run from 10,000 to 20,000: EMA range 2.889 against the live
+    weights' 32.838, median 14.804 against 11.689 (1.2665); the EMA wins 5 of
+    those 11 snapshots, and 5 of the 8 from 1,000 to 8,000."""
+    curves = {p: _recorded(p) for p in tool.PREFIXES}
+    rules = tool.ema_rules(curves)
+    assert rules["ema_steadiness"]["value"] == {"ema_range": 2.889, "live_range": 32.838}
+    assert rules["ema_level"]["value"] == {"ema_median": 14.804, "live_median": 11.689,
+                                           "ratio": 1.2665}
+    for name in ("ema_steadiness", "ema_level"):
+        assert rules[name]["pass"] is True and rules[name]["snapshots"] == rules[name]["of"] == 11
+    assert rules["ema_wins"] == {"ema": 5, "gen": 6, "snapshots": 11}
+    fid = {p: {r["iteration"]: r["fid"] for r in curves[p]["rows"]} for p in tool.PREFIXES}
+    assert sum(fid["ema"][i] < fid["gen"][i] for i in range(1000, 8001, 1000)) == 5
+
+
+WINDOW = range(10000, 20001, 1000)
+LIVE = [8.0, 30.0, 10.0, 12.0, 9.0, 40.0, 11.0, 10.0, 13.0, 9.0, 12.0]  # range 32, median 11
+
+
+@pytest.mark.parametrize("case,ema,failed", [
+    ("both_held", [14.0, 13.0, 15.0, 14.0, 14.0, 13.0, 15.0, 14.0, 14.0, 13.0, 14.0], set()),
+    ("wider_than_live", [5.0, 50.0, 14.0, 14.0, 14.0, 13.0, 15.0, 14.0, 14.0, 13.0, 14.0],
+     {"ema_steadiness"}),
+    ("as_wide_as_live", [8.0, 40.0, 14.0, 14.0, 14.0, 13.0, 15.0, 14.0, 14.0, 13.0, 14.0],
+     {"ema_steadiness"}),
+    ("median_over_1_5x", [17.0, 16.0, 18.0, 17.0, 17.0, 16.0, 18.0, 17.0, 17.0, 16.0, 17.0],
+     {"ema_level"}),
+    ("median_at_1_5x", [16.5] * 11, set()),
+])
+def test_ema_rules_on_hand_made_curves(case, ema, failed):
+    curves = {"gen": _curve([(i, f, 1.0) for i, f in zip(WINDOW, LIVE)], "gen"),
+              "ema": _curve([(i, f, 1.0) for i, f in zip(WINDOW, ema)], "ema")}
+    rules = tool.ema_rules(curves)
+    judged = {k: rules[k]["pass"] for k in ("ema_steadiness", "ema_level")}
+    assert {k for k, v in judged.items() if v is not True} == failed, case
+    assert all(v is not None for v in judged.values())
+    assert rules["ema_wins"]["snapshots"] == 11
+
+
+def test_ema_rules_judge_a_cut_window_only_on_what_it_holds():
+    """A run cut at 15,000 holds 6 of the window's 11 snapshots: `pass` stays
+    None and `pass_on_present` judges the six; before 10,000 nothing is judged."""
+    ema = [14.0, 13.0, 15.0, 14.0, 14.0, 13.0]
+    curves = {"gen": _curve([(i, f, 1.0) for i, f in zip(WINDOW[:6], LIVE)], "gen"),
+              "ema": _curve([(i, f, 1.0) for i, f in zip(WINDOW[:6], ema)], "ema")}
+    rules = tool.ema_rules(curves)
+    for name in ("ema_steadiness", "ema_level"):
+        assert (rules[name]["snapshots"], rules[name]["of"]) == (6, 11)
+        assert rules[name]["pass"] is None and rules[name]["pass_on_present"] is True
+    early = {p: _curve([(1000, 5.0, 1.0), (2000, 3.0, 1.0)], p) for p in tool.PREFIXES}
+    rules = tool.ema_rules(early)
+    assert rules["ema_steadiness"]["pass_on_present"] is None
+    assert rules["ema_level"]["value"] is None and rules["ema_wins"]["snapshots"] == 0
+
+
+@pytest.mark.parametrize("start,end,want", [
+    (0, 3000, {"1000": 6.01, "2000": 6.02, "3000": 6.03}),
+    (1500, 3000, {"2000": 6.02, "3000": 6.03}),
+])
+def test_rss_profile_per_1000_and_slope(start, end, want):
+    """VmRSS at each 1,000 and the least-squares slope from 500 iterations
+    into the segment, on samples rising 1e-5 GiB an iteration."""
+    gib = 2**30
+    rss = [(0.0, start, 4 * gib)] + [(float(it), it, int((6 + it * 1e-5) * gib))
+                                     for it in range(start + 100, end + 1, 100)]
+    prof = tool.rss_profile(rss, start, end)
+    assert prof["rss_gib_per_1000"] == want
+    assert prof["rss_slope_gib_per_1000_after_500"] == pytest.approx(0.01, abs=1e-5)
+
+
+def test_ema_distance_is_zero_at_init_and_grows_with_a_step():
+    """The EMA generators' rel-L2 from the live ones: 0 while the EMA is a
+    copy of the weights, about (1 - d) of the step's relative size after one
+    G step, per generator."""
+    import numpy as np
+    import torch
+
+    from aclgan_tpu_torch.config import from_dict
+    from aclgan_tpu_torch.trainer import ACLGAN
+
+    cfg = from_dict({"batch_size": 2, "new_size": 16, "crop_image_height": 16,
+                     "crop_image_width": 16, "synthetic": True,
+                     "gen": {"dim": 8, "mlp_dim": 16, "n_res": 1},
+                     "dis": {"dim": 8, "n_layer": 2, "num_scales": 1},
+                     "tpu": {"compute_dtype": "float32", "ema_decay": 0.9}})
+    model = ACLGAN(cfg, device="cpu")
+    model.init_state()
+    assert tool.ema_distance(model) == {"AB": 0.0, "BA": 0.0}
+    x = np.random.RandomState(0).randint(0, 256, (2, 16, 16, 3), dtype=np.uint8)
+    model.train_step(x, x, True, True)
+    got = tool.ema_distance(model)
+    assert set(got) == {"AB", "BA"} and all(0.0 < v < 0.1 for v in got.values()), got
+    assert not any(t.requires_grad for t in model.ema["AB"].values())
+    assert torch.is_grad_enabled()
+
+
+def _data(root, n=2000):
+    for d in ("trainA", "trainB"):
+        (root / d).mkdir(parents=True)
+        for i in range(n):
+            (root / d / f"{i:05d}.jpg").write_bytes(b"")
+
+
+def test_train_stage_stops_after_a_snapshot_at_its_deadline(tmp_path, monkeypatch):
+    """A CLI that logs every 100 iterations at 20 s a line and snapshots every
+    1,000, under a deadline 300 s after the start: the next snapshot fits at
+    the line of 100 (0.2 s an iteration, 900 iterations and 30 s to go), not
+    at 1,100, so the stage stops the CLI there and counts the cadence to 1,100."""
+    from aclgan_tpu_torch.cli import train
+
+    clock = {"now": 1000.0}
+
+    def fake_main(argv):
+        ckpt = Path(argv[argv.index("--output_path") + 1]) / "outputs" / "synthfaces_hard"
+        for it in range(100, 3001, 100):
+            clock["now"] += 20.0
+            print(f"Iteration: {it:08d}/00003000 (20.0000s)")
+            if it % 1000 == 0:
+                _snapshots(ckpt / "checkpoints", [it])
+
+    monkeypatch.setattr(tool.time, "time", lambda: clock["now"])
+    monkeypatch.setattr(train, "main", fake_main)
+    w = tmp_path / "w"
+    _data(w / "data")
+    seg = tool.main(["train", "--work", str(w), "--device", "cpu", "--iters", "3000",
+                     "--deadline", "300"])["train"]
+    cfg = load_config(w / "synthfaces_hard.yaml")
+    assert (seg["start"], seg["end"], seg["stopped_at"]) == (0, 1100, 1100)
+    assert [it for it, _ in seg["iteration_lines"]][-1] == 1100
+    assert seg["derived"] == tool.cadence_counts(0, 1100, 125, cfg)
+    assert tool.train_plan(w / "run" / "outputs" / "synthfaces_hard" / "checkpoints",
+                           3000) == 1000
+
+
+def test_all_alongside_scores_beside_training(tmp_path, monkeypatch):
+    """`all --alongside`: the dataset, then `follow` in a second process (here
+    a thread) with its BLAS threads capped while `train` runs, then `report`
+    on both curves."""
+    import threading
+
+    fake = _FakeEntryPoints(monkeypatch)
+    docs = tmp_path / "docs"
+    monkeypatch.setattr(tool, "DOCS", docs)
+    monkeypatch.setattr(tool, "FOLLOW_POLL", 0.01)
+    children = []
+
+    class _Child:
+        def __init__(self, cmd, cwd, env, stdout, stderr):
+            children.append((cmd, env))
+            self.thread = threading.Thread(target=tool.main, args=(cmd[2:],))
+            self.thread.start()
+
+        def wait(self):
+            self.thread.join()
+            return 0
+
+    monkeypatch.setattr(tool.subprocess, "Popen", _Child)
+    w = tmp_path / "w"
+    out = tool.main(["all", "--alongside", "--work", str(w), "--device", "cpu",
+                     "--iters", "3000"])
+    (cmd, env), = children
+    assert cmd[2:] == ["follow", "--work", str(w), "--device", "cpu", "--data_root",
+                       str(w / "data")]
+    assert env["OPENBLAS_NUM_THREADS"] == env["OMP_NUM_THREADS"] == str(tool.SCORER_THREADS)
+    kinds = [c[0] for c in fake.calls]
+    assert kinds[0] == "dataset" and kinds[-1] == "grid" and kinds.count("fid_curve") >= 2
+    assert sorted(set(kinds)) == ["calibrate", "dataset", "fid_curve", "grid", "inception",
+                                  "train"]
+    assert (w / "train.done").exists()
+    assert out["report"]["curves"]["gen"]["iterations"] == [1000, 2000, 3000]
+    assert out["report"]["bars"]["ema_steadiness"]["snapshots"] == 0
+    assert sorted(p.name for p in docs.iterdir()) == [
+        "fid_curve_ema.json", "fid_curve_gen.json", "summary.json"]
+
+
 def _snapshots(ckpt, stamps, families=("gen", "dis", "ema"), optimizer=True):
     ckpt.mkdir(parents=True, exist_ok=True)
     for s in stamps:

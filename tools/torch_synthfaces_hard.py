@@ -4,7 +4,7 @@ held against the JAX package's recorded run (`docs/run_synthfaces_hard/`).
 
     python3 tools/torch_synthfaces_hard.py [STAGE] --work DIR [--iters N]
         [--device cuda|cpu] [--smoke] [--data_root DIR] [--inception_weights PT]
-        [--recorded DIR]
+        [--recorded DIR] [--alongside] [--deadline S]
 
 STAGE is one of `dataset`, `train`, `inception`, `curves`, `calibrate`,
 `report` or `all` (the default: every stage in that order). Each stage runs
@@ -20,8 +20,11 @@ resumes where it stopped:
   records the CLI's `Iteration:` seconds, the process's VmRSS (every 30 s and
   at each `Iteration:` line), the peak device memory, the K1 / K2 launches
   (the counters of `ops/kernels/instance_norm.py`) beside the count the D1/G2
-  cadence gives, and the non-finite values of `scalars.jsonl`, in
-  DIR/train_log.json;
+  cadence gives, the EMA generators' rel-L2 from the live ones at each
+  snapshot, and the non-finite values of `scalars.jsonl`, in
+  DIR/train_log.json. With `--deadline S`, the first `Iteration:` line
+  after a snapshot ends the CLI when the next snapshot would land more than
+  S seconds after the command started (the segment's `stopped_at`);
 - `inception`: `cli.train_inception.main` at the JAX tool's defaults (300
   steps, batch 32, 149^2, seed 0); its full-set accuracy to DIR/inception.json;
 - `curves`: `cli.fid_curve.main` with `--n 500 --styles 3 --bootstrap 100`,
@@ -32,10 +35,16 @@ resumes where it stopped:
   float64 scipy as the curves';
 - `report`: both curves beside the recorded ones at the common iterations
   (`tools/fid_compare.compare`, which refuses another protocol), gen
-  against ema, the quality bars (`BARS`), the run's rates and checks, and a
+  against ema, the quality bars and the EMA's two rules (`BARS`), the
+  EMA's wins in the rules' window, the run's rates and checks (VmRSS at
+  each 1,000 iterations and its slope from 500 on, per segment), and a
   test grid of the selected snapshot shrunk by 3, written with both curves
   and `summary.json` to `docs/run_synthfaces_hard_torch` (DIR/docs under
   `--smoke`).
+
+`all --alongside` runs `dataset`, then `train` in this process while a
+second process (`follow`, its OpenMP / BLAS threads capped) fine-tunes the
+classifier, calibrates and scores each snapshot as it lands; then `report`.
 
 `report` compares with `--recorded` (default `docs/run_synthfaces_hard`).
 `--smoke` shrinks every size (64 images a domain, a 40-step classifier, 40
@@ -63,10 +72,10 @@ import re
 import shutil
 import subprocess
 import sys
-import threading
 import time
 from pathlib import Path
 from typing import Any, Callable, Dict, List, Optional, Tuple
+from unittest import mock
 
 REPO = Path(__file__).resolve().parents[1]
 if str(REPO) not in sys.path:
@@ -77,6 +86,7 @@ import torch  # noqa: E402
 
 import chip_smoke  # noqa: E402
 from aclgan_tpu_torch.config import Config, load_config, save_config  # noqa: E402
+from aclgan_tpu_torch.utils.hostmem import RssSampler, rss_slope  # noqa: E402
 
 STEM = "synthfaces_hard"
 SHIPPED = REPO / "configs" / f"{STEM}.yaml"
@@ -90,8 +100,12 @@ PREFIXES = ("gen", "ema")
 # snapshot from 2,000 on, both families [1.0]; FID(ema@1000) above
 # FID(gen@1000), the EMA warm-up [32.865 against 5.611]; the best FID of
 # both families at most a quarter of the domain gap under the same classifier.
+# The EMA's two rules over the snapshots from 10,000 to 20,000: its FID range
+# (max - min) narrower than the live weights' [2.889 against 32.838], and its
+# median FID at most 1.5x the live weights' [14.804 / 11.689 = 1.266].
 BARS = {"accuracy_min": 0.99, "rate_min": 0.99, "rate_from": 2000,
-        "warmup_iteration": 1000, "best_over_gap_max": 0.25}
+        "warmup_iteration": 1000, "best_over_gap_max": 0.25,
+        "ema_window": (10000, 20000), "ema_median_over_live_max": 1.5}
 RSS_GROWTH_MAX = 0.5 * 2**30   # bytes from iteration 500 to the end of a segment
 
 
@@ -165,6 +179,11 @@ class Work:
 
     def curve(self, prefix: str) -> Path:
         return self.run_dir / f"fid_curve_{prefix}.json"
+
+    @property
+    def train_done(self) -> Path:
+        """Written when a train stage run beside `follow` has ended."""
+        return self.root / "train.done"
 
     def log(self, name: str) -> Path:
         return self.root / f"{name}.json"
@@ -313,18 +332,6 @@ def cadence_counts(start: int, end: int, epoch_len: int, cfg: Config) -> Dict[st
 
 
 # ------------------------------------------------------------------ measurement
-def rss_bytes() -> Optional[int]:
-    """This process's VmRSS, or None where /proc is absent."""
-    try:
-        with open("/proc/self/status") as f:
-            for line in f:
-                if line.startswith("VmRSS:"):
-                    return int(line.split()[1]) * 1024
-    except OSError:
-        return None
-    return None
-
-
 class _Tee(io.TextIOBase):
     """Passes writes on to `out` and hands each complete line to `on_line`."""
 
@@ -343,28 +350,29 @@ class _Tee(io.TextIOBase):
         self.out.flush()
 
 
-class _Recorder:
-    """The `Iteration:` lines of a train call and VmRSS samples (every
-    `every` seconds from a thread, and at each such line)."""
+class Stopped(Exception):
+    """Raised from the CLI's `Iteration:` line to end a train call at its
+    deadline; `iteration` is the last iteration the call ran."""
 
-    def __init__(self, start: int = 0, every: float = 30.0):
-        self.t0 = time.time()
-        self.iteration = start
+    def __init__(self, iteration: int):
+        super().__init__(f"stopped at iteration {iteration}")
+        self.iteration = iteration
+
+
+SNAPSHOT_SECONDS = 30.0  # time allowed to write one full-width snapshot set
+
+
+class _Recorder(RssSampler):
+    """The `Iteration:` lines of a train call and this process's VmRSS
+    (every `every` seconds, and at each such line). With `stop_by` (a
+    `time.time()`), the first line after each snapshot raises `Stopped` when
+    the next snapshot would land later than that at the recent rate."""
+
+    def __init__(self, start: int = 0, every: float = 30.0, stop_by: Optional[float] = None,
+                 snapshot_every: int = 1000, log_iter: int = 100):
+        super().__init__(every=every, start=start)
         self.lines: List[Tuple[int, float]] = []
-        self.rss: List[Tuple[float, int, int]] = []
-        self.lock = threading.Lock()
-        self.stop = threading.Event()
-        self.thread = threading.Thread(target=self._poll, args=(every,), daemon=True)
-
-    def sample(self):
-        r = rss_bytes()
-        if r is not None:
-            with self.lock:
-                self.rss.append((round(time.time() - self.t0, 3), self.iteration, r))
-
-    def _poll(self, every):
-        while not self.stop.wait(every):
-            self.sample()
+        self.stop_by, self.snapshot_every, self.log_iter = stop_by, snapshot_every, log_iter
 
     def on_line(self, line: str):
         m = chip_smoke._ITERATION.match(line)
@@ -372,16 +380,15 @@ class _Recorder:
             self.iteration = int(m[1])
             self.lines.append((self.iteration, float(m[2])))
             self.sample()
+            if self.stop_by is not None and self._out_of_time():
+                raise Stopped(self.iteration)
 
-    def __enter__(self):
-        self.sample()
-        self.thread.start()
-        return self
-
-    def __exit__(self, *exc):
-        self.stop.set()
-        self.thread.join()
-        self.sample()
+    def _out_of_time(self) -> bool:
+        if self.iteration % self.snapshot_every != self.log_iter % self.snapshot_every:
+            return False  # not the first line after a snapshot
+        s_per_it = float(np.median([secs for _, secs in self.lines[-10:]])) / self.log_iter
+        left = (self.snapshot_every - self.log_iter) * s_per_it + SNAPSHOT_SECONDS
+        return time.time() + left > self.stop_by
 
 
 def _launches():
@@ -442,21 +449,39 @@ def stage_train(work: Work, sizes: Sizes, args) -> Dict[str, Any]:
         torch.cuda.reset_peak_memory_stats()
     k0 = _launches()
     t0 = time.time()
-    with _Recorder(start) as rec:
+    stopped = None
+    distance: Dict[str, Dict[str, float]] = {}
+    save = cli_train.save_checkpoint
+
+    def save_and_measure(directory, model, iterations, **kw):
+        save(directory, model, iterations, **kw)
+        if model.ema is not None:
+            distance[str(iterations + 1)] = ema_distance(model)
+
+    with _Recorder(start, stop_by=args.stop_by, snapshot_every=cfg.snapshot_save_iter,
+                   log_iter=cfg.log_iter) as rec:
         tee = _Tee(sys.stdout, rec.on_line)
-        with contextlib.redirect_stdout(tee):
-            cli_train.main(argv)
+        try:
+            with contextlib.redirect_stdout(tee), \
+                    mock.patch.object(cli_train, "save_checkpoint", save_and_measure):
+                cli_train.main(argv)
+        except Stopped as e:
+            stopped = e.iteration
+            print(f"[{STEM}] train stopped at iteration {stopped}: the next snapshot would "
+                  "land after the deadline", flush=True)
         _sync(device)
     k1, k2 = (b - a for a, b in zip(k0, _launches()))
     epoch_len = min(_count_images(work.data_root / "trainA"),
                     _count_images(work.data_root / "trainB")) // cfg.batch_size
+    end = args.iters if stopped is None else stopped
     segment = {
-        "start": start, "end": args.iters, "argv": argv, "seconds": time.time() - t0,
+        "start": start, "end": end, "stopped_at": stopped, "argv": argv,
+        "seconds": time.time() - t0,
         "device": args.device, "iteration_lines": rec.lines, "log_iter": cfg.log_iter,
         "rss": rec.rss, "peak_memory": (torch.cuda.max_memory_allocated()
                                         if device.type == "cuda" else None),
-        "launches": {"k1": k1, "k2": k2},
-        "derived": cadence_counts(start, args.iters, epoch_len, cfg),
+        "launches": {"k1": k1, "k2": k2}, "ema_from_live_rel_l2": distance,
+        "derived": cadence_counts(start, end, epoch_len, cfg),
         "epoch_len": epoch_len,
     }
     log = _read(work.log("train_log"), {"segments": []})
@@ -519,6 +544,37 @@ def stage_curves(work: Work, sizes: Sizes, args) -> Dict[str, Any]:
     log["sweeps"] += [dict(v, prefix=p) for p, v in out.items() if not v.get("skipped")]
     _write(work.log("curves_log"), log)
     return out
+
+
+def _unscored(work: Work, sizes: Sizes) -> bool:
+    """Whether a snapshot on disk has no row in its family's curve yet."""
+    for prefix in PREFIXES:
+        stamps = snapshot_stamps(work.checkpoints, prefix)
+        if stamps and curve_plan(_read(work.curve(prefix)), stamps,
+                                 curve_meta(sizes, prefix)) is not None:
+            return True
+    return False
+
+
+FOLLOW_POLL = 10.0  # seconds between looks for new snapshots
+
+
+def stage_follow(work: Work, sizes: Sizes, args) -> Dict[str, Any]:
+    """The classifier and the calibration, then both curves over each
+    snapshot as a train stage running beside this one writes it, until that
+    stage has ended (`Work.train_done`, or this process's parent is gone);
+    then the last snapshots."""
+    parent = os.getppid()
+    out = {"inception": stage_inception(work, sizes, args),
+           "calibrate": stage_calibrate(work, sizes, args), "sweeps": []}
+    while True:
+        ended = work.train_done.exists() or os.getppid() != parent
+        if _unscored(work, sizes):
+            out["sweeps"].append(stage_curves(work, sizes, args))
+        elif ended:
+            return out
+        else:
+            time.sleep(FOLLOW_POLL)
 
 
 def calibration_fids(cfg: Config, inception: Path, data_root: Path, n: int,
@@ -604,6 +660,69 @@ def check_bars(curves: Dict[str, Dict[str, Any]], accuracy: Optional[float],
     return out
 
 
+def ema_rules(curves: Dict[str, Dict[str, Any]], every: int = 1000) -> Dict[str, Dict[str, Any]]:
+    """The EMA's two rules of `BARS` over the snapshots of both families in
+    its window, each as {value, limit, snapshots, of, pass}: `pass` is None
+    unless every snapshot of the window (one each `every`) is there, and
+    `pass_on_present` judges the ones that are. The EMA's win count there
+    comes beside them, held to nothing."""
+    lo, hi = BARS["ema_window"]
+    fid = {p: {r["iteration"]: r["fid"] for r in curves[p]["rows"] if lo <= r["iteration"] <= hi}
+           for p in PREFIXES}
+    its = sorted(set(fid["gen"]) & set(fid["ema"]))
+    want = len(range(lo, hi + 1, every))
+
+    def rule(value, limit, ok):
+        judged = bool(ok) if its else None
+        return {"value": value, "limit": limit, "snapshots": len(its), "of": want,
+                "pass": judged if len(its) == want else None, "pass_on_present": judged}
+
+    if not its:
+        return {"ema_steadiness": rule(None, f"EMA range < live range over {lo}-{hi}", False),
+                "ema_level": rule(None, f"<= {BARS['ema_median_over_live_max']}", False),
+                "ema_wins": {"ema": None, "gen": None, "snapshots": 0}}
+    ema, live = [fid["ema"][i] for i in its], [fid["gen"][i] for i in its]
+    spans = {"ema_range": round(max(ema) - min(ema), 3),
+             "live_range": round(max(live) - min(live), 3)}
+    medians = {"ema_median": float(np.median(ema)), "live_median": float(np.median(live))}
+    ratio = round(medians["ema_median"] / medians["live_median"], 4)
+    wins = sum(e < g for e, g in zip(ema, live))
+    return {"ema_steadiness": rule(spans, f"EMA range < live range over {lo}-{hi}",
+                                   spans["ema_range"] < spans["live_range"]),
+            "ema_level": rule(dict(medians, ratio=ratio),
+                              f"<= {BARS['ema_median_over_live_max']}",
+                              ratio <= BARS["ema_median_over_live_max"]),
+            "ema_wins": {"ema": wins, "gen": len(its) - wins, "snapshots": len(its)}}
+
+
+@torch.no_grad()
+def ema_distance(model) -> Dict[str, float]:
+    """The EMA generators' rel-L2 from the live ones, per generator:
+    sqrt(sum |ema - live|^2 / sum |live|^2) over every weight, in float64."""
+    out = {}
+    for n, ema in model.ema.items():
+        live = dict(model.gen(n).named_parameters())
+        diff = sum((t.double() - live[k].double()).square().sum() for k, t in ema.items())
+        norm = sum(live[k].double().square().sum() for k in ema)
+        out[n] = round(float((diff / norm).sqrt()), 6)
+    return out
+
+
+def rss_profile(rss: List[Tuple[float, int, int]], start: int, end: int,
+                every: int = 1000) -> Dict[str, Any]:
+    """VmRSS (GiB) at the first sample at or past each multiple of `every` in
+    (start, end], and the least-squares slope from iteration start + 500 on
+    (GiB per 1,000 iterations)."""
+    at = {}
+    for k in range(start - start % every + every, end + 1, every):
+        r = next((r for _, it, r in rss if it >= k), None)
+        if r is not None:
+            at[str(k)] = round(r / 2**30, 4)
+    slope = rss_slope([(it, r) for _, it, r in rss], start + 500)
+    return {"rss_gib_per_1000": at,
+            "rss_slope_gib_per_1000_after_500": None if slope is None else round(slope, 5)}
+
+
 def _window_p50(lines, log_iter: int, window: int = 1000) -> Dict[str, float]:
     """p50 seconds an iteration of each `window` of iterations, from the CLI's
     `Iteration:` lines (seconds per log_iter iterations)."""
@@ -643,6 +762,8 @@ def train_summary(log: Dict[str, Any], scalars: Path, stamps: Dict[str, List[int
                            "max": round(max(r for *_, r in rss) / 2**30, 3) if rss else None},
                "rss_growth_after_500_ok": (None if at500 is None or not rss else
                                            rss[-1][2] - at500 < RSS_GROWTH_MAX),
+               **rss_profile(rss, s["start"], s["end"]),
+               "stopped_at": s.get("stopped_at"),
                "launches": s["launches"], "derived": s["derived"],
                "launches_ok": (None if s["device"] != "cuda" else
                                (s["launches"]["k1"], s["launches"]["k2"])
@@ -712,6 +833,8 @@ def report(work: Work, sizes: Sizes, recorded: Optional[Path], docs: Optional[Pa
     cfg = load_config(work.config)
     stamps = {p: snapshot_stamps(work.checkpoints, p) for p in PREFIXES}
     log = _read(work.log("train_log"))
+    rules = ema_rules(curves, cfg.snapshot_save_iter)
+    wins = rules.pop("ema_wins")
     summary = {
         "config": f"configs/{STEM}.yaml", "sizes": dataclasses.asdict(sizes),
         "device": _device_line() if device == "cuda" else "cpu",
@@ -720,7 +843,11 @@ def report(work: Work, sizes: Sizes, recorded: Optional[Path], docs: Optional[Pa
         "against_recorded": {p: {"mean_fid": c["mean_fid"], "wins": c["wins"],
                                  "rows": c["rows"]} for p, c in against.items()},
         "classifier": inc, "calibrate": calib,
-        "bars": check_bars(curves, inc.get("accuracy") if inc else None, calib),
+        "bars": {**check_bars(curves, inc.get("accuracy") if inc else None, calib),
+                 **rules},
+        "ema_wins_in_window": wins,
+        "ema_from_live_rel_l2": {k: v for seg in (log or {}).get("segments", [])
+                                 for k, v in seg.get("ema_from_live_rel_l2", {}).items()},
         "train": (train_summary(log, work.scalars, stamps, cfg.snapshot_save_iter)
                   if log else None),
         "curve_sweeps": _read(work.log("curves_log")),
@@ -761,9 +888,41 @@ def _print_report(summary, curves, against) -> None:
 
 
 # ------------------------------------------------------------------ command line
+SCORER_THREADS = 4  # OpenMP / BLAS threads of the `follow` process (its host sqrtm)
+
+
+def run_alongside(work: Work, sizes: Sizes, args, recorded, docs) -> Dict[str, Any]:
+    """`all` with the curves scored beside training: the dataset, then
+    `follow` in a child process while `train` runs in this one, then
+    `report`."""
+    out = {"dataset": stage_dataset(work, sizes, args)}
+    ensure_config(work, sizes)
+    work.train_done.unlink(missing_ok=True)
+    cmd = [sys.executable, str(Path(__file__).resolve()), "follow", "--work", str(work.root),
+           "--device", args.device, "--data_root", str(work.data_root)]
+    if args.smoke:
+        cmd.append("--smoke")
+    if args.inception_weights:
+        cmd += ["--inception_weights", str(work.inception)]
+    env = dict(os.environ, **{k: str(SCORER_THREADS) for k in (
+        "OMP_NUM_THREADS", "OPENBLAS_NUM_THREADS", "MKL_NUM_THREADS")})
+    with open(work.root / "follow.log", "a") as log:
+        child = subprocess.Popen(cmd, cwd=REPO, env=env, stdout=log, stderr=subprocess.STDOUT)
+        try:
+            out["train"] = stage_train(work, sizes, args)
+        finally:
+            work.train_done.write_text("")
+            rc = child.wait()
+    if rc:
+        raise RuntimeError(f"the follow stage failed ({rc}); see {work.root / 'follow.log'}")
+    out["report"] = report(work, sizes, recorded, docs, args.device)
+    return out
+
+
 def main(argv=None) -> Dict[str, Any]:
+    t_start = time.time()
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("stage", nargs="?", default="all", choices=STAGES + ("all",))
+    ap.add_argument("stage", nargs="?", default="all", choices=STAGES + ("all", "follow"))
     ap.add_argument("--work", required=True, help="the run's directory (resumable)")
     ap.add_argument("--iters", type=int, default=None,
                     help="train to this iteration (default 3000, 40 with --smoke)")
@@ -775,7 +934,14 @@ def main(argv=None) -> Dict[str, Any]:
                     help="the recorded curves to hold the port's against (default "
                          "docs/run_synthfaces_hard; none with --smoke, whose protocol "
                          "differs)")
+    ap.add_argument("--alongside", action="store_true",
+                    help="with all: score each snapshot as training writes it, in a "
+                         "second process")
+    ap.add_argument("--deadline", type=float, default=None,
+                    help="stop training after the last snapshot that lands within this "
+                         "many seconds of the start")
     args = ap.parse_args(argv)
+    args.stop_by = None if args.deadline is None else t_start + args.deadline
     from aclgan_tpu_torch.trainer import resolve_device
 
     resolve_device(args.device)
@@ -790,7 +956,13 @@ def main(argv=None) -> Dict[str, Any]:
               "inception": lambda: stage_inception(work, sizes, args),
               "curves": lambda: stage_curves(work, sizes, args),
               "calibrate": lambda: stage_calibrate(work, sizes, args),
-              "report": lambda: report(work, sizes, recorded, docs, args.device)}
+              "report": lambda: report(work, sizes, recorded, docs, args.device),
+              "follow": lambda: stage_follow(work, sizes, args)}
+    if args.stage == "all" and args.alongside:
+        try:
+            return run_alongside(work, sizes, args, recorded, docs)
+        except Refused as e:
+            sys.exit(f"refused: {e}")
     out = {}
     for name in STAGES if args.stage == "all" else (args.stage,):
         t0 = time.time()
