@@ -15,14 +15,21 @@ Adam (betas 0.9/0.999, eps 1e-8, optax's defaults) on the softmax cross
 entropy. BatchNorm stays in eval mode at its identity statistics (its scale
 and shift train), so training and scoring see the same network; float32
 throughout (`full_f32`).
+
+One seed and one dataset give one weight set, on a card as on the CPU (at a
+fixed thread count), as the JAX tool's does: the training loop runs under
+`deterministic()`, which puts cuDNN and every other op on a deterministic
+algorithm and restores the caller's settings after it.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
+import hashlib
 import os
 import time
-from typing import Dict, Tuple
+from typing import Dict, Iterator, Tuple
 
 import numpy as np
 import torch
@@ -31,6 +38,46 @@ import torch.nn.functional as F
 from aclgan_tpu_torch.data.dataset import load_image
 from aclgan_tpu_torch.eval.inception import InceptionV3, full_f32
 from aclgan_tpu_torch.trainer import resolve_device
+
+
+CUBLAS_WORKSPACE = "CUBLAS_WORKSPACE_CONFIG"
+CUBLAS_DETERMINISTIC = ":4096:8"  # a fixed cuBLAS workspace: one reduction order a product
+
+
+@contextlib.contextmanager
+def deterministic() -> Iterator[None]:
+    """Deterministic algorithms inside the block: cuDNN's (no benchmark
+    search), every op's (`torch.use_deterministic_algorithms`, which raises
+    on an op that has none), and cuBLAS's workspace setting, which that check
+    reads from the environment at each product. The settings are the
+    process's, so the caller's come back on the way out."""
+    cudnn = torch.backends.cudnn
+    prev = (cudnn.deterministic, cudnn.benchmark, torch.are_deterministic_algorithms_enabled(),
+            torch.is_deterministic_algorithms_warn_only_enabled(),
+            os.environ.get(CUBLAS_WORKSPACE))
+    os.environ[CUBLAS_WORKSPACE] = CUBLAS_DETERMINISTIC
+    cudnn.deterministic, cudnn.benchmark = True, False
+    torch.use_deterministic_algorithms(True)
+    try:
+        yield
+    finally:
+        cudnn.deterministic, cudnn.benchmark = prev[0], prev[1]
+        torch.use_deterministic_algorithms(prev[2], warn_only=prev[3])
+        if prev[4] is None:
+            os.environ.pop(CUBLAS_WORKSPACE, None)
+        else:
+            os.environ[CUBLAS_WORKSPACE] = prev[4]
+
+
+def weights_digest(state: Dict[str, torch.Tensor]) -> str:
+    """sha256 of a state_dict: each entry's name, dtype, shape and bytes, in
+    key order (a `.pt` file's own bytes also hold its file name)."""
+    h = hashlib.sha256()
+    for k in sorted(state):
+        t = state[k].detach().cpu().contiguous()
+        h.update(f"{k} {t.dtype} {tuple(t.shape)}\n".encode())
+        h.update(t.reshape(-1).view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()
 
 
 def load_folder(folder: str, size: int = 149) -> np.ndarray:
@@ -56,7 +103,9 @@ def train_step(model: InceptionV3, opt: torch.optim.Optimizer, x: torch.Tensor,
     (loss, accuracy) of the batch before the step, as 0-dim tensors."""
     with full_f32():
         logits = model(x.permute(0, 3, 1, 2))
-        loss = F.cross_entropy(logits, y)
+        # softmax cross entropy through a gather: NLLLoss has no deterministic
+        # CUDA path, and raises under `deterministic()`
+        loss = -F.log_softmax(logits, -1).gather(1, y[:, None]).mean()
         opt.zero_grad(set_to_none=True)
         loss.backward()
     opt.step()
@@ -97,14 +146,15 @@ def main(argv=None) -> Dict[str, float]:
     opt = make_optimizer(model, args.lr)
     rng = np.random.RandomState(args.seed)
     t0 = time.time()
-    for i in range(args.steps):
-        idx = torch.from_numpy(rng.choice(len(x), args.batch, replace=False)).to(device)
-        loss, acc = train_step(model, opt, x[idx], y[idx])
-        if (i + 1) % 25 == 0 or i == 0:
-            print(f"step {i + 1}/{args.steps}: loss={float(loss):.4f} "
-                  f"acc={float(acc):.3f} ({time.time() - t0:.1f}s)")
-    if device.type == "cuda":
-        torch.cuda.synchronize()
+    with deterministic():
+        for i in range(args.steps):
+            idx = torch.from_numpy(rng.choice(len(x), args.batch, replace=False)).to(device)
+            loss, acc = train_step(model, opt, x[idx], y[idx])
+            if (i + 1) % 25 == 0 or i == 0:
+                print(f"step {i + 1}/{args.steps}: loss={float(loss):.4f} "
+                      f"acc={float(acc):.3f} ({time.time() - t0:.1f}s)")
+        if device.type == "cuda":
+            torch.cuda.synchronize()
     train_s = time.time() - t0
 
     full_acc = accuracy(model, x, y)
@@ -112,9 +162,11 @@ def main(argv=None) -> Dict[str, float]:
     state = {k: v.detach().cpu() for k, v in model.state_dict().items()}
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
     torch.save(state, args.out)
-    print(f"wrote {args.out} ({os.path.getsize(args.out) / 1e6:.1f} MB)")
+    digest = weights_digest(state)
+    print(f"wrote {args.out} ({os.path.getsize(args.out) / 1e6:.1f} MB), weights sha256 "
+          f"{digest}")
     return {"loss": float(loss), "accuracy": full_acc, "train_seconds": train_s,
-            "steps_per_second": args.steps / train_s}
+            "steps_per_second": args.steps / train_s, "weights_sha256": digest}
 
 
 if __name__ == "__main__":

@@ -58,7 +58,10 @@ phase's launch counts hold for the graphed forms; gloo meshes (phases 23,
 11. a dataset: `tools/make_dataset.py --style hard`, 64 train and 64 test
    images a domain at 286^2 (numpy and Pillow, in a subprocess);
 12. `cli.train_inception` on it: InceptionV3 (2 classes) at 149^2, batch 32,
-   40 Adam steps: steps/s, full-set accuracy, a torchvision-layout `.pt`;
+   40 Adam steps, twice: one weight set (the sha256 of the tensors) from one
+   seed, steps/s of each training and of one step with the process's
+   settings and under the training's deterministic ones, full-set accuracy,
+   a torchvision-layout `.pt`;
 13. `cli.test` in float32 (TF32 off): one 256^2 image, 10 styles; the files,
    19 K1 launches, outputs within 2 LSB of the same CLI on the CPU;
 14. `cli.test_batch` (bf16, the config's dtype) on testA, batch 32, 3 styles,
@@ -158,7 +161,10 @@ phase's launch counts hold for the graphed forms; gloo meshes (phases 23,
    (1 - d) * max |step| and off the form with the weights from before the
    step by at least half of that, unmoved by the D iteration, and its
    movement within the parity tests' movement bar (rel-L2 0.05) of the CPU's;
-   and the CLI's host-heap release: in each train call every run of grid or
+   on two or more cards `train --smoke --world 2` (two NCCL ranks under
+   torchrun, graphed: each rank's (K1, K2) and steps the cadence's, rank 0
+   alone with the EMA's distance; on one card it logs that this part needs
+   more); and the CLI's host-heap release: in each train call every run of grid or
    snapshot writes is followed by one `release_host_heap` and no release
    comes without a write (the MiB each gives back logged, the heap released
    before the call), and on this host 384 MiB of 6 MiB blocks (glibc's mmap
@@ -1534,21 +1540,33 @@ def phase_dataset(tmp):
 
 
 def phase_train_inception(tmp):
-    """`cli.train_inception` at 149^2, batch 32; returns the `.pt` path."""
+    """`cli.train_inception` at 149^2, batch 32, twice in this process: one
+    seed and one dataset must give one weight set (the sha256 of its
+    tensors) on the card, as in the JAX tool; returns the first `.pt` path."""
     from aclgan_tpu_torch.cli import train_inception
 
-    out = str(Path(tmp) / "inc.pt")
-    torch.cuda.reset_peak_memory_stats()
-    r = train_inception.main(["--data_root", str(Path(tmp) / "ds"), "--out", out,
-                              "--steps", str(FT_STEPS), "--batch", "32", "--size", "149"])
-    if not (math.isfinite(r["loss"]) and Path(out).is_file()):
-        raise AssertionError(f"train_inception: {r}")
-    log(f"[train_inception] InceptionV3 (2 classes), 149^2, batch 32, {FT_STEPS} steps: "
-        f"{r['steps_per_second']:.2f} steps/s ({r['train_seconds']:.2f} s, the first "
-        f"step's cuDNN set-up included), last loss {r['loss']:.4f}, full-set accuracy "
-        f"{r['accuracy']:.4f}; peak memory {torch.cuda.max_memory_allocated() / 2**30:.3f} "
-        f"GiB; {Path(out).stat().st_size} B")
-    # the step alone, on device-resident batches: CUDA events, then a profile
+    runs = []
+    for k in range(2):
+        out = str(Path(tmp) / f"inc{'' if k == 0 else k}.pt")
+        torch.cuda.reset_peak_memory_stats()
+        r = train_inception.main(["--data_root", str(Path(tmp) / "ds"), "--out", out,
+                                  "--steps", str(FT_STEPS), "--batch", "32", "--size", "149"])
+        if not (math.isfinite(r["loss"]) and Path(out).is_file()):
+            raise AssertionError(f"train_inception: {r}")
+        runs.append((out, r))
+        log(f"[train_inception] InceptionV3 (2 classes), 149^2, batch 32, {FT_STEPS} steps, "
+            f"training {k + 1} of 2 (deterministic algorithms): {r['steps_per_second']:.2f} "
+            f"steps/s ({r['train_seconds']:.2f} s, the first step's cuDNN set-up included), "
+            f"last loss {r['loss']:.4f}, full-set accuracy {r['accuracy']:.4f}; peak memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; {Path(out).stat().st_size} "
+            f"B; weights sha256 {r['weights_sha256']}")
+    digests = [r["weights_sha256"] for _, r in runs]
+    if digests[0] != digests[1]:
+        raise AssertionError(f"train_inception: two trainings at one seed on one dataset gave "
+                             f"two weight sets, sha256 {digests}")
+    log(f"[train_inception] both trainings gave one weight set (sha256 {digests[0][:16]}...)")
+    # the step alone, on device-resident batches, with the process's settings
+    # and under the training's deterministic ones: CUDA events, then a profile
     from aclgan_tpu_torch.eval.inception import InceptionV3
 
     model = InceptionV3(num_classes=2, gen=torch.Generator().manual_seed(0)).cuda().eval()
@@ -1556,11 +1574,14 @@ def phase_train_inception(tmp):
     x = torch.rand(32, 149, 149, 3, device="cuda")
     y = torch.randint(0, 2, (32,), device="cuda")
     ms = time_ms(lambda: train_inception.train_step(model, opt, x, y))
+    with train_inception.deterministic():
+        ms_det = time_ms(lambda: train_inception.train_step(model, opt, x, y))
     log(f"[train_inception] one step at batch 32, 149^2, after warm-up: {ms:.2f} ms = "
-        f"{1e3 / ms:.2f} steps/s (mean of 20, CUDA events)")
+        f"{1e3 / ms:.2f} steps/s with the process's settings, {ms_det:.2f} ms = "
+        f"{1e3 / ms_det:.2f} steps/s under deterministic algorithms (mean of 20, CUDA events)")
     _profile("one fine-tune step at batch 32, 149^2",
              lambda: train_inception.train_step(model, opt, x, y))
-    return out
+    return runs[0][0]
 
 
 def phase_cli_test(cfg, tmp, ckpt):
@@ -4337,6 +4358,40 @@ def _heap_release_check():
     return added, kept, released
 
 
+ACC_WORLD = 2  # ranks of the mini run's data-parallel train stage (cards permitting)
+
+
+def _acceptance_world(tool, tmp, given):
+    """`tools/torch_synthfaces_hard.py train --smoke --world 2` (the CLI on
+    two NCCL ranks under torchrun, graphed) on phase 11's dataset where two
+    or more cards are visible; on one card it logs that this part needs
+    more. Each rank's (K1, K2) and steps must be the cadence's for its rank,
+    rank 0 alone holding the EMA's distance, and both must end at the last
+    iteration."""
+    n_cards = torch.cuda.device_count()
+    if n_cards < ACC_WORLD:
+        log(f"[acceptance_mini] --world {ACC_WORLD}: needs {ACC_WORLD} or more cards; "
+            f"{n_cards} visible: not run here")
+        return
+    work = Path(tmp) / "acceptance_world"
+    seg = tool.main(["train", "--smoke", "--world", str(ACC_WORLD), "--work", str(work),
+                     *given])["train"]
+    summary = tool.train_summary(tool._read(work / "train_log.json"), work / "none",
+                                 {p: [] for p in tool.PREFIXES}, 20)
+    ranks = summary["segments"][0]["ranks"]
+    bad = [r for r in ranks if not (r["launches_ok"] and r["steps_ok"]
+                                    and r["end"] == tool.SMOKE.iters)]
+    if bad or [bool(r["ema_from_live_rel_l2"]) for r in seg["ranks"]] != [True] + [False] * (
+            ACC_WORLD - 1):
+        raise AssertionError(f"acceptance_mini --world {ACC_WORLD}: ranks {ranks}")
+    log(f"[acceptance_mini] --world {ACC_WORLD} (NCCL, torchrun): {seg['end']} iterations in "
+        f"{seg['seconds']:.1f} s; per rank (K1, K2) "
+        + ", ".join(f"{r['launches']['k1']}, {r['launches']['k2']}" for r in ranks)
+        + " = the cadence's; steps " + ", ".join(str(r["steps"]) for r in ranks)
+        + "; peak memory " + ", ".join(f"{r['peak_memory_gib']} GiB" for r in ranks)
+        + f"; s an iteration p50 {summary['segments'][0]['s_per_iteration_p50']}")
+
+
 def phase_acceptance_mini(cfg, tmp, inc):
     """[acceptance_mini] `tools/torch_synthfaces_hard.py --smoke` on phase 11's
     dataset and phase 12's classifier: the train CLI at batch 16 with EMA,
@@ -4434,6 +4489,7 @@ def phase_acceptance_mini(cfg, tmp, inc):
     ema = _ema_card_vs_cpu(cfg, decay)
     ema_s = time.time() - t_ema
     heap = _heap_release_check()
+    _acceptance_world(tool, tmp, base[3:])
     s_it = [secs / 10 for _, secs in lines]
     log(f"[acceptance_mini] tools/torch_synthfaces_hard.py --smoke: the train CLI on "
         f"configs/synthfaces_hard.yaml (EMA {decay}, batch 16, bf16) on phase 11's "

@@ -239,10 +239,14 @@ def test_train_stage_stops_after_a_snapshot_at_its_deadline(tmp_path, monkeypatc
                            3000) == 1000
 
 
-def test_all_alongside_scores_beside_training(tmp_path, monkeypatch):
+@pytest.mark.parametrize("score_on", [None, "2,3"], ids=["one_follow", "a_follow_a_card"])
+def test_all_alongside_scores_beside_training(tmp_path, monkeypatch, score_on):
     """`all --alongside`: the dataset, then `follow` in a second process (here
     a thread) with its BLAS threads capped while `train` runs, then `report`
-    on both curves."""
+    on both curves. With `--score_on 2,3` one `follow` a family, each seeing
+    only its card: the first trains the classifier and calibrates, the other
+    waits for the classifier. What was left to score when training ended
+    goes to alongside.json."""
     import threading
 
     fake = _FakeEntryPoints(monkeypatch)
@@ -264,16 +268,25 @@ def test_all_alongside_scores_beside_training(tmp_path, monkeypatch):
     monkeypatch.setattr(tool.subprocess, "Popen", _Child)
     w = tmp_path / "w"
     out = tool.main(["all", "--alongside", "--work", str(w), "--device", "cpu",
-                     "--iters", "3000"])
-    (cmd, env), = children
-    assert cmd[2:] == ["follow", "--work", str(w), "--device", "cpu", "--data_root",
-                       str(w / "data")]
-    assert env["OPENBLAS_NUM_THREADS"] == env["OMP_NUM_THREADS"] == str(tool.SCORER_THREADS)
+                     "--iters", "3000"] + (["--score_on", score_on] if score_on else []))
+    base = ["follow", "--work", str(w), "--device", "cpu", "--data_root", str(w / "data")]
+    if score_on is None:
+        (cmd, env), = children
+        assert cmd[2:] == base and "CUDA_VISIBLE_DEVICES" not in env
+    else:
+        assert [(c[2:], e["CUDA_VISIBLE_DEVICES"]) for c, e in children] == [
+            (base + ["--families", "gen"], "2"), (base + ["--families", "ema"], "3")]
+    for _, env in children:
+        assert env["OPENBLAS_NUM_THREADS"] == env["OMP_NUM_THREADS"] == str(tool.SCORER_THREADS)
     kinds = [c[0] for c in fake.calls]
     assert kinds[0] == "dataset" and kinds[-1] == "grid" and kinds.count("fid_curve") >= 2
+    assert kinds.count("inception") == kinds.count("calibrate") == 1
     assert sorted(set(kinds)) == ["calibrate", "dataset", "fid_curve", "grid", "inception",
                                   "train"]
     assert (w / "train.done").exists()
+    alongside = json.loads(tool.Work.at(w).log("alongside").read_text())
+    assert set(alongside["unscored_at_train_end"]) == set(tool.PREFIXES)
+    assert out["report"]["alongside"] == alongside
     assert out["report"]["curves"]["gen"]["iterations"] == [1000, 2000, 3000]
     assert out["report"]["bars"]["ema_steadiness"]["snapshots"] == 0
     assert sorted(p.name for p in docs.iterdir()) == [
@@ -281,10 +294,12 @@ def test_all_alongside_scores_beside_training(tmp_path, monkeypatch):
 
 
 def _snapshots(ckpt, stamps, families=("gen", "dis", "ema"), optimizer=True):
+    """Stand-ins for snapshot files (a byte each: `report` takes a zero-byte
+    file for one a cut call listed but did not bring back)."""
     ckpt.mkdir(parents=True, exist_ok=True)
     for s in stamps:
         for f in families:
-            (ckpt / f"{f}_{s:08d}.pt").write_bytes(b"")
+            (ckpt / f"{f}_{s:08d}.pt").write_bytes(b"\0")
     if optimizer:
         (ckpt / "optimizer.pt").write_bytes(b"")
 
@@ -444,7 +459,7 @@ class _FakeEntryPoints:
         self.calls.append(("inception", argv))
         Path(self._arg(argv, "--out")).write_bytes(b"")
         return {"loss": 0.01, "accuracy": 1.0, "train_seconds": 1.0,
-                "steps_per_second": 300.0}
+                "steps_per_second": 300.0, "weights_sha256": "ab" * 32}
 
     def fid_curve(self, argv):
         self.calls.append(("fid_curve", argv))
@@ -499,6 +514,7 @@ def test_all_plan_calls_the_entry_points_with_their_argv(tmp_path, monkeypatch):
         ("grid", ["ema_00003000.pt", "ema_a2b_test_hard_00003000_small.jpg"]),
     ]
     assert load_config(cfg).data.data_root == str(w / "data")
+    assert json.loads((w / "inception.json").read_text())["weights_sha256"] == "ab" * 32
     seg = out["train"]
     assert [tuple(x) for x in seg["iteration_lines"]] == [(100, 25.0)]
     assert seg["derived"]["k1"] == 98 * 1512 + 49 * 1488 + 57 * 3
@@ -531,11 +547,17 @@ class _MeanScorer:
         self.sizes.append(images01.shape[1:3])
         return images01.mean((1, 2)).astype("float64")
 
+    def predict(self, images01):
+        """B (class 1) for a dark image, A for a light one."""
+        dark = (images01.mean((1, 2, 3)) < 0.45).astype("float64")
+        return __import__("numpy").stack([1.0 - dark, dark], -1)
+
 
 def test_calibration_loads_each_side_as_the_curve_loads_its_real_side(tmp_path, monkeypatch):
     """FID(testA, testB) and FID(trainB[:n], testB) through
     `cli.fid_curve`'s loading: the source domain's size (a -> b), the first
-    n images in order. trainB starts with testB's images, so the floor is 0."""
+    n images in order. trainB starts with testB's images, so the floor is 0.
+    The share of real testB (dark) and of real testA (light) rated as B."""
     import dataclasses
 
     import numpy as np
@@ -562,6 +584,7 @@ def test_calibration_loads_each_side_as_the_curve_loads_its_real_side(tmp_path, 
     assert set(_MeanScorer.sizes) == {(24, 24)}
     # testA is testB shifted by 120/255 in each channel: a gap of about 3 * 0.47^2
     assert out["n"] == 8 and out["domain_gap"] > 0.5 and abs(out["floor"]) < 1e-3
+    assert out["real_as_b"] == {"testB": 1.0, "testA": 0.0}
 
 
 def test_pillow_and_libjpeg_routes_agree_on_hard_images(tmp_path):
@@ -612,3 +635,181 @@ def test_tool_import_loads_no_jax():
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                          text=True, timeout=120, check=True).stdout
     assert out.strip() == "[]"
+
+
+# ------------------------------------------------------------------ --world 2
+WORLD = 2
+
+
+@pytest.fixture(scope="module")
+def world_run(tmp_path_factory):
+    """The train stage with `--world 2 --device cpu` (two gloo ranks under the
+    torchrun launcher) on a tiny config in the work directory: batch 4 (2 a
+    rank) on 8 PNGs a domain, a line every 3 iterations, a snapshot and a
+    train grid every 2, EMA 0.9, to 6 iterations under a 1 s deadline. The
+    first line after a snapshot with a decision is 3 (at 1 rank 0 has none
+    yet), so every rank stops at 3, after the snapshot at 2."""
+    import numpy as np
+    from PIL import Image
+
+    from aclgan_tpu_torch import config
+    from tests.helpers import tiny_config
+
+    w = tmp_path_factory.mktemp("world") / "w"
+    rng = np.random.RandomState(0)
+    for sub in ("trainA", "trainB", "testA", "testB"):
+        (w / "data" / sub).mkdir(parents=True)
+        for i in range(8):
+            Image.fromarray(rng.randint(0, 256, (22, 24, 3), dtype=np.uint8)).save(
+                w / "data" / sub / f"{i}.png")
+    cfg = config.from_dict(tiny_config(batch_size=4, display_size=2, image_save_iter=4,
+                                       image_display_iter=2, snapshot_save_iter=2,
+                                       log_iter=3, seed=11).to_dict())
+    cfg.data.synthetic, cfg.data.data_root, cfg.data.num_workers = False, str(w / "data"), 0
+    cfg.data.new_size, cfg.data.crop_image_height, cfg.data.crop_image_width = 20, 16, 16
+    cfg.tpu.ema_decay = 0.9
+    config.save_config(cfg, w / "synthfaces_hard.yaml")
+    mp = pytest.MonkeyPatch()
+    # the guard holds a run to the shipped config; this one is cut to the CPU
+    mp.setattr(tool, "ensure_config", lambda work, sizes: config.load_config(work.config))
+    try:
+        seg = tool.main(["train", "--work", str(w), "--data_root", str(w / "data"),
+                         "--device", "cpu", "--world", str(WORLD), "--iters", "6",
+                         "--deadline", "1"])["train"]
+    finally:
+        mp.undo()
+    return w, cfg, seg
+
+
+def test_world_2_train_stage_records_each_rank(world_run):
+    """One segment entry a rank: each rank's D+G / D-only steps and display
+    samples equal `cadence_counts` for its rank (rank 0 alone samples), the
+    EMA's distance on rank 0 alone, VmRSS and the feed's waits on both; the
+    segment's top level is rank 0's, as a single process's."""
+    w, cfg, seg = world_run
+    epoch_len = 8 // (cfg.batch_size // WORLD)
+    assert (seg["world"], seg["epoch_len"], len(seg["ranks"])) == (WORLD, epoch_len, WORLD)
+    for rank, r in enumerate(seg["ranks"]):
+        want = tool.cadence_counts(0, 3, epoch_len, cfg, rank)
+        assert r["rank"] == rank and r["derived"] == want
+        assert (r["steps"]["dg"], r["steps"]["d_only"], r["steps"]["samples"]) == (
+            want["dg"], want["d_only"], want["samples"])
+        assert r["rss"] and [it for it, _ in r["feed_wait_seconds"]] == [3]
+        assert bool(r["ema_from_live_rel_l2"]) == (rank == 0)
+    assert seg["ranks"][0]["steps"]["samples"] == 1 and seg["ranks"][1]["steps"]["samples"] == 0
+    assert set(seg["ema_from_live_rel_l2"]) == {"2"}
+    assert [it for it, _ in seg["iteration_lines"]] == [3]
+    assert seg["derived"] == seg["ranks"][0]["derived"]
+    summary = tool.train_summary(tool._read(w / "train_log.json"), w / "none.jsonl",
+                                 {p: [2] for p in tool.PREFIXES}, cfg.snapshot_save_iter)
+    ranks = summary["segments"][0]["ranks"]
+    assert [r["steps_ok"] for r in ranks] == [True, True]
+    assert [r["launches_ok"] for r in ranks] == [None, None]  # no kernel on the CPU
+
+
+def test_world_2_deadline_stops_every_rank_at_one_iteration(world_run):
+    """Under `--deadline`, rank 0's decision at the line after a snapshot
+    reaches every rank through one broadcast: both end at iteration 3, the
+    launcher exits cleanly (no rank dumped its stack), and the run resumes
+    from the snapshot at 2."""
+    w, cfg, seg = world_run
+    assert (seg["start"], seg["end"], seg["stopped_at"]) == (0, 3, 3)
+    assert [(r["end"], r["stopped_at"]) for r in seg["ranks"]] == [(3, 3)] * WORLD
+    assert not any(p.stat().st_size for p in (w / "dumps").glob("stack.*.txt"))
+    assert tool.train_plan(w / "run" / "outputs" / "synthfaces_hard" / "checkpoints", 6) == 2
+
+
+def test_classifier_gate_on_hand_made_rates():
+    """The gate of `BARS`: real testB rated B at >= 0.99 and real testA at
+    <= 0.01; without calibration's rates it is not judged."""
+    assert tool.classifier_gate({"real_as_b": {"testB": 0.99, "testA": 0.01}})["pass"] is True
+    assert tool.classifier_gate({"real_as_b": {"testB": 0.988, "testA": 0.0}})["pass"] is False
+    assert tool.classifier_gate({"real_as_b": {"testB": 1.0, "testA": 0.012}})["pass"] is False
+    assert tool.classifier_gate({"domain_gap": 40.0})["pass"] is None
+    assert tool.classifier_gate(None)["pass"] is None
+
+
+WINDOW_OPEN = "not judged: ema_steadiness, ema_level"  # no snapshot from 10,000 on
+
+
+@pytest.mark.parametrize("rates,verdict", [
+    ({"testB": 1.0, "testA": 0.0}, WINDOW_OPEN),
+    ({"testB": 0.9, "testA": 0.0}, tool.GATE_FAILED),
+    (None, "not judged: classifier_gate, ema_steadiness, ema_level"),
+])
+def test_report_reads_no_bar_behind_a_failed_gate(tmp_path, rates, verdict):
+    """`report` on curves that hold every bar they reach (1,000-3,000: the
+    EMA's window is not judged): under a classifier that passed its gate the
+    verdict names only that window; under one that failed it, no bar is read
+    (each `pass` None, `not_read` says why) and the verdict says so; without
+    the rates the gate is not judged."""
+    curves = {p: _curve(GOOD[p], p) for p in tool.PREFIXES}
+    work = _work_with_curves(tmp_path, curves)
+    calib = {"n": 500, "domain_gap": 40.0, "floor": 1.5}
+    if rates is not None:
+        calib["real_as_b"] = rates
+    work.log("calibrate").write_text(json.dumps(calib))
+    work.log("inception").write_text(json.dumps({"accuracy": 1.0}))
+    s = tool.report(work, tool.FULL, None, docs=None)
+    assert s["verdict"] == verdict
+    assert s["bars"]["classifier_gate"]["value"] == rates
+    quality = {k: b for k, b in s["bars"].items() if k != "classifier_gate"}
+    if verdict == tool.GATE_FAILED:
+        assert all(b["pass"] is None and b["not_read"] == tool.GATE_FAILED
+                   for b in quality.values())
+    else:
+        held = {k for k, b in quality.items() if b["pass"] is True}
+        assert held == {"classifier_accuracy", "target_domain_rate", "ema_warmup",
+                        "best_over_domain_gap"}
+
+
+def _printed(it, fid, rate, ci):
+    """A row as `cli.fid_curve` prints it (3 styles, bootstrap)."""
+    return (f"iter {it:>8}: FID {fid:.3f}  target-domain rate {rate:.4f}  styles [1.0, 2.0, "
+            f"3.0] spread 2.0  ci95 {ci} (80.1 s)")
+
+
+def test_recover_rebuilds_the_curves_of_a_cut_call_from_its_follow_logs(tmp_path,
+                                                                         monkeypatch):
+    """`recover` on a work directory whose curve files a cut call never
+    copied out: a one-family `follow_<family>.log` gives its rows, those of a
+    sweep cut before its `wrote` line included; in a two-family `follow.log`
+    each row goes to the family its sweep wrote, and a reprinted iteration
+    keeps its last print. The files carry the run's protocol, so `report`
+    reads them; the zero-byte files that stand for snapshots the call did
+    not bring back count as snapshots and get no grid."""
+    work = tool.Work.at(tmp_path / "w")
+    work.root.mkdir(parents=True)
+    tool.ensure_config(work, tool.FULL)
+    run = str(work.run_dir)
+    (work.root / "follow_ema.log").write_text("\n".join([
+        "[synthfaces_hard] stage follow", _printed(1000, 30.0, 0.71, [25.0, 35.0]),
+        "| 1000 | 30.0 | 0.71 | 2.0 | [25.0, 35.0] |", f"wrote {run}/fid_curve_ema.json",
+        "merged 1 prior rows", _printed(2000, 8.0, 0.995, [6.0, 9.0])]) + "\n")
+    (work.root / "follow.log").write_text("\n".join([
+        _printed(1000, 5.0, 1.0, [4.0, 6.0]), _printed(2000, 3.5, 1.0, [3.0, 4.0]),
+        _printed(2000, 3.0, 1.0, [2.5, 3.5]), f"wrote {run}/fid_curve_gen.json",
+        _printed(3000, 9.0, 1.0, [8.0, 10.0])]) + "\n")
+    got = tool.curve_rows_from_log((work.root / "follow.log").read_text())
+    assert sorted(got["gen"]) == [1000, 2000] and got["ema"] == {}
+    assert got["gen"][2000] == {"iteration": 2000, "fid": 3.0, "target_domain_rate": 1.0,
+                                "fid_styles": [1.0, 2.0, 3.0], "fid_spread": 2.0,
+                                "fid_ci95": [2.5, 3.5]}
+    out = tool.main(["recover", "--work", str(work.root), "--device", "cpu"])["recover"]
+    assert out == {"gen": {"rows": 2, "last": 2000}, "ema": {"rows": 2, "last": 2000}}
+    for p in tool.PREFIXES:
+        doc = json.loads(work.curve(p).read_text())
+        assert {k: doc[k] for k in tool.curve_meta(tool.FULL, p)} == tool.curve_meta(tool.FULL, p)
+        assert doc["complete"] is False and [r["iteration"] for r in doc["rows"]] == [1000, 2000]
+    assert tool.main(["recover", "--work", str(work.root), "--device", "cpu"])["recover"] == {
+        p: {"skipped": True} for p in tool.PREFIXES}
+    for p in ("gen", "dis", "ema"):
+        for it in (1000, 2000):
+            (work.checkpoints / f"{p}_{it:08d}.pt").parent.mkdir(parents=True, exist_ok=True)
+            (work.checkpoints / f"{p}_{it:08d}.pt").write_bytes(b"")
+    monkeypatch.setattr(tool, "snapshot_grid", None)  # not to be called
+    s = tool.report(work, tool.FULL, RECORDED, docs=tmp_path / "docs")
+    assert s["curves"]["ema"]["iterations"] == [1000, 2000]
+    assert s["bars"]["ema_warmup"]["value"] == {"ema": 30.0, "gen": 5.0}
+    assert s["selected"] == {"prefix": "gen", "iteration": 2000, "fid": 3.0}
+    assert s["train"] is None and (tmp_path / "docs" / "summary.json").exists()

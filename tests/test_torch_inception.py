@@ -237,3 +237,54 @@ def test_scorer_needs_a_card_unless_asked_for_the_cpu():
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="CUDA"):
         InceptionScorer(None)
+
+
+def _settings():
+    import os
+
+    cudnn = torch.backends.cudnn
+    return (cudnn.deterministic, cudnn.benchmark, torch.are_deterministic_algorithms_enabled(),
+            torch.is_deterministic_algorithms_warn_only_enabled(),
+            os.environ.get("CUBLAS_WORKSPACE_CONFIG"))
+
+
+@pytest.mark.parametrize("caller", ["defaults", "benchmark_warn_only_env"])
+def test_train_inception_gives_one_weight_set_a_seed(tmp_path, monkeypatch, caller):
+    """Two `cli.train_inception` runs at a few steps on one dataset and seed
+    write equal weights (the sha256 of their tensors), and each leaves the caller's cuDNN,
+    deterministic-algorithm and `CUBLAS_WORKSPACE_CONFIG` settings as they
+    were, whether those were the defaults or not."""
+    from PIL import Image
+
+    from aclgan_tpu_torch.cli import train_inception
+
+    rng = np.random.RandomState(7)
+    for d in ("trainA", "trainB"):
+        (tmp_path / "ds" / d).mkdir(parents=True)
+        for i in range(6):
+            Image.fromarray(rng.randint(0, 256, (80, 80, 3), dtype=np.uint8)).save(
+                tmp_path / "ds" / d / f"{i}.png")
+    cudnn = torch.backends.cudnn
+    if caller == "defaults":
+        monkeypatch.delenv("CUBLAS_WORKSPACE_CONFIG", raising=False)
+    else:
+        monkeypatch.setenv("CUBLAS_WORKSPACE_CONFIG", ":16:8")
+        monkeypatch.setattr(cudnn, "benchmark", True)
+        torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        before = _settings()
+        digests = []
+        for run in range(2):
+            out = tmp_path / f"inception{run}.pt"
+            got = train_inception.main(["--data_root", str(tmp_path / "ds"), "--out",
+                                        str(out), "--steps", "3", "--batch", "4", "--size",
+                                        "75", "--device", "cpu"])
+            assert _settings() == before, run
+            weights = torch.load(out, weights_only=True)
+            assert got["weights_sha256"] == train_inception.weights_digest(weights)
+            digests.append(got["weights_sha256"])
+    finally:
+        torch.use_deterministic_algorithms(False)
+    assert digests[0] == digests[1]
+    assert not torch.equal(weights["fc.weight"], InceptionV3(
+        num_classes=2, gen=torch.Generator().manual_seed(0)).state_dict()["fc.weight"])

@@ -205,6 +205,14 @@ def test_gloo_meshes_are_not_captured():
         dist.destroy_process_group()
 
 
+# The deadline of the hung-rank spawn. Both ranks must import torch, join
+# gloo and start their second all-reduce well before the dump at the deadline
+# less `dump_margin`: on a host loaded by six test workers a 10 s deadline
+# left no room (both ranks were still importing when it passed and were
+# killed without a stack).
+HUNG_DEADLINE = 40.0
+
+
 def test_spawn_kills_a_hung_rank_at_its_deadline(tmp_path):
     """A rank that sleeps past the spawn's one deadline: `spawn` raises within
     the deadline and a small margin, with the sleeping rank's Python stack
@@ -212,11 +220,11 @@ def test_spawn_kills_a_hung_rank_at_its_deadline(tmp_path):
     waiting rank's collective ends at its group's timeout first."""
     t0 = time.time()
     with pytest.raises(RuntimeError) as raised:
-        torch_dp_worker.spawn(torch_dp_worker.hang_one_rank, 2, (600,), timeout=10,
-                              dump_dir=tmp_path)
+        torch_dp_worker.spawn(torch_dp_worker.hang_one_rank, 2, (600,),
+                              timeout=HUNG_DEADLINE, dump_dir=tmp_path)
     took = time.time() - t0
     msg = str(raised.value)
-    assert took < 10 + 5, took
+    assert took < HUNG_DEADLINE + 5, took
     assert "rank 1: stack" in msg and "_sleep_past_the_deadline" in msg
     assert "rank 0: traceback" in msg
     for rank in (0, 1):

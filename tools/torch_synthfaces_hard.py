@@ -4,10 +4,13 @@ held against the JAX package's recorded run (`docs/run_synthfaces_hard/`).
 
     python3 tools/torch_synthfaces_hard.py [STAGE] --work DIR [--iters N]
         [--device cuda|cpu] [--smoke] [--data_root DIR] [--inception_weights PT]
-        [--recorded DIR] [--alongside] [--deadline S]
+        [--recorded DIR] [--alongside] [--deadline S] [--world N]
+        [--score_on CARDS] [--scorer_threads T] [--docs DIR]
 
 STAGE is one of `dataset`, `train`, `inception`, `curves`, `calibrate`,
-`report` or `all` (the default: every stage in that order). Each stage runs
+`report` or `all` (the default: every stage in that order), or `recover`,
+which rebuilds the curve files of a call cut before it copied them out from
+the rows its `follow` logs hold, for `report`. Each stage runs
 the port's own entry point and skips what DIR already holds, so a cut run
 resumes where it stopped:
 
@@ -24,7 +27,16 @@ resumes where it stopped:
   snapshot, and the non-finite values of `scalars.jsonl`, in
   DIR/train_log.json. With `--deadline S`, the first `Iteration:` line
   after a snapshot ends the CLI when the next snapshot would land more than
-  S seconds after the command started (the segment's `stopped_at`);
+  S seconds after the command started (the segment's `stopped_at`). With
+  `--world N` (N > 1) the CLI runs on N ranks under the torchrun launcher
+  (`torch_ranks.torchrun`, one deadline that dumps every rank), one a card
+  (NCCL; gloo with `--device cpu`), each on batch_size / N of the global
+  batch in the config's data-parallel mesh (`tpu.mesh_data` -1): each rank
+  (`train_rank`) records its launches, steps, samples, peak memory, VmRSS
+  and the seconds it waited on its feed, rank 0 also the `Iteration:` lines
+  and the EMA's distance, and the segment gets one entry per rank. The
+  deadline's decision is rank 0's, shared by one broadcast at the first
+  iteration after that line, so every rank stops at the same iteration;
 - `inception`: `cli.train_inception.main` at the JAX tool's defaults (300
   steps, batch 32, 149^2, seed 0); its full-set accuracy to DIR/inception.json;
 - `curves`: `cli.fid_curve.main` with `--n 500 --styles 3 --bootstrap 100`,
@@ -32,19 +44,27 @@ resumes where it stopped:
   the curve file already holds rows under the same protocol;
 - `calibrate`: under the same classifier and n, FID(testA, testB) (the
   domain gap) and FID(first n of trainB, testB) (the estimator's floor),
-  float64 scipy as the curves';
+  float64 scipy as the curves', and the classifier's target-domain (B)
+  rate on real testB and on real testA;
 - `report`: both curves beside the recorded ones at the common iterations
   (`tools/fid_compare.compare`, which refuses another protocol), gen
-  against ema, the quality bars and the EMA's two rules (`BARS`), the
+  against ema, the classifier's gate (real testB rated B, real testA not:
+  a failed gate voids every quality bar), the quality bars and the EMA's
+  two rules (`BARS`), the
   EMA's wins in the rules' window, the run's rates and checks (VmRSS at
   each 1,000 iterations and its slope from 500 on, per segment), and a
   test grid of the selected snapshot shrunk by 3, written with both curves
-  and `summary.json` to `docs/run_synthfaces_hard_torch` (DIR/docs under
-  `--smoke`).
+  and `summary.json` to `--docs` (default `docs/run_synthfaces_hard_torch`;
+  DIR/docs under `--smoke`).
 
-`all --alongside` runs `dataset`, then `train` in this process while a
-second process (`follow`, its OpenMP / BLAS threads capped) fine-tunes the
-classifier, calibrates and scores each snapshot as it lands; then `report`.
+`all --alongside` runs `dataset`, then `train` (in this process, or its
+ranks under `--world N`) while a second process (`follow`, its OpenMP /
+BLAS threads capped at `--scorer_threads`) fine-tunes the classifier,
+calibrates and scores each snapshot as it lands; then `report`. With
+`--score_on CARDS` (a card, or two: then one `follow` a family, the first
+training the classifier) each `follow` sees only its card. The snapshots
+still unscored when training ends and the seconds scoring ran on after it
+go to DIR/alongside.json.
 
 `report` compares with `--recorded` (default `docs/run_synthfaces_hard`).
 `--smoke` shrinks every size (64 images a domain, a 40-step classifier, 40
@@ -93,6 +113,7 @@ SHIPPED = REPO / "configs" / f"{STEM}.yaml"
 RECORDED = REPO / "docs" / "run_synthfaces_hard"
 DOCS = REPO / "docs" / "run_synthfaces_hard_torch"
 STAGES = ("dataset", "train", "inception", "curves", "calibrate", "report")
+RECOVER = "recover"  # not in `all`: for a work directory a cut call left
 PREFIXES = ("gen", "ema")
 
 # The quality bars, set before the run (the JAX run's reading in brackets):
@@ -103,9 +124,14 @@ PREFIXES = ("gen", "ema")
 # The EMA's two rules over the snapshots from 10,000 to 20,000: its FID range
 # (max - min) narrower than the live weights' [2.889 against 32.838], and its
 # median FID at most 1.5x the live weights' [14.804 / 11.689 = 1.266].
+# The classifier's gate, which every quality verdict needs: real testB rated
+# as B at a rate of at least 0.99, real testA at most 0.01 (at the curve's n,
+# loaded as the curves load their real side); otherwise no bar is read.
 BARS = {"accuracy_min": 0.99, "rate_min": 0.99, "rate_from": 2000,
         "warmup_iteration": 1000, "best_over_gap_max": 0.25,
-        "ema_window": (10000, 20000), "ema_median_over_live_max": 1.5}
+        "ema_window": (10000, 20000), "ema_median_over_live_max": 1.5,
+        "real_b_as_b_min": 0.99, "real_a_as_b_max": 0.01}
+GATE_FAILED = "classifier failed its gate"
 RSS_GROWTH_MAX = 0.5 * 2**30   # bytes from iteration 500 to the end of a segment
 
 
@@ -316,14 +342,16 @@ def curve_plan(doc: Optional[Dict[str, Any]], stamps: List[int],
     return max(done, default=0)
 
 
-def cadence_counts(start: int, end: int, epoch_len: int, cfg: Config) -> Dict[str, int]:
-    """What the train CLI runs over global iterations start+1..end of one
-    call (the cadence is epoch-local and restarts with the call): D+G and
-    D-only iterations, G steps, display samples (two test grids and a train
-    grid) and the K1 / K2 launches they make."""
+def cadence_counts(start: int, end: int, epoch_len: int, cfg: Config,
+                   rank: int = 0) -> Dict[str, int]:
+    """What the train CLI runs on rank `rank` over global iterations
+    start+1..end of one call (the cadence is epoch-local and restarts with
+    the call): D+G and D-only iterations, G steps, display samples (two test
+    grids and a train grid; rank 0 alone samples) and the K1 / K2 launches
+    they make."""
     cadence = chip_smoke._cadence(cfg, epoch_len, start + 1, end)
-    samples = sum(2 * (i % cfg.image_save_iter == 0) + (i % cfg.image_display_iter == 0)
-                  for i in cadence)
+    samples = 0 if rank else sum(2 * (i % cfg.image_save_iter == 0)
+                                 + (i % cfg.image_display_iter == 0) for i in cadence)
     k1, k2 = chip_smoke._expected_launches(cadence, samples)
     return {"dg": sum(d and g for d, g in cadence.values()),
             "d_only": sum(d and not g for d, g in cadence.values()),
@@ -366,13 +394,16 @@ class _Recorder(RssSampler):
     """The `Iteration:` lines of a train call and this process's VmRSS
     (every `every` seconds, and at each such line). With `stop_by` (a
     `time.time()`), the first line after each snapshot raises `Stopped` when
-    the next snapshot would land later than that at the recent rate."""
+    the next snapshot would land later than that at the recent rate; with
+    `raise_on_stop` False it keeps that line's iteration in `stop_at`
+    instead, for the ranks to share."""
 
     def __init__(self, start: int = 0, every: float = 30.0, stop_by: Optional[float] = None,
-                 snapshot_every: int = 1000, log_iter: int = 100):
+                 snapshot_every: int = 1000, log_iter: int = 100, raise_on_stop: bool = True):
         super().__init__(every=every, start=start)
         self.lines: List[Tuple[int, float]] = []
         self.stop_by, self.snapshot_every, self.log_iter = stop_by, snapshot_every, log_iter
+        self.raise_on_stop, self.stop_at = raise_on_stop, None
 
     def on_line(self, line: str):
         m = chip_smoke._ITERATION.match(line)
@@ -381,7 +412,9 @@ class _Recorder(RssSampler):
             self.lines.append((self.iteration, float(m[2])))
             self.sample()
             if self.stop_by is not None and self._out_of_time():
-                raise Stopped(self.iteration)
+                if self.raise_on_stop:
+                    raise Stopped(self.iteration)
+                self.stop_at = self.iteration
 
     def _out_of_time(self) -> bool:
         if self.iteration % self.snapshot_every != self.log_iter % self.snapshot_every:
@@ -444,6 +477,8 @@ def stage_train(work: Work, sizes: Sizes, args) -> Dict[str, Any]:
             "--max_iter", str(args.iters), "--device", args.device]
     if start:
         argv.append("--resume")
+    if args.world > 1:
+        return _append_segment(work, train_ranks(work, cfg, start, argv, args))
     device = torch.device(args.device)
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats()
@@ -484,10 +519,182 @@ def stage_train(work: Work, sizes: Sizes, args) -> Dict[str, Any]:
         "derived": cadence_counts(start, end, epoch_len, cfg),
         "epoch_len": epoch_len,
     }
+    return _append_segment(work, segment)
+
+
+def _append_segment(work: Work, segment: Dict[str, Any]) -> Dict[str, Any]:
     log = _read(work.log("train_log"), {"segments": []})
     log["segments"].append(segment)
     _write(work.log("train_log"), log)
     return segment
+
+
+# ------------------------------------------------------------------ ranks
+RANK_ENTRY = "--train-rank"  # this tool's own argument: one rank of a `--world N` train stage
+RANK_GRACE = 180.0           # s past `--deadline` before the launcher's deadline dumps the ranks
+RANK_TIMEOUT = 12 * 3600.0   # s: the launcher's deadline of a run without `--deadline`
+
+
+def train_ranks(work: Work, cfg: Config, start: int, argv: List[str], args) -> Dict[str, Any]:
+    """The train CLI on `args.world` ranks under the torchrun launcher, each
+    a `train_rank` (`torch_ranks.torchrun`: one deadline, every rank's
+    stack and collective log dumped near it); returns the segment: rank 0's
+    lines, VmRSS, peak memory, launches and EMA distances at its top level
+    as a single process's, and `ranks`, one entry a rank."""
+    import torch_ranks
+
+    spec = work.root / "train_rank.json"
+    _write(spec, {"argv": argv, "start": start, "stop_by": args.stop_by,
+                  "out": str(work.root / "train_rank")})
+    for r in range(args.world):
+        Path(f"{work.root / 'train_rank'}.{r}.json").unlink(missing_ok=True)
+    timeout = RANK_TIMEOUT if args.stop_by is None else args.stop_by - time.time() + RANK_GRACE
+    t0 = time.time()
+    lines, _ = torch_ranks.torchrun([Path(__file__).resolve(), RANK_ENTRY, spec], args.world,
+                                    timeout, work.root / "dumps",
+                                    {"PYTHONPATH": os.pathsep.join(
+                                        [str(REPO)] + [p for p in [os.environ.get("PYTHONPATH")]
+                                                       if p])})
+    print("\n".join(lines), flush=True)
+    ranks = [_read(Path(f"{work.root / 'train_rank'}.{r}.json")) for r in range(args.world)]
+    ends = {r["end"] for r in ranks}
+    if len(ends) != 1:
+        raise RuntimeError(f"the {args.world} ranks ended at iterations {sorted(ends)}")
+    end = ends.pop()
+    epoch_len = min(_count_images(work.data_root / "trainA"),
+                    _count_images(work.data_root / "trainB")) // (cfg.batch_size // args.world)
+    for r in ranks:
+        r["derived"] = cadence_counts(start, end, epoch_len, cfg, r["rank"])
+    lead = ranks[0]
+    if lead["stopped_at"] is not None:
+        print(f"[{STEM}] train stopped at iteration {end} on every rank: the next snapshot "
+              "would land after the deadline", flush=True)
+    return {"start": start, "end": end, "stopped_at": lead["stopped_at"], "argv": argv,
+            "seconds": time.time() - t0, "device": args.device, "world": args.world,
+            "iteration_lines": lead["lines"], "log_iter": cfg.log_iter, "rss": lead["rss"],
+            "peak_memory": lead["peak_memory"], "launches": lead["launches"],
+            "ema_from_live_rel_l2": lead["ema_from_live_rel_l2"], "derived": lead["derived"],
+            "epoch_len": epoch_len, "ranks": ranks}
+
+
+def _timed_feed(prefetch, waited: List[float]):
+    """`prefetch` (the CLI's `device_prefetch`) adding the seconds each `next`
+    waited for its batch to waited[0]."""
+    def timed(*args, **kwargs):
+        batches = prefetch(*args, **kwargs)
+        try:
+            while True:
+                t0 = time.perf_counter()
+                try:
+                    x = next(batches)
+                except StopIteration:
+                    return
+                waited[0] += time.perf_counter() - t0
+                yield x
+        finally:
+            batches.close()
+
+    return timed
+
+
+def train_rank(spec_path: str) -> None:
+    """One rank of a `--world N` train stage, as `train_ranks` starts it
+    under torchrun: armed to dump near the launcher's deadline, it joins
+    the group from torchrun's environment (NCCL on cuda:LOCAL_RANK; gloo on
+    the CPU), which puts the CLI in the config's data-parallel mesh without
+    a changed key, and runs `cli.train.main` on its card. It counts its
+    D+G and D-only steps, its `sample` calls, the K1 / K2 launches, the
+    seconds its feed kept it waiting (every `log_iter` iterations), its
+    VmRSS (rank 0 at each `Iteration:` line, the others every `log_iter`
+    iterations) and its peak device memory; rank 0 also the lines and the
+    EMA's rel-L2 from the live weights at each snapshot. Under a deadline,
+    at the first iteration after each line that follows a snapshot every
+    rank takes rank 0's decision by one broadcast and all stop there
+    together. Writes <out>.<rank>.json, then destroys its graphs and the
+    group (`torch_ranks.teardown`)."""
+    import torch.distributed as dist
+
+    import torch_ranks
+    from aclgan_tpu_torch.cli import train as cli_train
+    from aclgan_tpu_torch.parallel.mesh import init_distributed
+    from aclgan_tpu_torch.trainer import ACLGAN
+
+    torch_ranks.watch_torchrun_rank()
+    spec = _read(Path(spec_path))
+    argv = list(spec["argv"])
+    at = argv.index("--device") + 1
+    device = init_distributed(torch.device(argv[at]).type)
+    argv[at] = str(device)
+    rank, start = dist.get_rank(), spec["start"]
+    cfg = load_config(argv[argv.index("--config") + 1])
+    every, phase = cfg.snapshot_save_iter, cfg.log_iter % cfg.snapshot_save_iter
+    state = {"done": start, "dg": 0, "d_only": 0, "samples": 0, "model": None}
+    waited, feed = [0.0], []
+    distance: Dict[str, Dict[str, float]] = {}
+    step, sample, save = ACLGAN.train_step, ACLGAN.sample, cli_train.save_checkpoint
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    rec = _Recorder(start, stop_by=spec["stop_by"] if rank == 0 else None,
+                    snapshot_every=every, log_iter=cfg.log_iter, raise_on_stop=False)
+
+    def train_step(self, x_a, x_b, do_dis, do_gen, step_increment=1, *a, **kw):
+        state["model"] = self
+        done = state["done"] + step_increment - 1  # iterations ended before this one
+        if spec["stop_by"] is not None and done > start and done % every == phase:
+            flag = torch.tensor([int(rec.stop_at == done)], device=device)
+            dist.broadcast(flag, 0)
+            if flag.item():
+                raise Stopped(done)
+        out = step(self, x_a, x_b, do_dis, do_gen, step_increment, *a, **kw)
+        state["done"] = done + 1
+        state["dg" if do_dis and do_gen else "d_only"] += 1
+        if state["done"] % cfg.log_iter == 0:
+            feed.append((state["done"], round(waited[0], 4)))
+            if rank:
+                rec.iteration = state["done"]
+                rec.sample()
+        return out
+
+    def counted_sample(self, *args):
+        state["samples"] += 1
+        return sample(self, *args)
+
+    def save_and_measure(directory, model, iterations, **kw):
+        save(directory, model, iterations, **kw)
+        if model.ema is not None:
+            distance[str(iterations + 1)] = ema_distance(model)
+
+    k0, t0, stopped = _launches(), time.time(), None
+    try:
+        with rec, open(f"{spec['out']}.{rank}.log", "w") as log:
+            def on_line(line):
+                log.write(line + "\n")
+                log.flush()
+                rec.on_line(line)
+
+            with contextlib.redirect_stdout(_Tee(sys.stdout, on_line)), \
+                    mock.patch.object(ACLGAN, "train_step", train_step), \
+                    mock.patch.object(ACLGAN, "sample", counted_sample), \
+                    mock.patch.object(cli_train, "save_checkpoint", save_and_measure), \
+                    mock.patch.object(cli_train, "device_prefetch",
+                                      _timed_feed(cli_train.device_prefetch, waited)):
+                try:
+                    cli_train.main(argv)
+                except Stopped as e:
+                    stopped = e.iteration
+            _sync(device)
+    finally:
+        torch_ranks.teardown([state["model"]] if state["model"] is not None else [])
+    k1, k2 = (b - a for a, b in zip(k0, _launches()))
+    _write(Path(f"{spec['out']}.{rank}.json"), {
+        "rank": rank, "end": state["done"] if stopped is None else stopped,
+        "stopped_at": stopped, "seconds": time.time() - t0,
+        "steps": {"dg": state["dg"], "d_only": state["d_only"], "samples": state["samples"]},
+        "launches": {"k1": k1, "k2": k2}, "lines": rec.lines, "rss": rec.rss,
+        "feed_wait_seconds": feed,
+        "peak_memory": (torch.cuda.max_memory_allocated(device) if device.type == "cuda"
+                        else None),
+        "ema_from_live_rel_l2": distance})
 
 
 def stage_inception(work: Work, sizes: Sizes, args) -> Dict[str, Any]:
@@ -504,17 +711,17 @@ def stage_inception(work: Work, sizes: Sizes, args) -> Dict[str, Any]:
             "--size", str(sizes.inception_size), "--seed", str(sizes.inception_seed),
             "--device", args.device]
     r = train_inception.main(argv)
-    doc = {"argv": argv, **{k: float(v) for k, v in r.items()}}
+    doc = {"argv": argv, **{k: v if isinstance(v, str) else float(v) for k, v in r.items()}}
     _write(work.log("inception"), doc)
     return doc
 
 
-def stage_curves(work: Work, sizes: Sizes, args) -> Dict[str, Any]:
+def stage_curves(work: Work, sizes: Sizes, args, families=PREFIXES) -> Dict[str, Any]:
     from aclgan_tpu_torch.cli import fid_curve
 
     ensure_config(work, sizes)
     out = {}
-    for prefix in PREFIXES:
+    for prefix in families:
         stamps = snapshot_stamps(work.checkpoints, prefix)
         meta = curve_meta(sizes, prefix)
         start_after = curve_plan(_read(work.curve(prefix)), stamps, meta)
@@ -540,37 +747,62 @@ def stage_curves(work: Work, sizes: Sizes, args) -> Dict[str, Any]:
             "derived": {"k1": (chip_smoke.LAUNCHES_PER_BATCH * batches * sizes.styles
                                * len(scored)),
                         "k2": 0}}
-    log = _read(work.log("curves_log"), {"sweeps": []})
-    log["sweeps"] += [dict(v, prefix=p) for p, v in out.items() if not v.get("skipped")]
-    _write(work.log("curves_log"), log)
+    with _locked(work.log("curves_log")):  # a `follow` a family may write it at once
+        log = _read(work.log("curves_log"), {"sweeps": []})
+        log["sweeps"] += [dict(v, prefix=p) for p, v in out.items() if not v.get("skipped")]
+        _write(work.log("curves_log"), log)
     return out
 
 
-def _unscored(work: Work, sizes: Sizes) -> bool:
-    """Whether a snapshot on disk has no row in its family's curve yet."""
-    for prefix in PREFIXES:
+@contextlib.contextmanager
+def _locked(path: Path):
+    """An exclusive lock on `path`.lock for the block (between processes)."""
+    import fcntl
+
+    with open(f"{path}.lock", "w") as f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+        try:
+            yield
+        finally:
+            fcntl.flock(f, fcntl.LOCK_UN)
+
+
+def unscored(work: Work, sizes: Sizes, families=PREFIXES) -> Dict[str, int]:
+    """The snapshots on disk with no row in their family's curve yet, by family."""
+    out = {}
+    for prefix in families:
         stamps = snapshot_stamps(work.checkpoints, prefix)
-        if stamps and curve_plan(_read(work.curve(prefix)), stamps,
-                                 curve_meta(sizes, prefix)) is not None:
-            return True
-    return False
+        doc = _read(work.curve(prefix))
+        done = {r["iteration"] for r in doc.get("rows", [])} if doc else set()
+        if stamps:
+            curve_plan(doc, stamps, curve_meta(sizes, prefix))  # refuses another protocol
+        out[prefix] = len(set(stamps) - done)
+    return out
 
 
 FOLLOW_POLL = 10.0  # seconds between looks for new snapshots
 
 
 def stage_follow(work: Work, sizes: Sizes, args) -> Dict[str, Any]:
-    """The classifier and the calibration, then both curves over each
-    snapshot as a train stage running beside this one writes it, until that
-    stage has ended (`Work.train_done`, or this process's parent is gone);
-    then the last snapshots."""
+    """The classifier and the calibration, then the curves of `--families`
+    (both by default) over each snapshot as a train stage running beside
+    this one writes it, until that stage has ended (`Work.train_done`, or
+    this process's parent is gone); then the last snapshots. A `follow`
+    whose families leave out the first waits for the classifier that the
+    first's `follow` trains and calibrates."""
     parent = os.getppid()
-    out = {"inception": stage_inception(work, sizes, args),
-           "calibrate": stage_calibrate(work, sizes, args), "sweeps": []}
+    families = tuple(args.families.split(",")) if args.families else PREFIXES
+    out: Dict[str, Any] = {"sweeps": []}
+    if PREFIXES[0] in families:
+        out["inception"] = stage_inception(work, sizes, args)
+        out["calibrate"] = stage_calibrate(work, sizes, args)
+    else:
+        while not work.log("inception").exists() and os.getppid() == parent:
+            time.sleep(FOLLOW_POLL / 10)
     while True:
         ended = work.train_done.exists() or os.getppid() != parent
-        if _unscored(work, sizes):
-            out["sweeps"].append(stage_curves(work, sizes, args))
+        if any(unscored(work, sizes, families).values()):
+            out["sweeps"].append(stage_curves(work, sizes, args, families))
         elif ended:
             return out
         else:
@@ -580,17 +812,28 @@ def stage_follow(work: Work, sizes: Sizes, args) -> Dict[str, Any]:
 def calibration_fids(cfg: Config, inception: Path, data_root: Path, n: int,
                      device: str) -> Dict[str, Any]:
     """FID(testA, testB) and FID(trainB[:n], testB) under one classifier,
-    each side loaded as the A->B curve loads its real side."""
-    from aclgan_tpu_torch.cli.fid_curve import image_batches, pool3_features
+    and the share of real testB and of real testA it rates as B (the A->B
+    curves' target-domain rate, on real images), each side loaded as the
+    A->B curve loads its real side."""
+    from aclgan_tpu_torch.cli.fid_curve import image_batches
     from aclgan_tpu_torch.data.dataset import list_images_folder
     from aclgan_tpu_torch.eval.fid import feature_stats, frechet_distance
     from aclgan_tpu_torch.eval.inception import InceptionScorer
 
     scorer = InceptionScorer(str(inception), device=device)
-    feats = {d: pool3_features(scorer, image_batches(
-        cfg, list_images_folder(str(data_root / d))[:n])) for d in ("testB", "testA", "trainB")}
+    feats, as_b = {}, {}
+    for d in ("testB", "testA", "trainB"):
+        parts, hits = [], []
+        for b, valid in image_batches(cfg, list_images_folder(str(data_root / d))[:n]):
+            img01 = (b + 1.0) / 2.0
+            parts.append(scorer.features(img01)[:valid])
+            if d != "trainB":
+                hits.append(np.argmax(scorer.predict(img01)[:valid], -1) == 1)
+        feats[d] = np.concatenate(parts, 0)
+        if hits:
+            as_b[d] = round(float(np.mean(np.concatenate(hits))), 4)
     real = feature_stats(feats["testB"])
-    out = {"n": n}
+    out = {"n": n, "real_as_b": as_b}
     for key, side in (("domain_gap", "testA"), ("floor", "trainB")):
         t0 = time.time()
         out[key] = round(float(frechet_distance(*real, *feature_stats(feats[side]))), 3)
@@ -606,6 +849,62 @@ def stage_calibrate(work: Work, sizes: Sizes, args) -> Dict[str, Any]:
     doc = calibration_fids(cfg, work.inception, work.data_root, sizes.curve_n, args.device)
     _write(work.log("calibrate"), doc)
     return doc
+
+
+# printed by `cli.fid_curve` for each row, and after each sweep
+_ROW = re.compile(r"^iter +(\d+): FID ([0-9.]+)  target-domain rate ([0-9.]+|nan)"
+                  r"(?:  styles (\[[^\]]*\]) spread ([0-9.]+))?(?:  ci95 (\[[^\]]*\]))? \(")
+_WROTE = re.compile(r"^wrote .*fid_curve_(gen|ema)\.json$")
+
+
+def curve_rows_from_log(text: str, family: Optional[str] = None) -> Dict[str, Dict[int, Any]]:
+    """The rows `cli.fid_curve` printed into a `follow` log, by family: a
+    row belongs to the family of the next `wrote .../fid_curve_<family>.json`
+    line (the end of its sweep), or to `family` (a one-family log) when its
+    sweep was cut before that line; the last print of an iteration wins.
+    `n_fake`, `n_real` and `fid_f32_minus_f64` are not printed."""
+    out: Dict[str, Dict[int, Any]] = {p: {} for p in PREFIXES}
+    pending: Dict[int, Any] = {}
+    for line in text.splitlines():
+        m = _ROW.match(line)
+        if m:
+            row = {"iteration": int(m[1]), "fid": float(m[2]),
+                   "target_domain_rate": float(m[3])}
+            if m[4]:
+                row.update(fid_styles=json.loads(m[4]), fid_spread=float(m[5]))
+            if m[6]:
+                row["fid_ci95"] = json.loads(m[6])
+            pending[row["iteration"]] = row
+        elif _WROTE.match(line):
+            out[_WROTE.match(line)[1]].update(pending)
+            pending = {}
+    if family is not None:
+        out[family].update(pending)
+    return out
+
+
+def stage_recover(work: Work, sizes: Sizes, args) -> Dict[str, Any]:
+    """The curve files of a call that was cut before it copied them out,
+    rebuilt from the `follow` logs it did copy (`curve_rows_from_log`;
+    `follow_<family>.log` holds that family alone), under this run's
+    protocol and `complete` False; a curve file already there is kept."""
+    rows: Dict[str, Dict[int, Any]] = {p: {} for p in PREFIXES}
+    for log in sorted(work.root.glob("follow*.log")):
+        family = log.stem.split("_", 1)[1] if "_" in log.stem else None
+        for p, got in curve_rows_from_log(log.read_text(), family).items():
+            rows[p].update(got)
+    out = {}
+    for p in PREFIXES:
+        if work.curve(p).exists() or not rows[p]:
+            out[p] = {"skipped": True}
+            continue
+        doc = {"rows": [rows[p][i] for i in sorted(rows[p])], **curve_meta(sizes, p),
+               "complete": False}
+        doc["best"] = min(doc["rows"], key=lambda r: r["fid"])
+        work.curve(p).parent.mkdir(parents=True, exist_ok=True)
+        _write(work.curve(p), doc)
+        out[p] = {"rows": len(doc["rows"]), "last": doc["rows"][-1]["iteration"]}
+    return out
 
 
 # ------------------------------------------------------------------ report
@@ -658,6 +957,39 @@ def check_bars(curves: Dict[str, Dict[str, Any]], accuracy: Optional[float],
     out["best_over_domain_gap"].update(best_fid=best, domain_gap=gap,
                                        floor=calib.get("floor") if calib else None)
     return out
+
+
+def classifier_gate(calib: Optional[Dict[str, Any]]) -> Dict[str, Any]:
+    """The gate of `BARS` on calibration's real-test rates: {value, limit,
+    pass}, `pass` None without those rates."""
+    rates = (calib or {}).get("real_as_b")
+    limit = (f"real testB as B >= {BARS['real_b_as_b_min']}, real testA as B <= "
+             f"{BARS['real_a_as_b_max']}")
+    if not rates:
+        return {"value": None, "limit": limit, "pass": None}
+    return {"value": rates, "limit": limit,
+            "pass": bool(rates["testB"] >= BARS["real_b_as_b_min"]
+                         and rates["testA"] <= BARS["real_a_as_b_max"])}
+
+
+def read_bars(bars: Dict[str, Dict[str, Any]], gate: Dict[str, Any]
+              ) -> Tuple[Dict[str, Dict[str, Any]], str]:
+    """The bars behind the gate, and the run's verdict. A failed gate voids
+    every bar: its `pass` (and `pass_on_present`) become None and it says
+    why. Otherwise the verdict names the bars that failed or could not be
+    judged."""
+    if gate["pass"] is False:
+        voided = {k: dict(b, **{f: None for f in ("pass", "pass_on_present") if f in b},
+                          not_read=GATE_FAILED) for k, b in bars.items()}
+        return {"classifier_gate": gate, **voided}, GATE_FAILED
+    failed = [k for k, b in bars.items() if b["pass"] is False]
+    open_ = [k for k, b in bars.items() if b["pass"] is None]
+    if gate["pass"] is None:
+        open_.insert(0, "classifier_gate")
+    verdict = ("every bar held" if not failed and not open_ else
+               "; ".join(x for x in (f"failed: {', '.join(failed)}" if failed else "",
+                                     f"not judged: {', '.join(open_)}" if open_ else "") if x))
+    return {"classifier_gate": gate, **bars}, verdict
 
 
 def ema_rules(curves: Dict[str, Dict[str, Any]], every: int = 1000) -> Dict[str, Dict[str, Any]]:
@@ -750,26 +1082,68 @@ def train_summary(log: Dict[str, Any], scalars: Path, stamps: Dict[str, List[int
                                  for p in PREFIXES},
            "segments": []}
     for s in segs:
-        rss = s["rss"]
-        at500 = next((r for _, it, r in rss if it >= s["start"] + 500), None)
         seg = {"iterations": [s["start"], s["end"]], "seconds": round(s["seconds"], 1),
                "s_per_iteration_p50": _window_p50(s["iteration_lines"], s["log_iter"]),
-               "peak_memory_gib": (None if s["peak_memory"] is None
-                                   else round(s["peak_memory"] / 2**30, 3)),
-               "rss_gib": {"start": round(rss[0][2] / 2**30, 3) if rss else None,
-                           "iteration_500": None if at500 is None else round(at500 / 2**30, 3),
-                           "end": round(rss[-1][2] / 2**30, 3) if rss else None,
-                           "max": round(max(r for *_, r in rss) / 2**30, 3) if rss else None},
-               "rss_growth_after_500_ok": (None if at500 is None or not rss else
-                                           rss[-1][2] - at500 < RSS_GROWTH_MAX),
-               **rss_profile(rss, s["start"], s["end"]),
+               **_memory_summary(s, s["start"], s["end"]),
                "stopped_at": s.get("stopped_at"),
                "launches": s["launches"], "derived": s["derived"],
-               "launches_ok": (None if s["device"] != "cuda" else
-                               (s["launches"]["k1"], s["launches"]["k2"])
-                               == (s["derived"]["k1"], s["derived"]["k2"]))}
+               "launches_ok": _launches_ok(s, s["device"])}
+        if "ranks" in s:
+            seg["world"] = s["world"]
+            seg["ranks"] = [_rank_summary(r, s) for r in s["ranks"]]
         out["segments"].append(seg)
     return out
+
+
+def _memory_summary(rec: Dict[str, Any], start: int, end: int) -> Dict[str, Any]:
+    """Peak device memory and VmRSS (start, at iteration start + 500, end,
+    max; growth from 500 against `RSS_GROWTH_MAX`; each 1,000 and the slope)
+    of one process's record."""
+    rss = rec["rss"]
+    at500 = next((r for _, it, r in rss if it >= start + 500), None)
+    return {"peak_memory_gib": (None if rec["peak_memory"] is None
+                                else round(rec["peak_memory"] / 2**30, 3)),
+            "rss_gib": {"start": round(rss[0][2] / 2**30, 3) if rss else None,
+                        "iteration_500": None if at500 is None else round(at500 / 2**30, 3),
+                        "end": round(rss[-1][2] / 2**30, 3) if rss else None,
+                        "max": round(max(r for *_, r in rss) / 2**30, 3) if rss else None},
+            "rss_growth_after_500_ok": (None if at500 is None or not rss else
+                                        rss[-1][2] - at500 < RSS_GROWTH_MAX),
+            **rss_profile(rss, start, end)}
+
+
+def _launches_ok(rec: Dict[str, Any], device: str) -> Optional[bool]:
+    """(K1, K2) against the cadence's count (None off a card: the plain
+    versions count nothing)."""
+    if not device.startswith("cuda"):
+        return None
+    return ((rec["launches"]["k1"], rec["launches"]["k2"])
+            == (rec["derived"]["k1"], rec["derived"]["k2"]))
+
+
+def _rank_summary(r: Dict[str, Any], seg: Dict[str, Any], every: int = 1000) -> Dict[str, Any]:
+    """One rank of a `--world N` segment: its steps and samples and its
+    (K1, K2) against the cadence's, its memory, and the share of each
+    `every` iterations' seconds (rank 0's lines) it spent waiting on its
+    feed."""
+    d = r["derived"]
+    waits = {seg["start"]: 0.0, **dict(r["feed_wait_seconds"])}  # cumulative, at lines
+    wall: Dict[int, List[float]] = {}  # window -> [seconds, its last line's iteration]
+    for it, secs in seg["iteration_lines"]:
+        w = wall.setdefault((it - 1) // every, [0.0, it])
+        w[0], w[1] = w[0] + secs, it
+    share = {}
+    for k, (secs, hi) in sorted(wall.items()):
+        lo = max(k * every, seg["start"])
+        if lo in waits and hi in waits and secs > 0:
+            share[f"{lo + 1}-{hi}"] = round((waits[hi] - waits[lo]) / secs, 4)
+    return {"rank": r["rank"], "end": r["end"], "stopped_at": r["stopped_at"],
+            "steps": r["steps"], "launches": r["launches"],
+            "steps_ok": (r["steps"]["dg"], r["steps"]["d_only"], r["steps"]["samples"])
+            == (d["dg"], d["d_only"], d["samples"]),
+            "launches_ok": _launches_ok(r, seg["device"]),
+            "feed_wait_share": share,
+            **_memory_summary(r, seg["start"], seg["end"])}
 
 
 def _device_line() -> Optional[str]:
@@ -835,6 +1209,8 @@ def report(work: Work, sizes: Sizes, recorded: Optional[Path], docs: Optional[Pa
     log = _read(work.log("train_log"))
     rules = ema_rules(curves, cfg.snapshot_save_iter)
     wins = rules.pop("ema_wins")
+    bars, verdict = read_bars({**check_bars(curves, inc.get("accuracy") if inc else None,
+                                            calib), **rules}, classifier_gate(calib))
     summary = {
         "config": f"configs/{STEM}.yaml", "sizes": dataclasses.asdict(sizes),
         "device": _device_line() if device == "cuda" else "cpu",
@@ -842,15 +1218,14 @@ def report(work: Work, sizes: Sizes, recorded: Optional[Path], docs: Optional[Pa
         "gen_against_ema": {"wins": families["wins"], "mean_fid": families["mean_fid"]},
         "against_recorded": {p: {"mean_fid": c["mean_fid"], "wins": c["wins"],
                                  "rows": c["rows"]} for p, c in against.items()},
-        "classifier": inc, "calibrate": calib,
-        "bars": {**check_bars(curves, inc.get("accuracy") if inc else None, calib),
-                 **rules},
+        "classifier": inc, "calibrate": calib, "verdict": verdict, "bars": bars,
         "ema_wins_in_window": wins,
         "ema_from_live_rel_l2": {k: v for seg in (log or {}).get("segments", [])
                                  for k, v in seg.get("ema_from_live_rel_l2", {}).items()},
         "train": (train_summary(log, work.scalars, stamps, cfg.snapshot_save_iter)
                   if log else None),
         "curve_sweeps": _read(work.log("curves_log")),
+        "alongside": _read(work.log("alongside")),
     }
     best = min(((p, r) for p, d in curves.items() for r in d["rows"]),
                key=lambda pr: pr[1]["fid"])
@@ -861,7 +1236,7 @@ def report(work: Work, sizes: Sizes, recorded: Optional[Path], docs: Optional[Pa
         for p in PREFIXES:
             shutil.copy(work.curve(p), docs / f"fid_curve_{p}.json")
         snap = work.checkpoints / f"{best[0]}_{best[1]['iteration']:08d}.pt"
-        if snap.exists():
+        if snap.exists() and snap.stat().st_size:  # a recovered record lists snapshots only
             path = docs / f"{best[0]}_a2b_test_hard_{best[1]['iteration']:08d}_small.jpg"
             summary["selected"]["grid"] = snapshot_grid(cfg, snap, path, device).name
         _write(docs / "summary.json", _relative(summary))
@@ -871,6 +1246,7 @@ def report(work: Work, sizes: Sizes, recorded: Optional[Path], docs: Optional[Pa
 
 
 def _print_report(summary, curves, against) -> None:
+    real = (summary["calibrate"] or {}).get("real_as_b", {})
     for p in PREFIXES:
         print(f"\n{p} family: the port's rows beside the recorded JAX run's")
         print("| iteration | torch FID (spread) | jax FID (spread) | torch - jax | rate |")
@@ -883,38 +1259,76 @@ def _print_report(summary, curves, against) -> None:
             print(f"| {r['iteration']} | {r['fid']} ({r.get('fid_spread')}) | {jtxt} | "
                   f"{delta} | {r['target_domain_rate']} |")
         s = summary["curves"][p]
-        print(f"mean {s['mean_fid']}, best {s['best']}, lowest rate {s['min_rate']}")
-    print("\nbars: " + json.dumps(summary["bars"]))
+        print(f"mean {s['mean_fid']}, best {s['best']}, lowest rate {s['min_rate']}; "
+              f"the classifier rates real testB as B at {real.get('testB')}, real testA "
+              f"at {real.get('testA')}")
+    print(f"\nverdict: {summary['verdict']}")
+    print("bars: " + json.dumps(summary["bars"]))
 
 
 # ------------------------------------------------------------------ command line
 SCORER_THREADS = 4  # OpenMP / BLAS threads of the `follow` process (its host sqrtm)
 
 
+def scorer_plan(score_on: Optional[str]) -> List[Tuple[Optional[str], Tuple[str, ...]]]:
+    """(card, families) of each `follow`: one on the run's device for both
+    families by default, one on the named card, or one a family on two."""
+    cards = [c.strip() for c in score_on.split(",")] if score_on else [None]
+    if len(cards) == 1:
+        return [(cards[0], PREFIXES)]
+    if len(cards) != len(PREFIXES):
+        raise ValueError(f"--score_on names one card or {len(PREFIXES)}, not {score_on!r}")
+    return [(c, (p,)) for c, p in zip(cards, PREFIXES)]
+
+
 def run_alongside(work: Work, sizes: Sizes, args, recorded, docs) -> Dict[str, Any]:
-    """`all` with the curves scored beside training: the dataset, then
-    `follow` in a child process while `train` runs in this one, then
-    `report`."""
+    """`all` with the curves scored beside training: the dataset, then each
+    `follow` of `scorer_plan` in a child process while `train` runs (in
+    this one, or on its ranks), then `report`. What was left to score when
+    training ended (written then) and how long scoring ran on (written when
+it ends) go to DIR/alongside.json."""
     out = {"dataset": stage_dataset(work, sizes, args)}
     ensure_config(work, sizes)
     work.train_done.unlink(missing_ok=True)
-    cmd = [sys.executable, str(Path(__file__).resolve()), "follow", "--work", str(work.root),
-           "--device", args.device, "--data_root", str(work.data_root)]
-    if args.smoke:
-        cmd.append("--smoke")
-    if args.inception_weights:
-        cmd += ["--inception_weights", str(work.inception)]
-    env = dict(os.environ, **{k: str(SCORER_THREADS) for k in (
-        "OMP_NUM_THREADS", "OPENBLAS_NUM_THREADS", "MKL_NUM_THREADS")})
-    with open(work.root / "follow.log", "a") as log:
-        child = subprocess.Popen(cmd, cwd=REPO, env=env, stdout=log, stderr=subprocess.STDOUT)
-        try:
-            out["train"] = stage_train(work, sizes, args)
-        finally:
-            work.train_done.write_text("")
-            rc = child.wait()
-    if rc:
-        raise RuntimeError(f"the follow stage failed ({rc}); see {work.root / 'follow.log'}")
+    children, plan = [], scorer_plan(args.score_on)
+    for card, families in plan:
+        cmd = [sys.executable, str(Path(__file__).resolve()), "follow", "--work",
+               str(work.root), "--device", args.device, "--data_root", str(work.data_root)]
+        if args.smoke:
+            cmd.append("--smoke")
+        if args.inception_weights:
+            cmd += ["--inception_weights", str(work.inception)]
+        if families != PREFIXES:
+            cmd += ["--families", ",".join(families)]
+        env = dict(os.environ, **{k: str(args.scorer_threads) for k in (
+            "OMP_NUM_THREADS", "OPENBLAS_NUM_THREADS", "MKL_NUM_THREADS")})
+        if card is not None:
+            env["CUDA_VISIBLE_DEVICES"] = card
+        name = "follow" if families == PREFIXES else f"follow_{families[0]}"
+        log = open(work.root / f"{name}.log", "a")
+        children.append((name, log, subprocess.Popen(cmd, cwd=REPO, env=env, stdout=log,
+                                                     stderr=subprocess.STDOUT)))
+    try:
+        out["train"] = stage_train(work, sizes, args)
+    finally:
+        t_end = time.time()
+        # written now too: a call cut while the scorers catch up keeps the backlog
+        alongside = {"placement": [[c, list(f)] for c, f in plan],
+                     "scorer_threads": args.scorer_threads,
+                     "unscored_at_train_end": unscored(work, sizes),
+                     "scoring_after_train_seconds": None}
+        _write(work.log("alongside"), alongside)
+        work.train_done.write_text("")
+        codes = {}
+        for name, log, child in children:
+            codes[name] = child.wait()
+            log.close()
+    alongside["scoring_after_train_seconds"] = round(time.time() - t_end, 1)
+    _write(work.log("alongside"), alongside)
+    failed = {n: rc for n, rc in codes.items() if rc}
+    if failed:
+        raise RuntimeError(f"the follow stage failed {failed}; see "
+                           + ", ".join(str(work.root / f"{n}.log") for n in failed))
     out["report"] = report(work, sizes, recorded, docs, args.device)
     return out
 
@@ -922,7 +1336,8 @@ def run_alongside(work: Work, sizes: Sizes, args, recorded, docs) -> Dict[str, A
 def main(argv=None) -> Dict[str, Any]:
     t_start = time.time()
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("stage", nargs="?", default="all", choices=STAGES + ("all", "follow"))
+    ap.add_argument("stage", nargs="?", default="all",
+                    choices=STAGES + ("all", "follow", RECOVER))
     ap.add_argument("--work", required=True, help="the run's directory (resumable)")
     ap.add_argument("--iters", type=int, default=None,
                     help="train to this iteration (default 3000, 40 with --smoke)")
@@ -940,6 +1355,18 @@ def main(argv=None) -> Dict[str, Any]:
     ap.add_argument("--deadline", type=float, default=None,
                     help="stop training after the last snapshot that lands within this "
                          "many seconds of the start")
+    ap.add_argument("--world", type=int, default=1,
+                    help="train on this many ranks under torchrun, one a card (default 1: "
+                         "in this process)")
+    ap.add_argument("--score_on", default=None,
+                    help="with --alongside: the card of the follow process, or two cards, "
+                         "one a family (default: the run's device)")
+    ap.add_argument("--scorer_threads", type=int, default=SCORER_THREADS,
+                    help="OpenMP / BLAS threads of each follow process")
+    ap.add_argument("--docs", default=None,
+                    help="where report writes the record (default "
+                         "docs/run_synthfaces_hard_torch; DIR/docs with --smoke)")
+    ap.add_argument("--families", default=None, help=argparse.SUPPRESS)  # follow's own
     args = ap.parse_args(argv)
     args.stop_by = None if args.deadline is None else t_start + args.deadline
     from aclgan_tpu_torch.trainer import resolve_device
@@ -949,7 +1376,7 @@ def main(argv=None) -> Dict[str, Any]:
     if args.iters is None:
         args.iters = sizes.iters
     work = Work.at(args.work, args.data_root, args.inception_weights)
-    docs = work.root / "docs" if args.smoke else DOCS
+    docs = Path(args.docs) if args.docs else work.root / "docs" if args.smoke else DOCS
     recorded = Path(args.recorded) if args.recorded else None if args.smoke else RECORDED
     stages = {"dataset": lambda: stage_dataset(work, sizes, args),
               "train": lambda: stage_train(work, sizes, args),
@@ -957,7 +1384,8 @@ def main(argv=None) -> Dict[str, Any]:
               "curves": lambda: stage_curves(work, sizes, args),
               "calibrate": lambda: stage_calibrate(work, sizes, args),
               "report": lambda: report(work, sizes, recorded, docs, args.device),
-              "follow": lambda: stage_follow(work, sizes, args)}
+              "follow": lambda: stage_follow(work, sizes, args),
+              RECOVER: lambda: stage_recover(work, sizes, args)}
     if args.stage == "all" and args.alongside:
         try:
             return run_alongside(work, sizes, args, recorded, docs)
@@ -976,4 +1404,7 @@ def main(argv=None) -> Dict[str, Any]:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == [RANK_ENTRY]:
+        train_rank(sys.argv[2])
+    else:
+        main()
