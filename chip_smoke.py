@@ -149,13 +149,17 @@ phase's launch counts hold for the graphed forms; gloo meshes (phases 23,
 28. [acceptance_mini] `tools/torch_synthfaces_hard.py --smoke` on phase 11's
    dataset and phase 12's classifier: the train CLI on
    `configs/synthfaces_hard.yaml` (EMA 0.999, batch 16, bf16) for 20
-   iterations, then `--resume` to 40, snapshots at 20 and 40, each call
-   followed by the gen and the ema FID curves (n 64, 2 styles, 20 resamples;
-   the second sweep of each resumes with `--start_after 20`); the (K1, K2)
-   launches of each call against the count the D1/G2 cadence gives, finite
-   records, every gen / dis / ema snapshot; `report` refusing the recorded
-   curves (n 500) and taking gen against ema, with the selected snapshot's
-   grid; then one f32 D+G iteration and one D iteration with EMA at 128^2,
+   iterations under `all --score_after --score_on` every visible card
+   twice: beside the classifier stage (calibration), then the gen and the
+   ema FID curves' first rows (n 64, 2 styles, 20 resamples) by two scorer
+   processes a card, merged (each scorer's seconds logged, its launches
+   from its record), and `report`; then `--resume` to 40 and both curves
+   in this process, resumed with `--start_after 20`; snapshots at 20 and
+   40; the (K1, K2) launches of each call against the count the D1/G2
+   cadence gives (the report's grid's beside them), finite records, every
+   gen / dis / ema snapshot; `report` refusing the recorded curves (n 500)
+   and taking gen against ema with the selected snapshot's grid; then one
+   f32 D+G iteration and one D iteration with EMA at 128^2,
    batch 2 on the card against the CPU: the EMA after the G step equal to
    d * EMA + (1 - d) * the stepped weights in float32 within 1e-2 of
    (1 - d) * max |step| and off the form with the weights from before the
@@ -4394,12 +4398,16 @@ def _acceptance_world(tool, tmp, given):
 
 def phase_acceptance_mini(cfg, tmp, inc):
     """[acceptance_mini] `tools/torch_synthfaces_hard.py --smoke` on phase 11's
-    dataset and phase 12's classifier: the train CLI at batch 16 with EMA,
-    20 iterations then `--resume` to 40 (snapshots at 20 and 40), each call
-    followed by both FID curves (n 64, 2 styles, 20 resamples; the second
-    sweep of each resumes with `--start_after 20`), and `report`, which must
-    refuse the recorded curves (n 500) and accept gen against ema. Then the
-    f32 EMA check on the card against the CPU. Returns {path: (K1, K2)}."""
+    dataset and phase 12's classifier: `all --score_after` over the visible
+    cards, two scorer processes a card as the four-card run placed them:
+    the train CLI at batch 16 with EMA for 20 iterations beside the
+    classifier stage (calibration), then both FID curves' first rows (n 64,
+    2 styles, 20 resamples) by the scorers, merged, and `report`; then
+    `--resume` to 40 (snapshots at 20 and 40) and both curves in this
+    process, resumed with `--start_after 20`; `report` must refuse the
+    recorded curves (n 500) and accept gen against ema. The scorers'
+    launches come from their own records. Then the f32 EMA check on the
+    card against the CPU. Returns {path: (K1, K2)}."""
     from aclgan_tpu_torch.config import load_config
     from aclgan_tpu_torch.ops.kernels import instance_norm as K
 
@@ -4408,7 +4416,7 @@ def phase_acceptance_mini(cfg, tmp, inc):
     work = Path(tmp) / "acceptance"
     base = ["--smoke", "--work", str(work), "--data_root", str(Path(tmp) / "ds"),
             "--inception_weights", inc]
-    train_k, curve_k = [0, 0], [0, 0]
+    train_k = [0, 0]
     curve_seconds, sqrtm_seconds, train_s, lines, releases = [], [], [], [], []
     from aclgan_tpu_torch.cli import train as cli_train
     from aclgan_tpu_torch.utils.hostmem import vmrss
@@ -4429,40 +4437,60 @@ def phase_acceptance_mini(cfg, tmp, inc):
         gave.append((before - vmrss()) / 2**20)
         return out
 
+    visible = (os.environ.get("CUDA_VISIBLE_DEVICES")  # the cards as this process sees them
+               or ",".join(map(str, range(torch.cuda.device_count())))).split(",")
+    cards = ",".join(visible * 2)  # two scorers a card
     for i, iters in enumerate(ACC_ITERS):
         K.launches = K.bwd_launches = 0
-        torch.cuda.reset_peak_memory_stats()
         events, gave = [], []
         release_host_heap()  # what the CLI's releases give back is then its own
         with mock.patch.object(cli_train, "write_2images", recorded("grid", write_2images)), \
                 mock.patch.object(cli_train, "save_checkpoint",
                                   recorded("snapshot", save_checkpoint)), \
                 mock.patch.object(cli_train, "release_host_heap", release_and_measure):
-            seg = tool.main(["train", *base, "--iters", str(iters)])["train"]
+            if i == 0:  # training, then both curves split among the scorers, then report
+                gc_collect()  # the scorer and classifier processes share this card
+                out = tool.main(["all", "--score_after", "--score_on", cards, *base,
+                                 "--iters", str(iters)])
+                seg = out["train"]
+            else:
+                seg = tool.main(["train", *base, "--iters", str(iters)])["train"]
         torch.cuda.synchronize()
         got = (K.launches, K.bwd_launches)
         derived = (seg["derived"]["k1"], seg["derived"]["k2"])
-        if got != derived or seg["start"] != (ACC_ITERS[i - 1] if i else 0):
+        grids = (0, 0) if i else (K1_PER_SAMPLE, 0)  # the report's grid of its selection
+        trained = tuple(a - b for a, b in zip(got, grids))
+        if (trained != derived or (seg["launches"]["k1"], seg["launches"]["k2"]) != derived
+                or seg["start"] != (ACC_ITERS[i - 1] if i else 0)):
             raise AssertionError(f"acceptance_mini train to {iters}: from {seg['start']}, "
-                                 f"(K1, K2) {got}, derived {derived}")
+                                 f"(K1, K2) {got} in all, {seg['launches']} in training, "
+                                 f"derived {derived}")
         releases.append((_releases_follow_writes(events), [round(g, 1) for g in gave]))
-        train_k = [a + b for a, b in zip(train_k, got)]
+        train_k = [a + b for a, b in zip(train_k, trained)]
         train_s.append(seg["seconds"])
         lines += seg["iteration_lines"]
-        peak = torch.cuda.max_memory_allocated()
-        K.launches = K.bwd_launches = 0
-        sweeps = tool.main(["curves", *base])["curves"]
-        torch.cuda.synchronize()
-        got = (K.launches, K.bwd_launches)
-        derived = tuple(sum(sweeps[p]["derived"][k] for p in sweeps) for k in ("k1", "k2"))
-        resumed = all(("--start_after" in sweeps[p]["argv"]) == bool(i) for p in sweeps)
-        if got != derived or not resumed or len(sweeps) != 2:
-            raise AssertionError(f"acceptance_mini curves after {iters}: (K1, K2) {got}, "
-                                 f"derived {derived}, argv "
-                                 f"{[sweeps[p].get('argv') for p in sweeps]}")
-        curve_k = [a + b for a, b in zip(curve_k, got)]
-        curve_seconds += sweeps["gen"]["seconds_a_snapshot"]
-        sqrtm_seconds += sweeps["gen"]["fid_seconds"] + sweeps["ema"]["fid_seconds"]
+        peak = seg["peak_memory"]
+    scorers = out["score"]  # each scorer counted its launches in its own process
+    sweeps = {f"{p}.{r['worker']}": v for r in scorers for p, v in r["sweeps"].items()}
+    by_scorers = [sum(v["launches"][k] for v in sweeps.values()) for k in ("k1", "k2")]
+    K.launches = K.bwd_launches = 0
+    resumed = tool.main(["curves", *base])["curves"]  # in this process, after the merged rows
+    torch.cuda.synchronize()
+    curve_k = [a + b for a, b in zip(by_scorers, (K.launches, K.bwd_launches))]
+    sweeps.update((f"{p}.resumed", v) for p, v in resumed.items())
+    derived = [sum(v["derived"][k] for v in sweeps.values()) for k in ("k1", "k2")]
+    starts = sorted((key.endswith(".resumed"), v["argv"][v["argv"].index("--start_after") + 1]
+                     if "--start_after" in v["argv"] else "") for key, v in sweeps.items())
+    scored = sorted((k.split(".")[0], it) for k, v in sweeps.items() for it in v["scored"])
+    if (curve_k != derived
+            or starts != [(False, "")] * (len(sweeps) - 2) + [(True, str(ACC_ITERS[0]))] * 2
+            or scored != sorted((p, it) for p in ("gen", "ema") for it in ACC_ITERS)):
+        raise AssertionError(f"acceptance_mini curves: (K1, K2) {curve_k}, derived {derived}, "
+                             f"scored {scored}, argv {[v.get('argv') for v in sweeps.values()]}")
+    for key, v in sweeps.items():
+        if key.startswith("gen"):
+            curve_seconds += v["seconds_a_snapshot"]
+        sqrtm_seconds += v["fid_seconds"]
     ckpt = work / "run" / "outputs" / "synthfaces_hard" / "checkpoints"
     files = {p: tool.snapshot_stamps(ckpt, p) for p in ("gen", "dis", "ema")}
     if any(v != list(ACC_ITERS) for v in files.values()):
@@ -4472,6 +4500,11 @@ def phase_acceptance_mini(cfg, tmp, inc):
     docs = {p: json.loads((work / "run" / "outputs" / "synthfaces_hard" /
                            f"fid_curve_{p}.json").read_text()) for p in ("gen", "ema")}
     rows = {p: _curve_checks(d, ACC_ITERS) for p, d in docs.items()}
+    along = json.loads((work / "alongside.json").read_text())
+    backlog = {p: 1 for p in ("gen", "ema")}  # every snapshot of each family: the one at 20
+    if (along["unscored_at_train_end"] != backlog or len(along["scorers"]) != len(scorers)
+            or any(s["exit"] for s in along["scorers"])):
+        raise AssertionError(f"acceptance_mini --score_after: {along}")
     try:
         tool.main(["report", *base, "--recorded", str(ROOT / "docs" / "run_synthfaces_hard")])
         raise AssertionError("acceptance_mini: report took the recorded curves (n 500) "
@@ -4505,9 +4538,20 @@ def phase_acceptance_mini(cfg, tmp, inc):
         f"half given back by the frees, at least half by the release)")
     for p in ("gen", "ema"):
         log(f"[acceptance_mini] fid_curve --prefix {p} (n {smoke.curve_n}, {smoke.styles} "
-            f"styles, {smoke.bootstrap} resamples; cut after its first row, resumed with "
-            f"--start_after "
-            f"{ACC_ITERS[0]}): rows {json.dumps(rows[p])}")
+            f"styles, {smoke.bootstrap} resamples; the row at {ACC_ITERS[0]} by all "
+            f"--score_after's scorers, merged, the row at {ACC_ITERS[1]} in this process, "
+            f"resumed with --start_after {ACC_ITERS[0]}): rows {json.dumps(rows[p])}")
+    log(f"[acceptance_mini] all --score_after --score_on {cards} to {ACC_ITERS[0]}: the "
+        f"classifier stage beside "
+        f"training ({along['classifier']}), then {len(scorers)} scorer(s), backlog at the end "
+        f"of training {along['unscored_at_train_end']}; each scorer's share, seconds (its "
+        f"process; its sweeps) and launches: "
+        + "; ".join(f"card {s['card']} {[tuple(x) for x in r['share']]} {s['seconds']} s "
+                    f"({', '.join(f'{v:.1f}' for v in (w['seconds'] for w in r['sweeps'].values()))}"
+                    f" s) {[tuple(w['launches'].values()) for w in r['sweeps'].values()]}"
+                    for s, r in zip(sorted(along["scorers"], key=lambda x: x["worker"]), scorers))
+        + f"; the last row {along['seconds_from_train_end_to_last_row']} s after training "
+        f"ended")
     log(f"[cli.fid_curve] bfloat16, n {smoke.curve_n}, {smoke.styles} styles, "
         f"{smoke.bootstrap} bootstrap resamples, "
         f"gen then ema over 2 snapshots each: {curve_k[0]} K1 launches; seconds a gen "
@@ -4532,7 +4576,9 @@ def phase_acceptance_mini(cfg, tmp, inc):
     return {f"acceptance_mini: train CLI with EMA at batch 16 on JPEGs, {ACC_ITERS[0]} + "
             f"{ACC_ITERS[-1] - ACC_ITERS[0]} resumed iterations (phase 28)": tuple(train_k),
             f"acceptance_mini: cli.fid_curve gen + ema, 2 snapshots x {smoke.styles} styles x "
-            f"{smoke.curve_n} images, cut and resumed (phase 28)": tuple(curve_k),
+            f"{smoke.curve_n} images, the first by --score_after's scorers, the second "
+            f"resumed (phase 28)":
+            tuple(curve_k),
             "acceptance_mini: f32 D+G then D iteration with EMA, 128^2 batch 2 (phase 28)":
             tuple(map(sum, zip(*ema["counts"])))}
 

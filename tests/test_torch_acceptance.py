@@ -7,6 +7,7 @@ and the argv of every entry point the `all` plan calls (with the CLIs'
 import json
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 import pytest
@@ -813,3 +814,321 @@ def test_recover_rebuilds_the_curves_of_a_cut_call_from_its_follow_logs(tmp_path
     assert s["bars"]["ema_warmup"]["value"] == {"ema": 30.0, "gen": 5.0}
     assert s["selected"] == {"prefix": "gen", "iteration": 2000, "fid": 3.0}
     assert s["train"] is None and (tmp_path / "docs" / "summary.json").exists()
+
+
+# ------------------------------------------------------------------ --score_after
+def test_process_cpu_seconds_counts_this_process_threads_too():
+    """A thread's CPU time is the process's: the loader's workers are threads."""
+    import threading
+
+    def spin(until):
+        while time.thread_time() < until:
+            pass
+
+    t0 = tool.process_cpu_seconds()
+    worker = threading.Thread(target=spin, args=(time.thread_time() + 0.2,))
+    worker.start()
+    worker.join()
+    assert tool.process_cpu_seconds() - t0 >= 0.15
+
+
+def test_world_2_ranks_record_their_cpu_seconds(world_run, capsys):
+    """Each rank reads its process's CPU seconds at its start and at each
+    line; `_rank_summary` puts them a second of each window beside the
+    feed's wait share, and `report` prints both."""
+    w, cfg, seg = world_run
+    for r in seg["ranks"]:
+        cpu = r["cpu_seconds"]
+        assert [it for it, _ in cpu] == [0, 3] and 0 <= cpu[0][1] < cpu[1][1]
+    summary = tool.train_summary(tool._read(w / "train_log.json"), w / "none.jsonl",
+                                 {p: [2] for p in tool.PREFIXES}, cfg.snapshot_save_iter)
+    for r in summary["segments"][0]["ranks"]:
+        assert set(r["cpu_seconds_a_second"]) == set(r["feed_wait_share"]) == {"1-3"}
+        assert r["cpu_seconds_a_second"]["1-3"] > 0.0
+    curves = {p: _curve(GOOD[p], p) for p in tool.PREFIXES}
+    tool._print_report({"calibrate": None, "curves": {p: tool.curve_summary(c)
+                                                      for p, c in curves.items()},
+                        "train": summary, "verdict": "v", "bars": {}}, curves, {})
+    out = capsys.readouterr().out
+    assert out.count("feed-wait share / CPU seconds a second of each 1,000") == WORLD
+
+
+@pytest.mark.parametrize("n", [1, 2, 3])
+def test_score_split_takes_each_family_snapshot_once_interleaved(n):
+    """The family-snapshots in iteration order, gen before ema; the k-th
+    scorer takes every n-th from the k-th on."""
+    stamps = {"gen": [1000, 2000, 3000, 4000, 5000], "ema": [1000, 2000, 3000, 4000]}
+    order = [(p, it) for it in range(1000, 5001, 1000) for p in tool.PREFIXES
+             if it in stamps[p]]
+    shares = tool.score_split(stamps, n)
+    assert len(shares) == n
+    assert sorted(x for s in shares for x in s) == sorted(order)
+    for k, share in enumerate(shares):
+        assert share == order[k::n]
+    if n == 2:  # an even split gives each scorer one family
+        assert {p for p, _ in shares[0]} == {"gen"} and {p for p, _ in shares[1]} == {"ema"}
+
+
+def _part(work, k, prefix, its, sizes=None, **change):
+    path = work.scorer_dir(k) / f"fid_curve_{prefix}.json"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    rows = [{"iteration": i, "fid": float(i) / 1000, "target_domain_rate": 1.0} for i in its]
+    path.write_text(json.dumps({**tool.curve_meta(sizes or tool.FULL, prefix), "rows": rows,
+                                "best": rows[0], "complete": True, **change}))
+    return path
+
+
+def test_merge_refuses_a_part_of_another_protocol(tmp_path):
+    work = tool.Work.at(tmp_path / "w")
+    work.run_dir.mkdir(parents=True)
+    _part(work, 0, "gen", [1000])
+    bad = _part(work, 1, "gen", [2000], n=64)
+    with pytest.raises(ValueError, match=f"{bad}.*another protocol"):
+        tool.merge_parts(work, tool.FULL)
+    assert not work.curve("gen").exists()
+    _part(work, 1, "gen", [2000], sizes=tool.SMOKE)
+    with pytest.raises(ValueError, match="another protocol"):
+        tool.merge_parts(work, tool.FULL)
+
+
+def test_recover_merges_the_part_files_of_a_cut_call(tmp_path):
+    """A call cut while scoring left part files under DIR/score and no
+    merged curve (gen) or an older one (ema): `recover` adds every part's
+    rows, sorted, and a second `recover` finds nothing to add."""
+    work = tool.Work.at(tmp_path / "w")
+    work.root.mkdir(parents=True)
+    tool.ensure_config(work, tool.FULL)
+    _snapshots(work.checkpoints, [1000, 2000, 3000])
+    _part(work, 0, "gen", [1000, 3000])
+    _part(work, 1, "gen", [2000])
+    _part(work, 1, "ema", [2000])
+    work.curve("ema").write_text(json.dumps(
+        {**tool.curve_meta(tool.FULL, "ema"), "complete": False,
+         "rows": [{"iteration": 1000, "fid": 9.0, "target_domain_rate": 1.0}]}))
+    out = tool.main(["recover", "--work", str(work.root), "--device", "cpu"])["recover"]
+    assert out == {"gen": {"rows": 3, "last": 3000, "from_parts": 3},
+                   "ema": {"rows": 2, "last": 2000, "from_parts": 1}}
+    gen, ema = (json.loads(work.curve(p).read_text()) for p in tool.PREFIXES)
+    assert [r["iteration"] for r in gen["rows"]] == [1000, 2000, 3000] and gen["complete"]
+    assert gen["best"]["iteration"] == 1000
+    assert [r["fid"] for r in ema["rows"]] == [9.0, 2.0] and ema["complete"] is False
+    assert tool.main(["recover", "--work", str(work.root), "--device", "cpu"])["recover"] == {
+        p: {"skipped": True} for p in tool.PREFIXES}
+
+
+def test_all_score_after_scores_every_snapshot_after_training(tmp_path, monkeypatch):
+    """`all --score_after --score_on 0,1,2`: the classifier and calibration
+    in a child on card 2 beside training, then three scorers (here threads),
+    one a card, each over its interleaved share in one sweep a family, their
+    parts merged into both curves; then `report`. alongside.json keeps the
+    placement, a backlog of every snapshot, each scorer's seconds and the
+    seconds from the end of training to the last row."""
+    import threading
+
+    fake = _FakeEntryPoints(monkeypatch)
+    docs = tmp_path / "docs"
+    monkeypatch.setattr(tool, "DOCS", docs)
+    monkeypatch.setattr(tool, "SCORER_POLL", 0.01)
+    children = []
+
+    class _Child:
+        def __init__(self, cmd, cwd, env, stdout, stderr):
+            children.append((cmd, env))
+            self.thread = threading.Thread(target=tool.main, args=(cmd[2:],))
+            self.thread.start()
+
+        def poll(self):
+            return None if self.thread.is_alive() else 0
+
+        def wait(self, timeout=None):
+            self.thread.join(timeout)
+            return self.poll()
+
+        returncode = property(poll)
+
+    monkeypatch.setattr(tool.subprocess, "Popen", _Child)
+    w = tmp_path / "w"
+    out = tool.main(["all", "--score_after", "--work", str(w), "--device", "cpu",
+                     "--iters", "3000", "--score_on", "0,1,2", "--scorer_threads", "8"])
+    base = ["--work", str(w), "--device", "cpu", "--data_root", str(w / "data")]
+    assert [(c[2:], e["CUDA_VISIBLE_DEVICES"], e["OMP_NUM_THREADS"]) for c, e in children] == [
+        (["classifier"] + base, "2", "8")] + [
+        (["score"] + base + ["--worker", str(k)], str(k), "8") for k in range(3)]
+    kinds = [c[0] for c in fake.calls]
+    assert kinds.index("train") < kinds.index("fid_curve") and kinds.count("fid_curve") == 6
+    assert kinds.count("inception") == kinds.count("calibrate") == 1
+    plan = json.loads((w / "score_plan.json").read_text())["workers"]
+    assert [[tuple(x) for x in p["share"]] for p in plan] == [
+        [("gen", 1000), ("ema", 2000)], [("ema", 1000), ("gen", 3000)],
+        [("gen", 2000), ("ema", 3000)]]
+    for k, rec in enumerate(out["score"]):
+        assert rec["worker"] == k and set(rec["sweeps"]) == set(tool.PREFIXES)
+        for p, sweep in rec["sweeps"].items():
+            assert sweep["argv"][sweep["argv"].index("--run_dir") + 1] == str(w / "score" / str(k))
+            assert "--start_after" not in sweep["argv"]
+            assert sweep["scored"] == [it for q, it in plan[k]["share"] if q == p]
+    for p in tool.PREFIXES:
+        doc = json.loads(tool.Work.at(w).curve(p).read_text())
+        assert doc["rows"] == _recorded(p)["rows"][:3] and doc["complete"] is True
+    along = json.loads((w / "alongside.json").read_text())
+    assert along["mode"] == "score_after" and along["placement"]["classifier"] == "2"
+    assert [s["card"] for s in along["placement"]["scorers"]] == ["0", "1", "2"]
+    assert along["unscored_at_train_end"] == along["snapshots_at_train_end"] == {
+        "gen": 3, "ema": 3}
+    assert sorted(s["worker"] for s in along["scorers"]) == [0, 1, 2]
+    assert all(s["exit"] == 0 and s["snapshots"] == 2 for s in along["scorers"])
+    assert along["seconds_from_train_end_to_last_row"] is not None
+    assert along["classifier"]["seconds"] >= 0 and along["scorer_threads"] == 8
+    assert out["report"]["alongside"] == along
+    assert out["report"]["curves"]["gen"]["iterations"] == [1000, 2000, 3000]
+    assert sorted(p.name for p in docs.iterdir()) == [
+        "fid_curve_ema.json", "fid_curve_gen.json", "summary.json"]
+
+
+@pytest.fixture(scope="module")
+def scored(tmp_path_factory):
+    """A tiny config's work directory with three gen and three ema
+    snapshots (distinct random generators) on PNG folders, scored at the
+    `--smoke` protocol with `tests/torch_scorer_stub.py`'s scorer: once in
+    one sweep a family in this process, and once by `score_after` with two
+    scorers, each a separate process on the CPU."""
+    import argparse
+    import shutil
+
+    import numpy as np
+    from PIL import Image
+
+    from aclgan_tpu_torch import config
+    from aclgan_tpu_torch.cli import fid_curve
+    from aclgan_tpu_torch.trainer import ACLGAN
+    from aclgan_tpu_torch.utils.checkpoint import save_generators
+    from tests.helpers import tiny_config
+    from tests.torch_scorer_stub import PixelScorer
+
+    root = tmp_path_factory.mktemp("score_after")
+    w = root / "w"
+    rng = np.random.RandomState(0)
+    for sub in ("testA", "testB"):
+        (w / "data" / sub).mkdir(parents=True)
+        for i in range(12):
+            Image.fromarray(rng.randint(0, 256, (18, 20, 3), dtype=np.uint8)).save(
+                w / "data" / sub / f"{i}.png")
+    cfg = tiny_config()
+    cfg.data.synthetic, cfg.data.data_root, cfg.data.input_dim_b = False, str(w / "data"), 3
+    config.save_config(config.from_dict(cfg.to_dict()), w / "synthfaces_hard.yaml")
+    work = tool.Work.at(w)
+    work.checkpoints.mkdir(parents=True)
+    model = ACLGAN(config.load_config(work.config), device="cpu")
+    for seed, (p, it) in enumerate((p, it) for it in (2, 4, 6) for p in tool.PREFIXES):
+        ACLGAN.__init__(model, config.load_config(work.config), device="cpu", seed=seed)
+        save_generators(str(work.checkpoints / f"{p}_{it:08d}.pt"), model)
+    work.inception.write_bytes(b"")
+    args = argparse.Namespace(device="cpu", smoke=True, inception_weights=None,
+                              scorer_threads=2, worker=None)
+    one = root / "one"
+    shutil.copytree(w, one, symlinks=True)
+    mp = pytest.MonkeyPatch()
+    mp.setattr(tool, "ensure_config", lambda work, sizes: config.load_config(work.config))
+    mp.setattr(fid_curve, "InceptionScorer", PixelScorer)
+    mp.setattr(tool, "SCORER_POLL", 0.1)
+    try:
+        import torch
+
+        threads = torch.get_num_threads()
+        torch.set_num_threads(args.scorer_threads)
+        try:
+            tool.stage_curves(tool.Work.at(one), tool.SMOKE, args)
+        finally:
+            torch.set_num_threads(threads)
+        mp.setattr(tool.subprocess, "Popen", _StubbedPopen)
+        record = {"placement": {}, "scorers": []}
+        t_end = tool.time.time()
+        recs = tool.score_after(work, tool.SMOKE, args, [None, None], record, t_end, [])
+    finally:
+        mp.undo()
+    return work, tool.Work.at(one), args, record, recs
+
+
+class _StubbedPopen(subprocess.Popen):
+    """The tool's child process, run through `tests/torch_scorer_stub.py`."""
+
+    def __init__(self, cmd, **kw):
+        super().__init__([cmd[0], str(ROOT / "tests" / "torch_scorer_stub.py"), *cmd[2:]], **kw)
+
+
+def test_score_after_in_two_processes_equals_one_sweep(scored):
+    """Two scorer processes, one family each, merged: both curve files
+    equal the one-process sweep's, key for key (rows, best, protocol,
+    complete)."""
+    work, one, _, record, recs = scored
+    for p in tool.PREFIXES:
+        got, want = (json.loads(w.curve(p).read_text()) for w in (work, one))
+        assert [r["iteration"] for r in want["rows"]] == [2, 4, 6] and want["complete"]
+        assert got == want
+    assert [r["share"] for r in recs] == [[["gen", 2], ["gen", 4], ["gen", 6]],
+                                          [["ema", 2], ["ema", 4], ["ema", 6]]]
+    for rec, p in zip(recs, tool.PREFIXES):
+        assert list(rec["sweeps"]) == [p] and len(rec["sweeps"][p]["seconds_a_snapshot"]) == 3
+        assert rec["sweeps"][p]["derived"]["k2"] == rec["sweeps"][p]["launches"]["k2"] == 0
+    assert sorted((s["worker"], s["exit"], s["log"]) for s in record["scorers"]) == [
+        (0, 0, "score_0.log"), (1, 0, "score_1.log")]
+    assert record["seconds_from_train_end_to_last_row"] > 0
+    sweeps = json.loads(work.log("curves_log").read_text())["sweeps"]
+    assert sorted((s["worker"], s["prefix"]) for s in sweeps) == [(0, "gen"), (1, "ema")]
+
+
+def test_a_sweep_after_score_after_resumes_after_the_merged_rows(scored, tmp_path):
+    """`curves` over a curve that `score_after` merged resumes with
+    `--start_after` its last row and scores only the newer snapshots."""
+    import shutil
+
+    from aclgan_tpu_torch import config
+    from aclgan_tpu_torch.cli import fid_curve
+    from tests.torch_scorer_stub import PixelScorer
+
+    work, _, args, _, _ = scored
+    w = tool.Work.at(shutil.copytree(work.root, tmp_path / "w"))
+    for p in tool.PREFIXES:
+        shutil.copy(w.checkpoints / f"{p}_00000006.pt", w.checkpoints / f"{p}_00000008.pt")
+    mp = pytest.MonkeyPatch()
+    mp.setattr(tool, "ensure_config", lambda work, sizes: config.load_config(work.config))
+    mp.setattr(fid_curve, "InceptionScorer", PixelScorer)
+    try:
+        sweeps = tool.stage_curves(w, tool.SMOKE, args)
+    finally:
+        mp.undo()
+    for p in tool.PREFIXES:
+        argv = sweeps[p]["argv"]
+        assert argv[argv.index("--start_after") + 1] == "6" and sweeps[p]["scored"] == [8]
+        doc = json.loads(w.curve(p).read_text())
+        assert [r["iteration"] for r in doc["rows"]] == [2, 4, 6, 8] and doc["complete"]
+        assert doc["rows"][:3] == json.loads(work.curve(p).read_text())["rows"]
+
+
+def test_a_failed_scorer_fails_the_stage_and_names_its_log(scored, tmp_path):
+    """A scorer whose share holds a broken snapshot file fails after its
+    first row: the stage raises naming its log once the other scorer has
+    ended, and both scorers' rows are merged."""
+    import shutil
+
+    work, _, args, _, _ = scored
+    w = tool.Work.at(shutil.copytree(work.root, tmp_path / "w"))
+    shutil.rmtree(w.root / "score")  # else its parts hold every row: nothing left to score
+    for p in tool.PREFIXES:
+        w.curve(p).unlink()
+    (w.checkpoints / "ema_00000004.pt").write_bytes(b"not a snapshot")
+    mp = pytest.MonkeyPatch()
+    mp.setattr(tool.subprocess, "Popen", _StubbedPopen)
+    mp.setattr(tool, "SCORER_POLL", 0.1)
+    record = {"placement": {}, "scorers": []}
+    try:
+        with pytest.raises(RuntimeError, match=r"the score stage failed \{'score_1': 1\}; "
+                                               rf"see {w.root / 'score_1.log'}"):
+            tool.score_after(w, tool.SMOKE, args, [None, None], record, tool.time.time(), [])
+    finally:
+        mp.undo()
+    assert "Traceback" in (w.root / "score_1.log").read_text()
+    assert [r["iteration"] for r in json.loads(w.curve("gen").read_text())["rows"]] == [2, 4, 6]
+    ema = json.loads(w.curve("ema").read_text())
+    assert [r["iteration"] for r in ema["rows"]] == [2] and ema["complete"] is False
+    assert sorted((s["worker"], s["exit"]) for s in record["scorers"]) == [(0, 0), (1, 1)]

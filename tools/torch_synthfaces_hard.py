@@ -4,7 +4,7 @@ held against the JAX package's recorded run (`docs/run_synthfaces_hard/`).
 
     python3 tools/torch_synthfaces_hard.py [STAGE] --work DIR [--iters N]
         [--device cuda|cpu] [--smoke] [--data_root DIR] [--inception_weights PT]
-        [--recorded DIR] [--alongside] [--deadline S] [--world N]
+        [--recorded DIR] [--alongside | --score_after] [--deadline S] [--world N]
         [--score_on CARDS] [--scorer_threads T] [--docs DIR]
 
 STAGE is one of `dataset`, `train`, `inception`, `curves`, `calibrate`,
@@ -66,6 +66,27 @@ training the classifier) each `follow` sees only its card. The snapshots
 still unscored when training ends and the seconds scoring ran on after it
 go to DIR/alongside.json.
 
+`all --score_after --score_on C1,...,CN` runs `dataset`, then `train` while
+one process (`classifier`, on CN) fine-tunes the classifier and
+calibrates and scores nothing, then, once training has ended, N scorers
+(`score`, one a listed card, each seeing only that card; a card listed twice
+gets two), then `report`. The snapshots of both families are split among
+the scorers interleaved (`score_split`: the k-th takes every N-th
+family-snapshot in iteration order, from the k-th on). Each scorer runs one
+`cli.fid_curve` sweep a family over a run directory (DIR/score/<k>) whose
+`checkpoints/` hard-links its share; its curve files there are its part files,
+which `cli.fid_curve` rewrites after every row. The parent merges the parts
+into DIR's curve files as each scorer ends (`merge_parts`, which refuses a
+part of another protocol), and so does `recover`, so a call cut while
+scoring keeps every row scored. DIR/alongside.json holds the placement, the
+backlog when training ended, each scorer's seconds and the seconds from the
+end of training to the last row; it is written when training ends and
+when each scorer ends. A rerun scores only what no curve or part holds.
+
+`train_rank` also reads its process's CPU seconds (its loader threads
+included) each `log_iter` iterations, and `report` prints them a second of
+each 1,000 iterations beside each rank's feed-wait share.
+
 `report` compares with `--recorded` (default `docs/run_synthfaces_hard`).
 `--smoke` shrinks every size (64 images a domain, a 40-step classifier, 40
 iterations with snapshots every 20, curves at n 64 with 2 styles and 20
@@ -93,6 +114,7 @@ import shutil
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Any, Callable, Dict, List, Optional, Tuple
 from unittest import mock
@@ -205,6 +227,14 @@ class Work:
 
     def curve(self, prefix: str) -> Path:
         return self.run_dir / f"fid_curve_{prefix}.json"
+
+    def scorer_dir(self, k: int) -> Path:
+        """The run directory of `all --score_after`'s k-th scorer: its share's
+        snapshots under checkpoints/, its part curve files beside them."""
+        return self.root / "score" / str(k)
+
+    def parts(self, prefix: str) -> List[Path]:
+        return sorted(self.root.glob(f"score/*/fid_curve_{prefix}.json"))
 
     @property
     def train_done(self) -> Path:
@@ -342,6 +372,15 @@ def curve_plan(doc: Optional[Dict[str, Any]], stamps: List[int],
     return max(done, default=0)
 
 
+def score_split(stamps: Dict[str, List[int]], n: int) -> List[List[Tuple[str, int]]]:
+    """The shares of `n` scorers: the family-snapshots in iteration order
+    (gen before ema at one iteration), the k-th scorer taking every n-th
+    from the k-th on, so a cut call leaves its missing rows spread over
+    the curve."""
+    items = sorted(((it, PREFIXES.index(p)) for p in PREFIXES for it in stamps.get(p, [])))
+    return [[(PREFIXES[f], it) for it, f in items[k::n]] for k in range(n)]
+
+
 def cadence_counts(start: int, end: int, epoch_len: int, cfg: Config,
                    rank: int = 0) -> Dict[str, int]:
     """What the train CLI runs on rank `rank` over global iterations
@@ -428,6 +467,13 @@ def _launches():
     from aclgan_tpu_torch.ops.kernels import instance_norm as K
 
     return K.launches, K.bwd_launches
+
+
+def process_cpu_seconds() -> float:
+    """This process's user + system CPU seconds, every thread's (the data
+    loader's workers are threads) included."""
+    t = os.times()
+    return t.user + t.system
 
 
 def _sync(device: torch.device) -> None:
@@ -604,9 +650,9 @@ def train_rank(spec_path: str) -> None:
     the CPU), which puts the CLI in the config's data-parallel mesh without
     a changed key, and runs `cli.train.main` on its card. It counts its
     D+G and D-only steps, its `sample` calls, the K1 / K2 launches, the
-    seconds its feed kept it waiting (every `log_iter` iterations), its
-    VmRSS (rank 0 at each `Iteration:` line, the others every `log_iter`
-    iterations) and its peak device memory; rank 0 also the lines and the
+    seconds its feed kept it waiting and its process's CPU seconds (both
+    at the start and every `log_iter` iterations), its VmRSS (rank 0 at each `Iteration:` line, the others
+    every `log_iter` iterations) and its peak device memory; rank 0 also the lines and the
     EMA's rel-L2 from the live weights at each snapshot. Under a deadline,
     at the first iteration after each line that follows a snapshot every
     rank takes rank 0's decision by one broadcast and all stop there
@@ -630,6 +676,7 @@ def train_rank(spec_path: str) -> None:
     every, phase = cfg.snapshot_save_iter, cfg.log_iter % cfg.snapshot_save_iter
     state = {"done": start, "dg": 0, "d_only": 0, "samples": 0, "model": None}
     waited, feed = [0.0], []
+    cpu = [(start, round(process_cpu_seconds(), 3))]
     distance: Dict[str, Dict[str, float]] = {}
     step, sample, save = ACLGAN.train_step, ACLGAN.sample, cli_train.save_checkpoint
     if device.type == "cuda":
@@ -650,6 +697,7 @@ def train_rank(spec_path: str) -> None:
         state["dg" if do_dis and do_gen else "d_only"] += 1
         if state["done"] % cfg.log_iter == 0:
             feed.append((state["done"], round(waited[0], 4)))
+            cpu.append((state["done"], round(process_cpu_seconds(), 3)))
             if rank:
                 rec.iteration = state["done"]
                 rec.sample()
@@ -691,7 +739,7 @@ def train_rank(spec_path: str) -> None:
         "stopped_at": stopped, "seconds": time.time() - t0,
         "steps": {"dg": state["dg"], "d_only": state["d_only"], "samples": state["samples"]},
         "launches": {"k1": k1, "k2": k2}, "lines": rec.lines, "rss": rec.rss,
-        "feed_wait_seconds": feed,
+        "feed_wait_seconds": feed, "cpu_seconds": cpu,
         "peak_memory": (torch.cuda.max_memory_allocated(device) if device.type == "cuda"
                         else None),
         "ema_from_live_rel_l2": distance})
@@ -716,41 +764,108 @@ def stage_inception(work: Work, sizes: Sizes, args) -> Dict[str, Any]:
     return doc
 
 
-def stage_curves(work: Work, sizes: Sizes, args, families=PREFIXES) -> Dict[str, Any]:
+def _sweep(work: Work, sizes: Sizes, args, prefix: str, run_dir: Path,
+           start_after: int = 0) -> Dict[str, Any]:
+    """`cli.fid_curve.main` over the `prefix` snapshots of `run_dir` after
+    `start_after`: its argv and seconds, the snapshots it scored, each one's
+    seconds and its host sqrtm's, and the (K1, K2) launches beside the count
+    its batches give."""
     from aclgan_tpu_torch.cli import fid_curve
 
-    ensure_config(work, sizes)
-    out = {}
-    for prefix in families:
-        stamps = snapshot_stamps(work.checkpoints, prefix)
-        meta = curve_meta(sizes, prefix)
-        start_after = curve_plan(_read(work.curve(prefix)), stamps, meta)
-        if start_after is None:
-            out[prefix] = {"skipped": True}
-            continue
-        argv = ["--config", str(work.config), "--run_dir", str(work.run_dir),
-                "--inception_weights", str(work.inception), "--n", str(sizes.curve_n),
-                "--styles", str(sizes.styles), "--bootstrap", str(sizes.bootstrap),
-                "--prefix", prefix, "--device", args.device]
-        if start_after:
-            argv += ["--start_after", str(start_after)]
-        k0 = _launches()
-        t0 = time.time()
-        r = fid_curve.main(argv)
-        _sync(torch.device(args.device))
-        scored = [s for s in stamps if s > start_after]
-        batches = math.ceil(sizes.curve_n / min(fid_curve.BATCH, sizes.curve_n))
-        out[prefix] = {
-            "argv": argv, "seconds": time.time() - t0, "scored": scored,
+    argv = ["--config", str(work.config), "--run_dir", str(run_dir),
+            "--inception_weights", str(work.inception), "--n", str(sizes.curve_n),
+            "--styles", str(sizes.styles), "--bootstrap", str(sizes.bootstrap),
+            "--prefix", prefix, "--device", args.device]
+    if start_after:
+        argv += ["--start_after", str(start_after)]
+    k0 = _launches()
+    t0 = time.time()
+    r = fid_curve.main(argv)
+    _sync(torch.device(args.device))
+    scored = [s for s in snapshot_stamps(Path(run_dir) / "checkpoints", prefix)
+              if s > start_after]
+    batches = math.ceil(sizes.curve_n / min(fid_curve.BATCH, sizes.curve_n))
+    return {"argv": argv, "seconds": time.time() - t0, "scored": scored,
             "seconds_a_snapshot": r["seconds"], "fid_seconds": r["fid_seconds"],
             "launches": {"k1": _launches()[0] - k0[0], "k2": _launches()[1] - k0[1]},
             "derived": {"k1": (chip_smoke.LAUNCHES_PER_BATCH * batches * sizes.styles
                                * len(scored)),
                         "k2": 0}}
-    with _locked(work.log("curves_log")):  # a `follow` a family may write it at once
+
+
+def _log_sweeps(work: Work, sweeps: Dict[str, Dict[str, Any]], **keys) -> None:
+    with _locked(work.log("curves_log")):  # scorers in other processes write it too
         log = _read(work.log("curves_log"), {"sweeps": []})
-        log["sweeps"] += [dict(v, prefix=p) for p, v in out.items() if not v.get("skipped")]
+        log["sweeps"] += [dict(v, prefix=p, **keys) for p, v in sweeps.items()
+                          if not v.get("skipped")]
         _write(work.log("curves_log"), log)
+
+
+def stage_curves(work: Work, sizes: Sizes, args, families=PREFIXES) -> Dict[str, Any]:
+    ensure_config(work, sizes)
+    out = {}
+    for prefix in families:
+        start_after = curve_plan(_read(work.curve(prefix)),
+                                 snapshot_stamps(work.checkpoints, prefix),
+                                 curve_meta(sizes, prefix))
+        out[prefix] = ({"skipped": True} if start_after is None else
+                       _sweep(work, sizes, args, prefix, work.run_dir, start_after))
+    _log_sweeps(work, out)
+    return out
+
+
+def stage_score(work: Work, sizes: Sizes, args) -> Dict[str, Any]:
+    """Scorer `--worker K` of `all --score_after`: one `cli.fid_curve` sweep
+    a family of its share in DIR/score_plan.json, over its run directory
+    (`Work.scorer_dir`), whose checkpoints/ hard-links the share's snapshot
+    files; the sweeps' curve files there are its part files. Writes
+    DIR/score.<K>.json after each sweep."""
+    share = [tuple(x) for x in _read(work.log("score_plan"))["workers"][args.worker]["share"]]
+    run_dir = work.scorer_dir(args.worker)
+    (run_dir / "checkpoints").mkdir(parents=True, exist_ok=True)
+    for p, it in share:  # hard links: the CLI leaves symlinks (aliases) out
+        link = run_dir / "checkpoints" / f"{p}_{it:08d}.pt"
+        if not link.exists():
+            os.link(work.checkpoints / link.name, link)
+    t0 = time.time()
+    out: Dict[str, Any] = {"worker": args.worker, "share": share, "sweeps": {}}
+    for p in PREFIXES:
+        if any(q == p for q, _ in share):
+            out["sweeps"][p] = _sweep(work, sizes, args, p, run_dir)
+            _log_sweeps(work, {p: out["sweeps"][p]}, worker=args.worker)
+            out["seconds"] = time.time() - t0
+            _write(work.log(f"score.{args.worker}"), out)
+    return out
+
+
+def merge_parts(work: Work, sizes: Sizes) -> Dict[str, int]:
+    """Adds the rows of every part file under DIR/score to DIR's curve file
+    of its family (a part's row wins over the curve's at one iteration),
+    sorted by iteration, `best` and `complete` (every snapshot on disk has a
+    row) recomputed, as one sweep writes them; a family no part adds to is
+    left as it is. Refuses a part or a curve file of another protocol.
+    Returns the rows each family gained."""
+    out = {}
+    for p in PREFIXES:
+        meta, doc = curve_meta(sizes, p), _read(work.curve(p))
+        parts = [(path, _read(path)) for path in work.parts(p)]
+        for path, d in ([(work.curve(p), doc)] if doc is not None else []) + parts:
+            got = {k: d.get(k) for k in meta}
+            if got != meta:
+                raise ValueError(f"{path} was taken under another protocol: {got} against {meta}")
+        before = {r["iteration"]: r for r in (doc or {}).get("rows", [])}
+        rows = dict(before)
+        for _, d in parts:
+            rows.update((r["iteration"], r) for r in d["rows"])
+        out[p] = len(rows) - len(before)
+        if rows == before:
+            continue
+        stamps = snapshot_stamps(work.checkpoints, p)
+        merged = {"rows": [rows[i] for i in sorted(rows)], **meta,
+                  "complete": bool(stamps) and set(stamps) <= set(rows)}
+        merged["best"] = min(merged["rows"], key=lambda r: r["fid"])
+        work.curve(p).parent.mkdir(parents=True, exist_ok=True)
+        _write(work.curve(p), merged)
     return out
 
 
@@ -834,10 +949,16 @@ def calibration_fids(cfg: Config, inception: Path, data_root: Path, n: int,
             as_b[d] = round(float(np.mean(np.concatenate(hits))), 4)
     real = feature_stats(feats["testB"])
     out = {"n": n, "real_as_b": as_b}
-    for key, side in (("domain_gap", "testA"), ("floor", "trainB")):
+
+    def timed(side):
         t0 = time.time()
-        out[key] = round(float(frechet_distance(*real, *feature_stats(feats[side]))), 3)
-        out[f"{key}_sqrtm_seconds"] = time.time() - t0
+        return round(float(frechet_distance(*real, *feature_stats(feats[side]))), 3), \
+            time.time() - t0
+
+    sides = {"domain_gap": "testA", "floor": "trainB"}
+    with ThreadPoolExecutor(len(sides)) as pool:  # the two host sqrtm at once
+        for key, (fid, secs) in zip(sides, pool.map(timed, sides.values())):
+            out[key], out[f"{key}_sqrtm_seconds"] = fid, secs
     return out
 
 
@@ -849,6 +970,17 @@ def stage_calibrate(work: Work, sizes: Sizes, args) -> Dict[str, Any]:
     doc = calibration_fids(cfg, work.inception, work.data_root, sizes.curve_n, args.device)
     _write(work.log("calibrate"), doc)
     return doc
+
+
+def stage_classifier(work: Work, sizes: Sizes, args) -> Dict[str, Any]:
+    """The classifier and the calibration, what `all --score_after` runs
+    beside training; its seconds and the time it ended to
+    DIR/classifier.json."""
+    t0 = time.time()
+    out = {"inception": stage_inception(work, sizes, args),
+           "calibrate": stage_calibrate(work, sizes, args)}
+    _write(work.log("classifier"), {"seconds": round(time.time() - t0, 1), "ended": time.time()})
+    return out
 
 
 # printed by `cli.fid_curve` for each row, and after each sweep
@@ -887,7 +1019,9 @@ def stage_recover(work: Work, sizes: Sizes, args) -> Dict[str, Any]:
     """The curve files of a call that was cut before it copied them out,
     rebuilt from the `follow` logs it did copy (`curve_rows_from_log`;
     `follow_<family>.log` holds that family alone), under this run's
-    protocol and `complete` False; a curve file already there is kept."""
+    protocol and `complete` False; a curve file already there is kept.
+    Then the rows of the part files a cut `all --score_after` left under
+    DIR/score are merged in (`merge_parts`)."""
     rows: Dict[str, Dict[int, Any]] = {p: {} for p in PREFIXES}
     for log in sorted(work.root.glob("follow*.log")):
         family = log.stem.split("_", 1)[1] if "_" in log.stem else None
@@ -904,6 +1038,10 @@ def stage_recover(work: Work, sizes: Sizes, args) -> Dict[str, Any]:
         work.curve(p).parent.mkdir(parents=True, exist_ok=True)
         _write(work.curve(p), doc)
         out[p] = {"rows": len(doc["rows"]), "last": doc["rows"][-1]["iteration"]}
+    for p, added in merge_parts(work, sizes).items():
+        if added:
+            rows = _read(work.curve(p))["rows"]
+            out[p] = {"rows": len(rows), "last": rows[-1]["iteration"], "from_parts": added}
     return out
 
 
@@ -1123,26 +1261,29 @@ def _launches_ok(rec: Dict[str, Any], device: str) -> Optional[bool]:
 
 def _rank_summary(r: Dict[str, Any], seg: Dict[str, Any], every: int = 1000) -> Dict[str, Any]:
     """One rank of a `--world N` segment: its steps and samples and its
-    (K1, K2) against the cadence's, its memory, and the share of each
-    `every` iterations' seconds (rank 0's lines) it spent waiting on its
-    feed."""
+    (K1, K2) against the cadence's, its memory, the share of each `every`
+    iterations' seconds (rank 0's lines) it spent waiting on its feed, and
+    beside it its process's CPU seconds a second over the same iterations."""
     d = r["derived"]
     waits = {seg["start"]: 0.0, **dict(r["feed_wait_seconds"])}  # cumulative, at lines
+    cpu = dict(r.get("cpu_seconds", []))  # cumulative, at lines
     wall: Dict[int, List[float]] = {}  # window -> [seconds, its last line's iteration]
     for it, secs in seg["iteration_lines"]:
         w = wall.setdefault((it - 1) // every, [0.0, it])
         w[0], w[1] = w[0] + secs, it
-    share = {}
+    share, cores = {}, {}
     for k, (secs, hi) in sorted(wall.items()):
         lo = max(k * every, seg["start"])
         if lo in waits and hi in waits and secs > 0:
             share[f"{lo + 1}-{hi}"] = round((waits[hi] - waits[lo]) / secs, 4)
+        if lo in cpu and hi in cpu and secs > 0:
+            cores[f"{lo + 1}-{hi}"] = round((cpu[hi] - cpu[lo]) / secs, 4)
     return {"rank": r["rank"], "end": r["end"], "stopped_at": r["stopped_at"],
             "steps": r["steps"], "launches": r["launches"],
             "steps_ok": (r["steps"]["dg"], r["steps"]["d_only"], r["steps"]["samples"])
             == (d["dg"], d["d_only"], d["samples"]),
             "launches_ok": _launches_ok(r, seg["device"]),
-            "feed_wait_share": share,
+            "feed_wait_share": share, "cpu_seconds_a_second": cores,
             **_memory_summary(r, seg["start"], seg["end"])}
 
 
@@ -1262,18 +1403,25 @@ def _print_report(summary, curves, against) -> None:
         print(f"mean {s['mean_fid']}, best {s['best']}, lowest rate {s['min_rate']}; "
               f"the classifier rates real testB as B at {real.get('testB')}, real testA "
               f"at {real.get('testA')}")
+    for seg in (summary["train"] or {}).get("segments", []):
+        for r in seg.get("ranks", []):
+            print(f"\nrank {r['rank']}, iterations {seg['iterations']}: feed-wait share / "
+                  "CPU seconds a second of each 1,000\n" + ", ".join(
+                      f"{w} {s} / {r['cpu_seconds_a_second'].get(w, 'not measured')}"
+                      for w, s in r["feed_wait_share"].items()))
     print(f"\nverdict: {summary['verdict']}")
     print("bars: " + json.dumps(summary["bars"]))
 
 
 # ------------------------------------------------------------------ command line
-SCORER_THREADS = 4  # OpenMP / BLAS threads of the `follow` process (its host sqrtm)
+SCORER_THREADS = 4  # OpenMP / BLAS threads of each child process (its host sqrtm)
+THREAD_VARS = ("OMP_NUM_THREADS", "OPENBLAS_NUM_THREADS", "MKL_NUM_THREADS")
 
 
 def scorer_plan(score_on: Optional[str]) -> List[Tuple[Optional[str], Tuple[str, ...]]]:
     """(card, families) of each `follow`: one on the run's device for both
     families by default, one on the named card, or one a family on two."""
-    cards = [c.strip() for c in score_on.split(",")] if score_on else [None]
+    cards = _cards(score_on)
     if len(cards) == 1:
         return [(cards[0], PREFIXES)]
     if len(cards) != len(PREFIXES):
@@ -1281,33 +1429,67 @@ def scorer_plan(score_on: Optional[str]) -> List[Tuple[Optional[str], Tuple[str,
     return [(c, (p,)) for c, p in zip(cards, PREFIXES)]
 
 
+def _cards(score_on: Optional[str]) -> List[Optional[str]]:
+    return [c.strip() for c in score_on.split(",")] if score_on else [None]
+
+
+def _start_child(work: Work, args, stage: str, card: Optional[str], name: str,
+                 extra: Tuple[str, ...] = ()):
+    """This tool's `stage` in a child process that sees only `card` (all of
+    the run's devices when None), its OpenMP / BLAS threads capped at
+    `--scorer_threads`, its output in DIR/<name>.log. Returns (name, log,
+    process)."""
+    cmd = [sys.executable, str(Path(__file__).resolve()), stage, "--work", str(work.root),
+           "--device", args.device, "--data_root", str(work.data_root)]
+    if args.smoke:
+        cmd.append("--smoke")
+    if args.inception_weights:
+        cmd += ["--inception_weights", str(work.inception)]
+    cmd += list(extra)
+    env = dict(os.environ, **{k: str(args.scorer_threads) for k in THREAD_VARS})
+    if card is not None:
+        env["CUDA_VISIBLE_DEVICES"] = card
+    log = open(work.root / f"{name}.log", "a")
+    return name, log, subprocess.Popen(cmd, cwd=REPO, env=env, stdout=log,
+                                       stderr=subprocess.STDOUT)
+
+
+def _stop(children) -> None:
+    """Ends the children still running (a cut call), killing what is left
+    after 10 s, and closes their logs."""
+    live = [child for _, _, child in children if child.poll() is None]
+    for child in live:
+        child.terminate()
+    until = time.time() + 10
+    for child in live:
+        try:
+            child.wait(timeout=max(0.0, until - time.time()))
+        except subprocess.TimeoutExpired:
+            child.kill()
+            child.wait()
+    for _, log, _ in children:
+        log.close()
+
+
+def _failed(what: str, work: Work, codes: Dict[str, int]) -> RuntimeError:
+    return RuntimeError(f"the {what} stage failed {codes}; see "
+                        + ", ".join(str(work.root / f"{n}.log") for n in codes))
+
+
 def run_alongside(work: Work, sizes: Sizes, args, recorded, docs) -> Dict[str, Any]:
     """`all` with the curves scored beside training: the dataset, then each
     `follow` of `scorer_plan` in a child process while `train` runs (in
     this one, or on its ranks), then `report`. What was left to score when
     training ended (written then) and how long scoring ran on (written when
-it ends) go to DIR/alongside.json."""
+    it ends) go to DIR/alongside.json."""
     out = {"dataset": stage_dataset(work, sizes, args)}
     ensure_config(work, sizes)
     work.train_done.unlink(missing_ok=True)
-    children, plan = [], scorer_plan(args.score_on)
-    for card, families in plan:
-        cmd = [sys.executable, str(Path(__file__).resolve()), "follow", "--work",
-               str(work.root), "--device", args.device, "--data_root", str(work.data_root)]
-        if args.smoke:
-            cmd.append("--smoke")
-        if args.inception_weights:
-            cmd += ["--inception_weights", str(work.inception)]
-        if families != PREFIXES:
-            cmd += ["--families", ",".join(families)]
-        env = dict(os.environ, **{k: str(args.scorer_threads) for k in (
-            "OMP_NUM_THREADS", "OPENBLAS_NUM_THREADS", "MKL_NUM_THREADS")})
-        if card is not None:
-            env["CUDA_VISIBLE_DEVICES"] = card
-        name = "follow" if families == PREFIXES else f"follow_{families[0]}"
-        log = open(work.root / f"{name}.log", "a")
-        children.append((name, log, subprocess.Popen(cmd, cwd=REPO, env=env, stdout=log,
-                                                     stderr=subprocess.STDOUT)))
+    plan = scorer_plan(args.score_on)
+    children = [_start_child(work, args, "follow", card,
+                             "follow" if families == PREFIXES else f"follow_{families[0]}",
+                             () if families == PREFIXES else ("--families", ",".join(families)))
+                for card, families in plan]
     try:
         out["train"] = stage_train(work, sizes, args)
     finally:
@@ -1327,17 +1509,128 @@ it ends) go to DIR/alongside.json."""
     _write(work.log("alongside"), alongside)
     failed = {n: rc for n, rc in codes.items() if rc}
     if failed:
-        raise RuntimeError(f"the follow stage failed {failed}; see "
-                           + ", ".join(str(work.root / f"{n}.log") for n in failed))
+        raise _failed("follow", work, failed)
     out["report"] = report(work, sizes, recorded, docs, args.device)
     return out
+
+
+SCORER_POLL = 1.0  # seconds between looks at the running scorers
+
+
+def run_score_after(work: Work, sizes: Sizes, args, recorded, docs) -> Dict[str, Any]:
+    """`all --score_after`: the dataset, then `train` (in this process, or
+    on its ranks) while the `classifier` stage runs in a child process on
+    the last card of `--score_on`; once both have ended, `score_after`;
+    then `report`."""
+    out = {"dataset": stage_dataset(work, sizes, args)}
+    ensure_config(work, sizes)
+    cards = _cards(args.score_on)
+    children = [_start_child(work, args, "classifier", cards[-1], "classifier")]
+    t0 = time.time()
+    try:
+        out["train"] = stage_train(work, sizes, args)
+        t_end = time.time()
+        record = {"mode": "score_after", "scorer_threads": args.scorer_threads,
+                  "placement": {"classifier": cards[-1], "scorers": cards},
+                  "train_seconds": round(t_end - t0, 1),
+                  "snapshots_at_train_end": {p: len(snapshot_stamps(work.checkpoints, p))
+                                             for p in PREFIXES},
+                  "unscored_at_train_end": unscored(work, sizes),
+                  "classifier": None, "scorers": [],
+                  "seconds_from_train_end_to_last_row": None}
+        _write(work.log("alongside"), record)  # a call cut while scoring keeps the backlog
+        name, _, child = children[0]
+        if child.wait():
+            raise _failed("classifier", work, {name: child.returncode})
+        done = _read(work.log("classifier"))
+        record["classifier"] = {"seconds": done["seconds"],
+                                "ended_after_train_seconds": round(done["ended"] - t_end, 1)}
+        _write(work.log("alongside"), record)
+        out["score"] = score_after(work, sizes, args, cards, record, t_end, children)
+    finally:
+        _stop(children)
+    out["report"] = report(work, sizes, recorded, docs, args.device)
+    return out
+
+
+def score_after(work: Work, sizes: Sizes, args, cards: List[Optional[str]],
+                record: Dict[str, Any], t_end: float, children: list) -> List[Dict[str, Any]]:
+    """The curves of every snapshot no curve or part file holds yet, split
+    by `score_split` among one `score` child a card of `cards` (DIR/
+    score_plan.json), each seeing only its card. As each ends its rows are
+    merged into DIR's curve files (`merge_parts`) and its seconds go to
+    `record` (DIR/alongside.json), with the seconds from `t_end` (the end
+    of training) to the last row. A scorer that fails fails the stage,
+    naming its log, after the others have ended and their rows are merged.
+    Returns each scorer's DIR/score.<k>.json."""
+    merge_parts(work, sizes)  # the rows of a cut call's scorers
+    shutil.rmtree(work.root / "score", ignore_errors=True)
+    todo = {}
+    for p in PREFIXES:
+        done = {r["iteration"] for r in (_read(work.curve(p)) or {}).get("rows", [])}
+        todo[p] = [s for s in snapshot_stamps(work.checkpoints, p) if s not in done]
+    workers = [{"card": c, "share": s} for c, s in zip(cards, score_split(todo, len(cards)))
+               if s]
+    _write(work.log("score_plan"), {"workers": workers})
+    record["placement"]["scorers"] = workers
+    for k in range(len(cards)):
+        work.log(f"score.{k}").unlink(missing_ok=True)
+    started = time.time()
+    running = {k: _start_child(work, args, "score", w["card"], f"score_{k}",
+                               ("--worker", str(k))) for k, w in enumerate(workers)}
+    children += running.values()
+    codes = {}
+    while running:
+        for k, (name, _, child) in list(running.items()):
+            if child.poll() is None:
+                continue
+            del running[k]
+            codes[name] = child.returncode
+            merge_parts(work, sizes)
+            last_row = max((p.stat().st_mtime for f in PREFIXES for p in work.parts(f)),
+                           default=None)
+            record["scorers"].append({"worker": k, "card": workers[k]["card"],
+                                      "snapshots": len(workers[k]["share"]),
+                                      "exit": child.returncode,
+                                      "seconds": round(time.time() - started, 1),
+                                      "log": f"{name}.log"})
+            record["seconds_from_train_end_to_last_row"] = (
+                None if last_row is None else round(last_row - t_end, 1))
+            _write(work.log("alongside"), record)
+        if running:
+            time.sleep(SCORER_POLL)
+    failed = {n: rc for n, rc in codes.items() if rc}
+    if failed:
+        raise _failed("score", work, failed)
+    return [_read(work.log(f"score.{k}")) for k in range(len(workers))]
+
+
+@contextlib.contextmanager
+def _exit_on_sigterm():
+    """SIGTERM (a time limit around the tool) raises SystemExit in the main
+    thread for the block, so its children are ended on the way out."""
+    import signal
+    import threading
+
+    if threading.current_thread() is not threading.main_thread():
+        yield
+        return
+
+    def stop(signum, frame):
+        raise SystemExit(128 + signum)
+
+    old = signal.signal(signal.SIGTERM, stop)
+    try:
+        yield
+    finally:
+        signal.signal(signal.SIGTERM, old)
 
 
 def main(argv=None) -> Dict[str, Any]:
     t_start = time.time()
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("stage", nargs="?", default="all",
-                    choices=STAGES + ("all", "follow", RECOVER))
+                    choices=STAGES + ("all", "follow", "classifier", "score", RECOVER))
     ap.add_argument("--work", required=True, help="the run's directory (resumable)")
     ap.add_argument("--iters", type=int, default=None,
                     help="train to this iteration (default 3000, 40 with --smoke)")
@@ -1352,6 +1645,9 @@ def main(argv=None) -> Dict[str, Any]:
     ap.add_argument("--alongside", action="store_true",
                     help="with all: score each snapshot as training writes it, in a "
                          "second process")
+    ap.add_argument("--score_after", action="store_true",
+                    help="with all: score every snapshot after training, split among one "
+                         "process a card of --score_on")
     ap.add_argument("--deadline", type=float, default=None,
                     help="stop training after the last snapshot that lands within this "
                          "many seconds of the start")
@@ -1360,13 +1656,15 @@ def main(argv=None) -> Dict[str, Any]:
                          "in this process)")
     ap.add_argument("--score_on", default=None,
                     help="with --alongside: the card of the follow process, or two cards, "
-                         "one a family (default: the run's device)")
+                         "one a family; with --score_after: a card for each scorer, the last "
+                         "also training the classifier (default: the run's device)")
     ap.add_argument("--scorer_threads", type=int, default=SCORER_THREADS,
-                    help="OpenMP / BLAS threads of each follow process")
+                    help="OpenMP / BLAS threads of each follow, classifier or scorer process")
     ap.add_argument("--docs", default=None,
                     help="where report writes the record (default "
                          "docs/run_synthfaces_hard_torch; DIR/docs with --smoke)")
     ap.add_argument("--families", default=None, help=argparse.SUPPRESS)  # follow's own
+    ap.add_argument("--worker", type=int, default=None, help=argparse.SUPPRESS)  # score's own
     args = ap.parse_args(argv)
     args.stop_by = None if args.deadline is None else t_start + args.deadline
     from aclgan_tpu_torch.trainer import resolve_device
@@ -1385,10 +1683,14 @@ def main(argv=None) -> Dict[str, Any]:
               "calibrate": lambda: stage_calibrate(work, sizes, args),
               "report": lambda: report(work, sizes, recorded, docs, args.device),
               "follow": lambda: stage_follow(work, sizes, args),
+              "classifier": lambda: stage_classifier(work, sizes, args),
+              "score": lambda: stage_score(work, sizes, args),
               RECOVER: lambda: stage_recover(work, sizes, args)}
-    if args.stage == "all" and args.alongside:
+    if args.stage == "all" and (args.alongside or args.score_after):
+        run = run_score_after if args.score_after else run_alongside
         try:
-            return run_alongside(work, sizes, args, recorded, docs)
+            with _exit_on_sigterm():
+                return run(work, sizes, args, recorded, docs)
         except Refused as e:
             sys.exit(f"refused: {e}")
     out = {}
